@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel is a ``.cu`` source with a plain C interface, built on first use
+by :mod:`movae_tpu_torch.kernels.build` and bound with ``ctypes`` in a
+wrapper module beside its plain PyTorch version:
+
+  * ``nearest_code`` — nearest-codebook index of the VQ layer
+    (replaces ``movae_tpu/ops/vq.py:_inds_kernel``).
+
+``LAUNCH_COUNTS`` holds one plain integer per kernel; its wrapper adds one
+where it launches the kernel and nowhere else, so a run can show that it
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCH_COUNTS: Dict[str, int] = {"nearest_code": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0

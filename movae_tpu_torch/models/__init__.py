@@ -1,0 +1,104 @@
+"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``.
+
+Other architectures raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+
+from movae_tpu_torch.device import DeviceLike, resolve_device
+from movae_tpu_torch.models.base import MOVAEModel, resolve_lambda_weights
+from movae_tpu_torch.models.vq_vae import VQVAE
+
+__all__ = ["VQVAE", "MOVAEModel", "get_network", "init_model"]
+
+_NOT_PORTED = {
+    "vq_vae2": "Queue 1 item 7 (VQ-VAE-2)",
+    "pixelcnn": "Queue 1 item 8 (priors)",
+    "pixelsnail": "Queue 1 item 8 (priors)",
+}
+
+
+def _get(args, name, default=None):
+    if args is None:
+        return default
+    if isinstance(args, Mapping):
+        return args.get(name, default)
+    return getattr(args, name, default)
+
+
+def _weights(lambda_weights, names, defaults):
+    """Normalize user weights (dict or positional list, validated strictly)."""
+    if lambda_weights is None or isinstance(lambda_weights, Mapping):
+        return resolve_lambda_weights(names, lambda_weights, defaults)
+    lw = list(lambda_weights)
+    if len(lw) != len(names):
+        raise ValueError(
+            f"requires {len(names)} lambda_weights {tuple(names)}, "
+            f"got {len(lw)}")
+    return resolve_lambda_weights(names, dict(zip(names, lw)), defaults)
+
+
+def get_network(input_size: int, num_channels: int = 3, args: Any = None
+                ) -> MOVAEModel:
+    """Build a model from an args namespace/dict. The module's weights are
+    not initialized yet: call :func:`init_model`."""
+    arch = (_get(args, "arch", "vae") or "vae").lower()
+    if arch != "vq_vae":
+        item = _NOT_PORTED.get(arch, "Queue 1 item 11 (rest of the model zoo)")
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to movae_tpu_torch yet: "
+            f"ROADMAP.md {item}")
+    dtype = _get(args, "compute_dtype", "float32")
+    if dtype not in ("float32", torch.float32):
+        raise NotImplementedError(
+            f"compute_dtype {dtype!r}: the port computes in float32 only; "
+            f"bf16 compute is ROADMAP.md Queue 1 item 6 (deferred)")
+    recons_objective = (_get(args, "recons_objective", None)
+                        or _get(args, "recons_obj", None))
+    if recons_objective is None:
+        recons_objective = {"bernoulli": "bce", "gaussian": "mse",
+                            "laplacian": "l1"}.get(
+            _get(args, "recons_dist", "gaussian"), "mse")
+    recons_objective = recons_objective.lower()
+    if recons_objective == "perceptual":
+        raise NotImplementedError(
+            "recons_objective 'perceptual' needs the VGG tower: ROADMAP.md "
+            "Queue 1 item 10 (metrics)")
+    recons_activation = _get(args, "recons_activation", None)
+    if recons_activation is None:
+        recons_activation = "sigmoid" if recons_objective == "bce" else "tanh"
+    lambda_weights = (_get(args, "loss_weights", None)
+                      or _get(args, "lambda_weights", None))
+    vq_ema = bool(_get(args, "vq_ema", False))
+
+    names = ("reconstruction_loss",
+             *(() if vq_ema else ("embedding_loss",)), "commitment_loss")
+    defaults = {"reconstruction_loss": 1.0, "commitment_loss": 0.25}
+    if not vq_ema:
+        defaults["embedding_loss"] = 1.0
+    return VQVAE(
+        in_channels=num_channels,
+        embedding_dim=_get(args, "embedding_dim", 64) or 64,
+        num_embeddings=_get(args, "num_embeddings", 512) or 512,
+        hidden_dims=tuple(_get(args, "hidden_dims", (32, 64, 128, 256, 512))),
+        num_residual_layers=_get(args, "num_residual_layers", 2),
+        input_size=input_size, recons_activation=recons_activation,
+        recons_objective=recons_objective,
+        lambda_weights=_weights(lambda_weights, names, defaults),
+        vq_ema=vq_ema, vq_ema_decay=float(_get(args, "vq_ema_decay", 0.99)))
+
+
+def init_model(model: MOVAEModel, seed: int = 0,
+               device: DeviceLike = None) -> MOVAEModel:
+    """Initialize the weights from ``seed`` (on the CPU, so a seed gives the
+    same weights on every device) and move the model to ``device``
+    (default ``cuda``; raises if no card is present). Returns the model."""
+    dev = resolve_device(device)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
