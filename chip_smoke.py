@@ -5,18 +5,33 @@
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
 
 Phases, each of which fails the run:
-  1. build every CUDA kernel of the main path from the sources in the
-     checkout (``build/kernels/``), one nvcc per source, all at once;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (plus a ragged N and a small D), and time the
-     kernel, the plain version and one PyTorch library call that computes
-     the same function;
-  3. drive the main path — full-width VQ-VAE training (hidden (128, 256),
+  1. build every CUDA kernel of the main paths from the sources in the
+     checkout (``build/kernels/``), one nvcc per library (the flash
+     attention is one library per head dim), all at once;
+  2. hold the nearest-code kernel against its plain PyTorch version on the
+     card at the main path's shapes (plus a ragged N and a small D), and
+     time the kernel, the plain version and one PyTorch library call that
+     computes the same function;
+  2b. the same for the three causal flash-attention kernels (forward, dK/dV,
+     dQ): output and gradients against the plain version at the prior's
+     shape (B=16, H=8, L=4096, D=16), at L=4096, 1600 and 1025, and at
+     every other head dim the kernels are built for; times at the prior's
+     shape;
+  3. drive the stage-1 path — full-width VQ-VAE training (hidden (128, 256),
      K=512, D=64, batch 256, 32x32, adam 1e-3, float32 with TF32 off) —
      with agg=sum and agg=upgrad, launch counts set to 0 just before and
      read just after: every kernel must have run on every forward;
   4. card vs CPU lockstep at a small width: 3 upgrad steps from one init
-     must leave the parameters within 1e-4 of each other.
+     must leave the parameters within 1e-4 of each other;
+  5. drive the stage-2 path — code extraction through the full-width 256-px
+     VQ-VAE (64x64 codes, L=4096), then PixelSNAIL prior training at full
+     width (hidden 128, 8 blocks, 8 heads of 16) with batch 16 — counts set
+     to 0 just before and read just after: 8 launches of each flash kernel
+     per step and one nearest-code launch per extraction batch; then the
+     flash kernels against their plain version on the trained prior's own
+     q, k, v (its last attention layer);
+  6. card vs CPU lockstep of the prior at a small width with L=1600:
+     3 steps from one init within 1e-4.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a card,
@@ -40,6 +55,41 @@ FULL_WIDTH = dict(arch="vq_vae", embedding_dim=SLICE_D,
                   recons_activation="tanh")
 BATCH, SIZE = 256, 32
 WARMUP, TIMED = 3, 20
+# the stage-2 path: the 256-px VQ-VAE of configs/imagenet/vq_vae (hidden
+# (128, 256): 64x64 codes) and the default PixelSNAIL prior; the prior batch
+# is cut from the configs' 128 to 16
+PRIOR_SIZE, PRIOR_BATCH, PRIOR_WARMUP, PRIOR_TIMED = 256, 16, 3, 10
+EXTRACT_BATCH = 52  # 4 extraction batches = 208 code grids = 13 prior batches
+PRIOR_ARGS = dict(prior_type="pixelsnail", batch_size=PRIOR_BATCH, seed=0,
+                  pixelcnn_epochs=1, pixelcnn_lr=3e-4,
+                  pixelcnn_hidden_channels=128, pixelsnail_num_blocks=8,
+                  pixelsnail_num_res_blocks=2, pixelsnail_num_heads=8,
+                  pixelsnail_dropout=0.1, attention_dropout="output")
+FLASH_SLICE = (PRIOR_BATCH, 8, 4096, 16)  # (B, H, L, D) of every prior layer
+# the other shapes compared: L=4096 at batch 2, a 40x40 grid, L just past
+# the dense threshold, and short ragged L at the two remaining head dims
+FLASH_CASES = ((2, 8, 4096, 16), (2, 4, 1600, 64), (1, 2, 1025, 32),
+               (2, 2, 777, 8), (1, 2, 333, 128))
+# float32 sums over up to 4096 terms, taken in another order than the plain
+# version's GEMMs and softmax: both sides carry rounding of ~1e-6 relative,
+# so the kernel must sit within 1e-4 (output) and 1e-3 (gradients, which
+# add the di and dp subtractions) of the largest value
+FLASH_O_TOL, FLASH_GRAD_TOL = 1e-4, 1e-3
+# on the trained prior's q, k, v the logits reach ~1e4 and a float32 logit
+# carries ~1e-3 of absolute rounding: there the kernel is held against the
+# plain version in float64, within those limits or within twice the
+# distance of the float32 plain version from it, whichever is larger
+FLASH_PLAIN_FACTOR = 2.0
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+FLASH_REPLACES = {
+    "flash_attention_fwd": "jax/experimental/pallas/ops/tpu/"
+                           "flash_attention.py:589",
+    "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/"
+                               "flash_attention.py:941",
+    "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/"
+                              "flash_attention.py:1287",
+}
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -150,6 +200,163 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the flash-attention kernels vs their plain version
+# ---------------------------------------------------------------------------
+
+def compare_flash(torch, fa, q, k, v, do, exact: bool = False) -> dict:
+    """Output and dq/dk/dv (autograd, cotangent ``do``) of the kernels and
+    of the plain version on the same inputs: the largest absolute
+    difference of each and the largest absolute value of the plain one.
+    ``exact``: the reference is the plain version in float64, and the
+    float32 plain version's own distance from it is ``plain_err``."""
+    scale = q.shape[-1] ** -0.5
+    plain = fa.flash_causal_attention_plain
+    runs = [("cuda", fa.flash_causal_attention_cuda, torch.float32),
+            ("plain", plain, torch.float32)]
+    if exact:
+        runs.append(("exact", plain, torch.float64))
+    outs = {}
+    for name, fn, dtype in runs:
+        leaves = [t.to(dtype, copy=True).requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves, scale)
+        outs[name] = [o.detach(),
+                      *torch.autograd.grad(o, leaves, do.to(dtype))]
+    torch.cuda.synchronize()
+    res = {}
+    for i, key in enumerate(("o", "dq", "dk", "dv")):
+        want = outs["exact" if exact else "plain"][i]
+        got = outs["cuda"][i]
+        res[key] = {"max_abs_err": float((got.to(want) - want).abs().max()),
+                    "max_abs": float(want.abs().max()),
+                    "finite": bool(torch.isfinite(got).all())}
+        if exact:
+            res[key]["plain_err"] = float(
+                (outs["plain"][i].to(want) - want).abs().max())
+    return res
+
+
+def flash_bounds(shape, peaks) -> dict:
+    """(ms, bound_by) per kernel: operations of the causal half over the
+    fp32 peak against each input read and output written once over HBM."""
+    b, h, L, d = shape
+    pairs = b * h * d * L * (L + 1) / 2
+    mat, row = 4.0 * b * h * L * d, 4.0 * b * h * L  # bytes of (.., D), (..)
+    work = {"flash_attention_fwd": (4 * pairs, 4 * mat + row),
+            "flash_attention_bwd_dkv": (8 * pairs, 6 * mat + 2 * row),
+            "flash_attention_bwd_dq": (6 * pairs, 5 * mat + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        ops_ms, bytes_ms = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+        out[name] = (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes", flops)
+    return out
+
+
+def check_flash(torch, fa, label: str, q, k, v, do, worst: dict,
+                exact: bool = False) -> None:
+    """compare_flash within the stated tolerances; raises the largest
+    errors in ``worst`` (per kernel) to this comparison's."""
+    res = compare_flash(torch, fa, q, k, v, do, exact)
+    log(f"flash_attention {label}: {json.dumps(res)}")
+    for key, r in res.items():
+        tol = FLASH_O_TOL if key == "o" else FLASH_GRAD_TOL
+        limit = max(tol * r["max_abs"],
+                    FLASH_PLAIN_FACTOR * r.get("plain_err", 0.0))
+        check(r["finite"] and r["max_abs_err"] <= limit,
+              f"flash_attention {key} at {label} is off its plain version: "
+              f"{r} (limit {limit:.3e}: {tol} of the largest value"
+              + (f" or {FLASH_PLAIN_FACTOR}x the float32 plain version's "
+                 f"own error" if exact else "") + ")")
+    for name, keys in (("flash_attention_fwd", ("o",)),
+                       ("flash_attention_bwd_dkv", ("dk", "dv")),
+                       ("flash_attention_bwd_dq", ("dq",))):
+        worst[name] = max(worst[name], *(res[k]["max_abs_err"] for k in keys))
+
+
+def phase_flash(torch, fa, dev, peaks) -> list:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for shape in FLASH_CASES:
+        check_flash(torch, fa, str(shape), *(
+            torch.randn(shape, generator=gen, device=dev) for _ in range(4)),
+            worst)
+    q, k, v, do = (torch.randn(FLASH_SLICE, generator=gen, device=dev)
+                   for _ in range(4))
+    check_flash(torch, fa, str(FLASH_SLICE), q, k, v, do, worst)
+    torch.cuda.empty_cache()
+
+    # times at the prior's shape, on the inputs compared first; each
+    # backward kernel on the forward kernel's own o and lse
+    import torch.nn.functional as F
+
+    scale = FLASH_SLICE[-1] ** -0.5
+    o, lse2 = fa.flash_fwd(q, k, v, scale)
+    di = (o * do).sum(-1)
+    ms = {
+        "flash_attention_fwd": time_ms(
+            torch, lambda: fa.flash_fwd(q, k, v, scale), reps=20),
+        "flash_attention_bwd_dkv": time_ms(
+            torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse2, di, scale),
+            reps=20),
+        "flash_attention_bwd_dq": time_ms(
+            torch, lambda: fa.flash_bwd_dq(q, k, v, do, lse2, di, scale),
+            reps=20),
+    }
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def backward_ms(out):
+        return time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps=5, warmup=2)
+
+    def fwd_bwd_ms(fn):
+        return time_ms(torch, lambda: torch.autograd.grad(
+            fn(*leaves, scale), leaves, do), reps=5, warmup=2)
+
+    pair_ms = backward_ms(fa.flash_causal_attention_cuda(*leaves, scale))
+    cuda_fb = fwd_bwd_ms(fa.flash_causal_attention_cuda)
+    with torch.no_grad():
+        plain_fwd = time_ms(torch, lambda: fa.flash_causal_attention_plain(
+            q, k, v, scale), reps=5, warmup=2)
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), reps=20)
+    plain_bwd = backward_ms(fa.flash_causal_attention_plain(*leaves, scale))
+    torch.cuda.empty_cache()
+    sdpa_bwd = backward_ms(F.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale))
+    sdpa_fb = fwd_bwd_ms(lambda *a: F.scaled_dot_product_attention(
+        *a[:3], is_causal=True, scale=a[3]))
+    del leaves, o, lse2, di, q, k, v, do
+    torch.cuda.empty_cache()
+    bounds = flash_bounds(FLASH_SLICE, peaks)
+    fwd_ms, dkv_ms, dq_ms = (ms[n] for n in FLASH_KERNELS)
+    log(f"flash_attention timing {FLASH_SLICE}: forward {fwd_ms:.4f} ms, "
+        f"dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms, backward through "
+        f"autograd (di + dK/dV + dQ) {pair_ms:.4f} ms, "
+        f"forward + backward {cuda_fb:.4f} ms; plain forward "
+        f"{plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
+        f"scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, backward "
+        f"{sdpa_bwd:.4f} ms, forward + backward {sdpa_fb:.4f} ms; bounds "
+        + ", ".join(f"{n} {b[0]:.4f} ms ({b[1]}, "
+                    f"{b[2] / (ms[n] * 1e-3) / 1e12:.2f} TFLOP/s achieved)"
+                    for n, b in bounds.items()))
+    rows = []
+    for name in FLASH_KERNELS:
+        fwd = name == "flash_attention_fwd"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "movae_tpu_torch/kernels/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": None,
+            "max_abs_err": worst[name], "ms": ms[name],
+            # the plain version and the library compute dq, dk and dv in
+            # one backward: both backward rows carry that backward's time
+            "plain_ms": plain_fwd if fwd else plain_bwd,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": sdpa_fwd if fwd else sdpa_bwd,
+        })
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path, full-width VQ-VAE training
 # ---------------------------------------------------------------------------
 
@@ -203,11 +410,12 @@ def train_mode(torch, agg: str, dev):
     return res, (step, state, batches, gen)
 
 
-def profile_steps(torch, res: dict, step, state, batches, gen) -> None:
-    """Device time by kernel over 5 steady steps (run after the counts are
-    read, so it adds no launches to the main path's count). The busy share
-    is kernel time over the untraced median step time: tracing slows the
-    host several-fold."""
+def profile_device(torch, label: str, run, steps: int, step_ms: float
+                   ) -> None:
+    """Device time by kernel over ``steps`` steady steps that ``run()``
+    drives (run after the counts are read, so it adds no launches to a
+    path's count). The busy share is kernel time over the untraced step
+    time ``step_ms``: tracing slows the host several-fold."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,8 +423,7 @@ def profile_steps(torch, res: dict, step, state, batches, gen) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        for i in range(5):
-            step(state, batches[i % len(batches)], gen)
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: the CPU-side ops' device totals, and the GPU
@@ -230,15 +437,14 @@ def profile_steps(torch, res: dict, step, state, batches, gen) -> None:
             else "self_cuda_time_total")
     kernels.sort(key=lambda e: getattr(e, attr), reverse=True)
     dev_ms = sum(getattr(e, attr) for e in kernels) / 1e3
-    step_ms = res["median_step_ms"]
-    lines = [f"profile agg={res['agg']}: 5 traced steps, wall {wall_ms:.2f} "
-             f"ms; device kernel time {dev_ms / 5:.3f} ms/step against an "
-             f"untraced median step of {step_ms:.3f} ms "
-             f"({100.0 * dev_ms / 5 / step_ms:.1f}% busy), "
-             f"{sum(e.count for e in kernels) // 5} kernels/step"]
+    lines = [f"profile {label}: {steps} traced steps, wall {wall_ms:.2f} "
+             f"ms; device kernel time {dev_ms / steps:.3f} ms/step against "
+             f"an untraced step of {step_ms:.3f} ms "
+             f"({100.0 * dev_ms / steps / step_ms:.1f}% busy), "
+             f"{sum(e.count for e in kernels) // steps} kernels/step"]
     for e in kernels[:15]:
-        lines.append(f"  {getattr(e, attr) / 1e3 / 5:9.3f} ms/step  "
-                     f"{e.count // 5:5d}x  {e.key[:90]}")
+        lines.append(f"  {getattr(e, attr) / 1e3 / steps:9.3f} ms/step  "
+                     f"{e.count // steps:5d}x  {e.key[:90]}")
     log("\n".join(lines))
 
 
@@ -283,6 +489,150 @@ def phase_lockstep(torch, dev) -> float:
     return delta
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the stage-2 path, code extraction + full-width PixelSNAIL training
+# ---------------------------------------------------------------------------
+
+def phase_prior(torch, dev, profile: bool):
+    """Returns the path's numbers and the trained prior with a batch of its
+    codes."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.train.prior import extract_codes, train_prior
+
+    vq = init_model(get_network(PRIOR_SIZE, 3, FULL_WIDTH), seed=0,
+                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    steps = PRIOR_WARMUP + PRIOR_TIMED
+    n_batches = -(-steps * PRIOR_BATCH // EXTRACT_BATCH)
+    images = [torch.randint(0, 256, (EXTRACT_BATCH, PRIOR_SIZE, PRIOR_SIZE,
+                                     3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(n_batches)]
+    args = SimpleNamespace(**PRIOR_ARGS)
+    trace = []
+    warm = PRIOR_WARMUP * PRIOR_BATCH
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    extract = extract_codes(vq, normalize_inputs=True)
+    codes = torch.cat([extract(x) for x in images])[:steps * PRIOR_BATCH]
+    codes = codes.cpu().numpy()
+    extract_s = time.perf_counter() - t0
+    # untimed steps in one call, then the timed steps in a second call on
+    # the same prior, timed as one window (the loop's own syncs only)
+    out = train_prior({"codes": codes[:warm]}, vq, args, device=dev,
+                      step_trace=trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_prior({"codes": codes[warm:]}, vq, args, device=dev,
+                      step_trace=trace, prior=out["model"])
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+
+    grid = PRIOR_SIZE // 4
+    check(codes.shape == (steps * PRIOR_BATCH, grid, grid)
+          and str(codes.dtype) == "int32"
+          and 0 <= codes.min() and codes.max() < FULL_WIDTH["num_embeddings"],
+          f"extracted codes: shape {codes.shape} dtype {codes.dtype} range "
+          f"[{codes.min()}, {codes.max()}]")
+    check(len(trace) == steps,
+          f"prior ran {len(trace)} steps, expected {steps}")
+    check(all(v == v and abs(v) != float("inf") for v in trace),
+          f"non-finite prior CE: {trace}")
+    check(trace[-1] < trace[0], f"prior CE did not fall: {trace}")
+    layers = PRIOR_ARGS["pixelsnail_num_blocks"]
+    for name in FLASH_KERNELS:
+        check(counts[name] == layers * steps,
+              f"{name} launched {counts[name]} times in {steps} prior steps "
+              f"of {layers} attention layers")
+    check(counts["nearest_code"] == n_batches,
+          f"nearest_code launched {counts['nearest_code']} times in "
+          f"{n_batches} extraction batches")
+    step_s = window_s / PRIOR_TIMED
+    res = {"steps": steps, "extract_batches": n_batches,
+           "distinct_codes": int(len(set(codes.reshape(-1).tolist()))),
+           "launches": counts, "extract_s": extract_s,
+           "timed_steps": PRIOR_TIMED, "window_s": window_s,
+           "step_ms": step_s * 1e3,
+           "codes_per_sec": PRIOR_BATCH * grid * grid / step_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "ce_first": trace[0], "ce_last": trace[-1]}
+    log(f"prior (PixelSNAIL, L={grid * grid}, batch {PRIOR_BATCH}): "
+        f"{json.dumps(res)}")
+    if profile:
+        few = {"codes": codes[:5 * PRIOR_BATCH]}
+        profile_device(torch, "prior", lambda: train_prior(
+            few, vq, args, device=dev, prior=out["model"]), 5,
+            res["step_ms"])
+    return res, out["model"], codes[:4]
+
+
+def phase_prior_kernels(torch, fa, prior, codes) -> dict:
+    """The flash kernels against their plain version on the trained
+    prior's own q, k, v: those of its last attention layer, on 4 of the
+    extracted code grids (cotangent: seeded noise). Its logits reach ~1e4
+    (the random-init prior's activations grow block by block), where float32
+    itself is off by ~1e-4 of the largest output, so the reference is the
+    plain version in float64."""
+    attn = prior.blocks[-1].attention
+    seen = []
+    hook = attn.register_forward_pre_hook(lambda mod, a: seen.append(a[0]))
+    dev = next(prior.parameters()).device
+    with torch.no_grad():
+        prior.logits_nchw(torch.from_numpy(codes).to(dev))
+        q, k, v = attn.qkv(seen[0])
+    hook.remove()
+    do = torch.randn(q.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(6))
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    check_flash(torch, fa, f"trained prior q/k/v {tuple(q.shape)}", q, k,
+                v, do, worst, exact=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6: prior training, card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_prior_lockstep(torch, dev) -> float:
+    import numpy as np
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.train.prior import train_prior
+
+    # a 40x40 grid (L=1600 > 1024: the card runs the flash kernels), head
+    # dim 32 / 2 = 16, dropout 0, adam eps 1e-4 as in phase 4
+    codes = np.random.default_rng(0).integers(0, 32, (6, 40, 40)).astype(
+        np.int32)
+    args = SimpleNamespace(prior_type="pixelsnail", batch_size=2, seed=3,
+                           pixelcnn_epochs=1, pixelcnn_hidden_channels=32,
+                           pixelsnail_num_blocks=1,
+                           pixelsnail_num_res_blocks=1,
+                           pixelsnail_num_heads=2, pixelsnail_dropout=0.0,
+                           pixelcnn_adam_eps=1e-4)
+    meta = SimpleNamespace(num_embeddings=32, embedding_dim=8)
+    runs = {}
+    for where in ("cpu", dev):
+        trace = []
+        out = train_prior({"codes": codes}, meta, args, device=where,
+                          step_trace=trace)
+        runs[str(where)] = (out["model"].state_dict(), trace)
+    (cpu_sd, cpu_ce), (dev_sd, dev_ce) = runs["cpu"], runs[str(dev)]
+    delta = max(float((cpu_sd[k] - dev_sd[k].cpu()).abs().max())
+                for k in cpu_sd)
+    log(f"prior lockstep card vs cpu, 3 steps at L=1600: CE cpu {cpu_ce} "
+        f"card {dev_ce}, max param delta {delta:.3e}")
+    check(len(dev_ce) == 3, f"prior lockstep ran {len(dev_ce)} steps")
+    check(delta < 1e-4, f"card and CPU prior parameters differ by "
+          f"{delta:.3e}")
+    return delta
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -300,6 +650,7 @@ def main() -> int:
         from movae_tpu_torch.device import resolve_device
         from movae_tpu_torch.kernels import (LAUNCH_COUNTS, build,
                                              reset_launch_counts)
+        from movae_tpu_torch.kernels import flash_attention as fa
         from movae_tpu_torch.kernels import nearest_code as nc
     except ImportError as e:
         print(f"chip_smoke: the movae_tpu_torch package must sit beside "
@@ -319,14 +670,16 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
 
+    start = time.perf_counter()
     try:
         t0 = time.perf_counter()
-        build.build(["nearest_code"])
+        build.build(list(build.TARGETS))
         log(f"build: {time.perf_counter() - t0:.1f} s")
         for src, text in build.build_logs.items():
             log(f"ptxas {src}:\n{text.strip()}")
 
         row = phase_kernels(torch, nc, dev, peaks)
+        flash_rows = phase_flash(torch, fa, dev, peaks)
 
         reset_launch_counts()
         runs = [train_mode(torch, agg, dev) for agg in ("sum", "upgrad")]
@@ -346,15 +699,29 @@ def main() -> int:
               f"nearest_code disagrees on trained latents: {res}")
         row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
         if args.profile:
-            for res_mode, ctx in runs:
-                profile_steps(torch, res_mode, *ctx)
+            for res_mode, (step, state, batches, gen) in runs:
+                profile_device(torch, f"agg={res_mode['agg']}", lambda: [
+                    step(state, batches[i % len(batches)], gen)
+                    for i in range(5)], 5, res_mode["median_step_ms"])
 
         phase_lockstep(torch, dev)
+
+        prior, model, codes = phase_prior(torch, dev, args.profile)
+        row["launches"] += prior["launches"]["nearest_code"]
+        trained = phase_prior_kernels(torch, fa, model, codes)
+        del model
+        torch.cuda.empty_cache()
+        for r in flash_rows:
+            r["launches"] = prior["launches"][r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], trained[r["name"]])
+        phase_prior_lockstep(torch, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    log(json.dumps({"kernels": [row]}))
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - start:.1f} s")
+    log(json.dumps({"kernels": [row, *flash_rows]}))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,7 +5,10 @@ by :mod:`movae_tpu_torch.kernels.build` and bound with ``ctypes`` in a
 wrapper module beside its plain PyTorch version:
 
   * ``nearest_code`` — nearest-codebook index of the VQ layer
-    (replaces ``movae_tpu/ops/vq.py:_inds_kernel``).
+    (replaces ``movae_tpu/ops/vq.py:_inds_kernel``);
+  * ``flash_attention`` — causal flash attention, three kernels: forward,
+    dK/dV and dQ (replace the stock Pallas TPU flash attention that
+    ``movae_tpu/ops/attention.py:causal_attention`` calls).
 
 ``LAUNCH_COUNTS`` holds one plain integer per kernel; its wrapper adds one
 where it launches the kernel and nowhere else, so a run can show that it
@@ -16,7 +19,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCH_COUNTS: Dict[str, int] = {"nearest_code": 0}
+LAUNCH_COUNTS: Dict[str, int] = {
+    "nearest_code": 0,
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd_dkv": 0,
+    "flash_attention_bwd_dq": 0,
+}
 
 
 def reset_launch_counts() -> None:

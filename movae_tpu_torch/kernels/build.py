@@ -1,9 +1,12 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
-its own shared library under ``<checkout>/build/kernels/`` (gitignored),
-then loaded with ``ctypes``. Libraries are named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+shared libraries under ``<checkout>/build/kernels/`` (gitignored), then
+loaded with ``ctypes``. ``TARGETS`` names every library: a source built once
+per template value (the flash-attention head dim) gives one library per
+value, so that each is its own ``nvcc`` job and all compile in parallel.
+Libraries are named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the first launch of a kernel calls
 :func:`load`, and a CPU-only host (no ``nvcc``) never reaches it.
@@ -18,12 +21,21 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
+# library name -> (source in this directory, extra nvcc flags)
+TARGETS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "nearest_code": ("nearest_code.cu", ()),
+    **{f"flash_attention_d{d}": ("flash_attention.cu",
+                                 (f"-DMOVAE_FLASH_D={d}",))
+       for d in FLASH_HEAD_DIMS},
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -42,27 +54,30 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(source: Path) -> Path:
-    h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + TARGETS[name][1]
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((KERNEL_DIR / TARGETS[name][0]).read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> List[Path]:
-    """Compile the named sources (``<name>.cu`` in this directory) that are
-    not built yet, one ``nvcc`` process each, all started together."""
+    """Compile the named ``TARGETS`` that are not built yet, one ``nvcc``
+    process each, all started together."""
     todo = []
     for name in names:
-        src = KERNEL_DIR / f"{name}.cu"
-        lib = _lib_path(src)
+        lib = _lib_path(name)
         if not lib.exists():
-            todo.append((name, src, lib))
+            todo.append((name, KERNEL_DIR / TARGETS[name][0], lib))
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
         for name, src, lib in todo:
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)]
             procs.append((name, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -70,17 +85,18 @@ def build(names: Sequence[str]) -> List[Path]:
         for name, lib, tmp, proc in procs:
             _, err = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{err}")
+                errors.append(f"nvcc failed for {name} "
+                              f"({TARGETS[name][0]}):\n{err}")
                 continue
             os.replace(tmp, lib)
             build_logs[name] = err
         if errors:
             raise RuntimeError("\n".join(errors))
-    return [_lib_path(KERNEL_DIR / f"{n}.cu") for n in names]
+    return [_lib_path(n) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``<name>.cu``'s shared library."""
+    """Build (if needed) and load the library of ``TARGETS[name]``."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

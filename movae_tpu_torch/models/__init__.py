@@ -1,5 +1,8 @@
 """Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``.
 
+The priors are not in this registry: ``movae_tpu_torch/train/prior.py:
+build_prior`` builds them, as in the JAX package.
+
 Other architectures raise ``NotImplementedError`` naming the ``ROADMAP.md``
 item that ports them.
 """
@@ -18,8 +21,10 @@ __all__ = ["VQVAE", "MOVAEModel", "get_network", "init_model"]
 
 _NOT_PORTED = {
     "vq_vae2": "Queue 1 item 7 (VQ-VAE-2)",
-    "pixelcnn": "Queue 1 item 8 (priors)",
-    "pixelsnail": "Queue 1 item 8 (priors)",
+    "pixelcnn": "Queue 1 item 8 (the flat priors are built by "
+                "movae_tpu_torch/train/prior.py:build_prior)",
+    "pixelsnail": "Queue 1 item 8 (the flat priors are built by "
+                  "movae_tpu_torch/train/prior.py:build_prior)",
 }
 
 

@@ -3,7 +3,8 @@
 The JAX package's flax trees come in as nested dicts of numpy arrays; they
 are mapped onto the reference-torch ``state_dict`` layout — the layout of
 ``movae_tpu/utils/torch_export.py:export_torch_state_dict``, of which this is
-a self-contained copy for ``vq_vae`` — and loaded strictly. No JAX needed.
+a self-contained copy for ``vq_vae``, ``pixelcnn`` and ``pixelsnail`` — and
+loaded strictly. No JAX needed.
 """
 
 from __future__ import annotations
@@ -66,6 +67,12 @@ class _Mapper:
         if bias:
             self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
 
+    def dense_as_1x1(self, tprefix: str, fpath: str) -> None:
+        """flax Dense (in, out) -> torch 1x1 Conv2d (out, in, 1, 1)."""
+        self.state[tprefix + ".weight"] = np.transpose(
+            self.take(fpath + "/kernel"))[:, :, None, None]
+        self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
+
     def finish(self) -> Dict[str, np.ndarray]:
         left = sorted(self.params) + sorted(self.stats)
         if left:
@@ -107,13 +114,72 @@ def vqvae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     return mp.finish()
 
 
-def load_jax_params(model: MOVAEModel, params: Mapping,
-                    batch_stats: Optional[Mapping] = None) -> MOVAEModel:
-    """Copy a flax param tree (nested dicts of numpy arrays) and its
-    batch_stats into ``model`` in place, strictly; returns the model."""
-    state = vqvae_state_dict(params, batch_stats)
+def _gated_res(mp: _Mapper, tprefix: str, fprefix: str) -> None:
+    for name in ("conv1", "conv2", "conv_gate", "conv_feature"):
+        mp.conv(f"{tprefix}.{name}", f"{fprefix}/{name}")
+
+
+def _prior_io(mp: _Mapper, body) -> Dict[str, np.ndarray]:
+    mp.state["embedding.weight"] = mp.take("embedding/embedding")
+    mp.conv("conv_in", "conv_in")
+    body()
+    mp.conv("conv_out.1", "out1")
+    mp.conv("conv_out.3", "out2")
+    return mp.finish()
+
+
+def pixelcnn_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``PixelCNN`` params -> reference-torch state_dict (numpy)."""
+    mp = _Mapper(params, None)
+
+    def body():
+        for i in range(_count(mp.params, "res_{}/conv1/kernel")):
+            _gated_res(mp, f"res_blocks.{i}", f"res_{i}")
+
+    return _prior_io(mp, body)
+
+
+def pixelsnail_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``PixelSNAIL`` params -> reference-torch state_dict (numpy);
+    the attention projections become 1x1 convolutions."""
+    mp = _Mapper(params, None)
+
+    def body():
+        for b in range(_count(mp.params, "block_{}/out_conv/kernel")):
+            t, f = f"blocks.{b}", f"block_{b}"
+            for r in range(_count(mp.params, f + "/res_{}/conv1/kernel")):
+                _gated_res(mp, f"{t}.res_blocks.{r}", f"{f}/res_{r}")
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                mp.dense_as_1x1(f"{t}.attention.{proj}",
+                                f"{f}/attention/{proj}")
+            mp.conv(f"{t}.out_conv", f"{f}/out_conv")
+
+    return _prior_io(mp, body)
+
+
+def _load_strict(model: torch.nn.Module, state: Mapping[str, np.ndarray]
+                 ) -> None:
     ref = model.state_dict()
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v, copy=True)).to(ref[k].dtype)
          for k, v in state.items()}, strict=True)
+
+
+def load_jax_prior_params(model: torch.nn.Module, params: Mapping
+                          ) -> torch.nn.Module:
+    """Copy a flax ``PixelCNN`` / ``PixelSNAIL`` param tree (nested dicts of
+    numpy arrays) into the port's prior in place, strictly; returns it."""
+    from movae_tpu_torch.models.pixelcnn import PixelSNAIL
+
+    fn = (pixelsnail_state_dict if isinstance(model, PixelSNAIL)
+          else pixelcnn_state_dict)
+    _load_strict(model, fn(params))
+    return model
+
+
+def load_jax_params(model: MOVAEModel, params: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> MOVAEModel:
+    """Copy a flax param tree (nested dicts of numpy arrays) and its
+    batch_stats into ``model`` in place, strictly; returns the model."""
+    _load_strict(model, vqvae_state_dict(params, batch_stats))
     return model
