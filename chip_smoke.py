@@ -7,7 +7,9 @@
 Phases, each of which fails the run:
   1. build every CUDA kernel of the main paths from the sources in the
      checkout (``build/kernels/``), one nvcc per library (the flash
-     attention is one library per head dim), all at once;
+     attention is one library per head dim), all at once; print each
+     kernel's registers and spills (ptxas) and its tensor-core mma count
+     (HMMA in ``cuobjdump -sass``, where the toolkit has it);
   2. hold the nearest-code kernel against its plain PyTorch version on the
      card at the main path's shapes (plus a ragged N and a small D), and
      time the kernel, the plain version and one PyTorch library call that
@@ -33,6 +35,11 @@ Phases, each of which fails the run:
   6. card vs CPU lockstep of the prior at a small width with L=1600:
      3 steps from one init within 1e-4.
 
+A kernel's bound is the larger of three times: its float32 products over
+the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
+exponentials over the MUFU rate, and its bytes over HBM; the log line keeps
+the older bound with the products on the fp32 CUDA cores beside it.
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a card,
 or without the ``movae_tpu_torch`` package beside this script.
@@ -43,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +101,14 @@ FLASH_REPLACES = {
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
+# dense TF32 on the tensor cores of the SXM part (data sheet), scaled to the
+# other parts by their fp32 rate. A float32-accurate product on the tensor
+# cores takes three TF32 passes (split TF32), so the bound's products run at
+# a third of it: 165 TFLOP/s on the SXM part
+TF32_SXM = 495e12
+# exp2 on the MUFU units: 16 a clock per SM against 128 fp32 FMA lanes, so
+# 1/8 of the FMA rate (132 SMs x 16 x 1.98 GHz = 4.18e12/s on the SXM part)
+MUFU_PER_FMA = 1 / 8
 
 
 class SmokeFailure(RuntimeError):
@@ -112,6 +128,64 @@ def card_peaks(name: str):
     n = name.lower()
     part = "pcie" if "pcie" in n else "nvl" if "nvl" in n else "sxm"
     return part, PEAKS[part]
+
+
+def bound(flops: float, exps: float, nbytes: float, peaks) -> dict:
+    """The least time the card could take: the larger of the products over
+    the split-TF32 rate, the exponentials over the MUFU rate and the bytes
+    over HBM; ``fp32_ms`` is the bound with the products on the fp32 CUDA
+    cores instead, as it was stated before."""
+    fp32, hbm = peaks
+    ops_ms = flops / (TF32_SXM / 3 * fp32 / PEAKS["sxm"][0]) * 1e3
+    exp_ms = exps / (fp32 / 2 * MUFU_PER_FMA) * 1e3
+    bytes_ms = nbytes / hbm * 1e3
+    ms = max(ops_ms, exp_ms, bytes_ms)
+    return {"ms": ms, "by": "bytes" if bytes_ms >= ms else "operations",
+            "products_ms": ops_ms, "exp2_ms": exp_ms, "bytes_ms": bytes_ms,
+            "fp32_ms": max(flops / fp32 * 1e3, bytes_ms), "flops": flops}
+
+
+def ptxas_summary(log_text: str) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    ``-Xptxas -v`` report of one library."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return out
+
+
+SASS_OPS = ("HMMA", "FFMA", "MUFU", "LDS")
+
+
+def sass_counts(cuobjdump: str, lib: str, ops=SASS_OPS) -> dict:
+    """{kernel: {op: count, "all": instructions}} of SASS opcodes in a
+    built library (static counts: every instruction of the binary once)."""
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : .*?([a-z_]+_kernel)", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys((*ops, "all"), 0)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if m and name:
+            out[name]["all"] += 1
+            if m.group(1) in ops:
+                out[name][m.group(1)] += 1
+    return out
 
 
 def time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
@@ -180,21 +254,20 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
     library_ms = time_ms(torch, lambda: torch.cdist(z, cb).argmin(1))
     flops = 2.0 * SLICE_N * SLICE_K * SLICE_D + 2.0 * SLICE_K * SLICE_D
     nbytes = 4.0 * (SLICE_N * SLICE_D + SLICE_K * SLICE_D) + 4.0 * SLICE_N
-    flop_peak, byte_peak = peaks
-    ops_ms, bytes_ms = flops / flop_peak * 1e3, nbytes / byte_peak * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    b = bound(flops, 0.0, nbytes, peaks)
     log(f"nearest_code timing N={SLICE_N} K={SLICE_K} D={SLICE_D}: "
         f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-        f"cdist+argmin {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
-        f"us (ops {ops_ms * 1e3:.2f} us, bytes {bytes_ms * 1e3:.2f} us), "
+        f"cdist+argmin {library_ms * 1e3:.2f} us, bound {b['ms'] * 1e3:.2f} "
+        f"us (products at split TF32 {b['products_ms'] * 1e3:.2f} us, bytes "
+        f"{b['bytes_ms'] * 1e3:.2f} us; on the fp32 CUDA cores "
+        f"{b['fp32_ms'] * 1e3:.2f} us), "
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
     return {
         "name": "nearest_code", "route": "cuda",
         "source": "movae_tpu_torch/kernels/nearest_code.cu",
         "replaces": "movae_tpu/ops/vq.py:93",
         "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "plain_ms": plain_ms, "bound_ms": b["ms"], "bound_by": b["by"],
         "library_ms": library_ms,
     }
 
@@ -236,20 +309,17 @@ def compare_flash(torch, fa, q, k, v, do, exact: bool = False) -> dict:
 
 
 def flash_bounds(shape, peaks) -> dict:
-    """(ms, bound_by) per kernel: operations of the causal half over the
-    fp32 peak against each input read and output written once over HBM."""
+    """:func:`bound` per kernel: the products of the causal half (2, 4 and
+    3 of them: 4, 8 and 6 flops per pair element), one exp2 per causal pair,
+    and each input read and output written once."""
     b, h, L, d = shape
-    pairs = b * h * d * L * (L + 1) / 2
+    pairs = b * h * L * (L + 1) / 2
     mat, row = 4.0 * b * h * L * d, 4.0 * b * h * L  # bytes of (.., D), (..)
-    work = {"flash_attention_fwd": (4 * pairs, 4 * mat + row),
-            "flash_attention_bwd_dkv": (8 * pairs, 6 * mat + 2 * row),
-            "flash_attention_bwd_dq": (6 * pairs, 5 * mat + 2 * row)}
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        ops_ms, bytes_ms = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
-        out[name] = (max(ops_ms, bytes_ms),
-                     "operations" if ops_ms >= bytes_ms else "bytes", flops)
-    return out
+    work = {"flash_attention_fwd": (4, 4 * mat + row),
+            "flash_attention_bwd_dkv": (8, 6 * mat + 2 * row),
+            "flash_attention_bwd_dq": (6, 5 * mat + 2 * row)}
+    return {name: bound(per * pairs * d, pairs, nbytes, peaks)
+            for name, (per, nbytes) in work.items()}
 
 
 def check_flash(torch, fa, label: str, q, k, v, do, worst: dict,
@@ -336,9 +406,12 @@ def phase_flash(torch, fa, dev, peaks) -> list:
         f"{plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; "
         f"scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, backward "
         f"{sdpa_bwd:.4f} ms, forward + backward {sdpa_fb:.4f} ms; bounds "
-        + ", ".join(f"{n} {b[0]:.4f} ms ({b[1]}, "
-                    f"{b[2] / (ms[n] * 1e-3) / 1e12:.2f} TFLOP/s achieved)"
-                    for n, b in bounds.items()))
+        + ", ".join(f"{n} {b['ms']:.4f} ms ({b['by']}: products at split "
+                    f"TF32 {b['products_ms']:.4f} ms, exp2 {b['exp2_ms']:.4f} "
+                    f"ms, bytes {b['bytes_ms']:.4f} ms; on the fp32 CUDA "
+                    f"cores {b['fp32_ms']:.4f} ms; "
+                    f"{b['flops'] / (ms[n] * 1e-3) / 1e12:.2f} TFLOP/s "
+                    f"achieved)" for n, b in bounds.items()))
     rows = []
     for name in FLASH_KERNELS:
         fwd = name == "flash_attention_fwd"
@@ -350,7 +423,7 @@ def phase_flash(torch, fa, dev, peaks) -> list:
             # the plain version and the library compute dq, dk and dv in
             # one backward: both backward rows carry that backward's time
             "plain_ms": plain_fwd if fwd else plain_bwd,
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "bound_ms": bounds[name]["ms"], "bound_by": bounds[name]["by"],
             "library_ms": sdpa_fwd if fwd else sdpa_bwd,
         })
     return rows
@@ -673,10 +746,21 @@ def main() -> int:
     start = time.perf_counter()
     try:
         t0 = time.perf_counter()
-        build.build(list(build.TARGETS))
+        libs = build.build(list(build.TARGETS))
         log(f"build: {time.perf_counter() - t0:.1f} s")
         for src, text in build.build_logs.items():
             log(f"ptxas {src}:\n{text.strip()}")
+        log("registers, spill stores, spill loads (bytes): " + json.dumps(
+            {src: ptxas_summary(text)
+             for src, text in build.build_logs.items()}))
+        cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                                 "cuobjdump")
+        if os.path.exists(cuobjdump):
+            log("SASS instructions per kernel (HMMA: tensor-core mma): " + json.dumps(
+                {n: sass_counts(cuobjdump, str(p))
+                 for n, p in zip(build.TARGETS, libs)}))
+        else:
+            log(f"SASS counts: no cuobjdump at {cuobjdump}")
 
         row = phase_kernels(torch, nc, dev, peaks)
         flash_rows = phase_flash(torch, fa, dev, peaks)

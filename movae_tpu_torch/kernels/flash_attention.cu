@@ -4,8 +4,12 @@
 // movae_tpu/ops/attention.py:causal_attention calls for L > 1024
 // (jax/experimental/pallas/ops/tpu/flash_attention.py, jax 0.9.0):
 //   flash_fwd_kernel     <- _flash_attention_impl (:589, pallas_call :758),
-//                           the forward of flash_attention (:140);
-//   flash_bwd_dkv_kernel <- _flash_attention_bwd_dkv (:941, pallas_call :1121);
+//                           the forward of flash_attention (:140); its body
+//                           is _flash_attention_kernel_single_batch (:342:
+//                           logits :396, p.v :471);
+//   flash_bwd_dkv_kernel <- _flash_attention_bwd_dkv (:941, pallas_call
+//                           :1121); body _flash_attention_dkv_kernel (:796:
+//                           logits :845, dv :900, dp :909, dk :918);
 //   flash_bwd_dq_kernel  <- _flash_attention_bwd_dq (:1287, pallas_call :1456).
 // Same functions: o = softmax(q k^T * s with an inclusive causal mask) v over
 // (B, H, L, D) float32, and its gradients dq, dk, dv given do, the forward's
@@ -14,55 +18,101 @@
 // reaches device memory.
 //
 // Bound on an H100 SXM (700 W) at the PixelSNAIL prior shape B=16, H=8,
-// L=4096, D=16: the causal half is B*H*D*L(L+1)/2 = 17.2 G multiply-adds per
-// (q k^T or p v)-sized product. Forward 4 flops per pair-element (q.k and
-// p.v), dK/dV 8 (q.k, do.v, p.do, ds.q), dQ 6 (q.k, do.v, ds.k): 68.7, 137
-// and 103 GFLOP, i.e. 1.03, 2.05 and 1.54 ms at 67 TFLOP/s of fp32 on the
-// CUDA cores, against 0.04-0.1 ms for the bytes (each of q, k, v, o, do, dq,
-// dk, dv is 32 MB). The kernels are bound by operations, and at D=16 each
-// dot product is a short 16-FMA chain, so latency, not instruction
-// throughput, is what they have to hide.
+// L=4096, D=16, the larger of three times (chip_smoke.py:flash_bounds):
+//   * products of the causal half over the split-TF32 tensor-core rate
+//     (495 / 3 = 165 TFLOP/s, the fastest float32-accurate route): the
+//     forward has 2 products (q k^T, p v), dK/dV 4 (q k^T, do v^T, p^T do,
+//     ds^T q), dQ 3 (q k^T, do v^T, ds k), each 2 * B*H*D*L(L+1)/2 = 34.4
+//     GFLOP: 0.416, 0.832 and 0.624 ms;
+//   * one exp2 per causal pair (1.07 G) over the MUFU rate (132 SMs x 16 a
+//     clock x 1.98 GHz = 4.18 T/s): 0.257 ms in each kernel;
+//   * the bytes (each of q, k, v, o, do, dq, dk, dv is 32 MB): 0.04-0.1 ms.
+// (On the CUDA cores alone, 67 TFLOP/s of fp32, the products would take
+// 1.03, 2.05 and 1.54 ms.)
 //
-// Design (simple and exact first; wgmma / TMA, TF32 or 3xTF32 tensor-core
-// products and split-D layouts are later work):
-//   * a block of 64 threads owns 64 rows of the outer dimension (query rows
-//     for the forward and dQ, key rows for dK/dV), one row per thread; the
-//     thread keeps its row of q (or k and v), its accumulators and its
-//     softmax statistics in registers (D is a template parameter);
-//   * the other operand streams through shared memory in tiles of 64 rows
-//     (32 at D=128, to stay under the 48 KB static limit); every thread of a
-//     warp reads the same staged row, so shared loads are broadcasts;
-//   * inner steps take 16 staged rows at a time: 16 independent dot
-//     products give the FMA pipes 16-way instruction-level parallelism, and
-//     the forward's online softmax rescales once per 16 keys;
+// Forward and dK/dV (redesigned for Hopper):
+//   * a block of 4 warps owns 64 rows of the outer dimension (query rows in
+//     the forward, key rows in dK/dV), 16 per warp, and streams the other
+//     side in tiles of 64 rows (32 at D=128) through shared memory. The
+//     tiles are double buffered with cp.async (commit_group / wait_group 1):
+//     tile t+1 loads while tile t computes. Rows are padded to D + 4 floats,
+//     which makes every shared load below free of bank conflicts. Shared
+//     memory is dynamic (26 and 37 KB at D=16, 84 and 119 KB at D=128,
+//     allowed past the 48 KB default with cudaFuncSetAttribute);
+//   * logits stay on the CUDA cores: each thread computes a 2 x 2 block of
+//     (row, column) logits per 8 columns, the layout of an m16n8 mma
+//     accumulator (rows g and g+8 of its warp's 16, columns 2t and 2t+1 of
+//     each 8; g = lane / 4, t = lane % 4), two rows from registers against
+//     two staged rows, so every staged value feeds two dot products;
+//   * every other product is on the tensor cores as
+//     mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in split TF32
+//     ("3xTF32"): x = big + small, big = x rounded to TF32 to nearest (ties
+//     away, the value of cvt.rna.tf32.f32, tf32_rna), small = x - big so
+//     rounded; a.b ~ a_small b_big + a_big b_small + a_big b_big in float32
+//     (the dropped a_small b_small is ~2^-22 relative). No product is a
+//     single TF32 pass. mma.sync takes p and ds as its A operand in the
+//     registers where they are made; wgmma would also need the B operand
+//     transposed in shared memory and every warp of the group on the same
+//     steps. The accumulator layout of the logits becomes the A layout by
+//     permuting the reduction index (k = t -> column 2t, k = t + 4 -> column
+//     2t + 1), and the B fragment is read from the same permuted rows;
+//   * the B operands (V in the forward, do and q in dK/dV) are split once
+//     per tile, as the tile lands, into big and small halves in shared
+//     memory, so the 4 warps that read them do not split them again;
+//   * the tensor cores round their sums toward zero, so each step's products
+//     are summed apart and added to the running float32 sums with an
+//     ordinary add: a single long-lived accumulator drifts with L;
+//   * forward: per 32 keys, the logits of both rows, the row maxima across
+//     the 4 lanes of a row (two shuffles), one rescale of the accumulator,
+//     then p = exp2(s - m) and p v (D / 8 n-tiles);
+//   * dK/dV: v is held as split A fragments for the whole block; per 16
+//     queries, the logits, dp = v do^T on the tensor cores (its accumulator
+//     is laid out as the logits), p = exp2(s - lse2), ds = p (dp - di), then
+//     dv += p^T do and dk += ds^T q;
+//   * only the steps that touch the diagonal or the ragged end of L are
+//     masked (a warp-uniform choice between two instances of the step);
+//   * what bounds them now: instruction issue on the CUDA cores, where the
+//     logit chains (D fmaf a pair) are under half of a step's instructions
+//     and exp2f, the TF32 splits of p and ds, the softmax and the loads the
+//     rest; the mma.sync products add their tensor-core time to it (most in
+//     dK/dV: at D=16, 36 mmas a warp per 16 queries) rather than hide under
+//     it. chip_smoke.py prints the SASS counts.
+//
+// The recompute contract with dQ: every logit in all three kernels is the
+// same scalar chain, bit for bit: q scaled once by s * log2(e) (one float
+// multiply; dK/dV multiplies each staged q value after its cp.async lands,
+// as the forward and dQ do their q rows in registers), then acc = fmaf(q_s[i],
+// k[i], acc) for i = 0 .. D-1 ascending from acc = 0, on the CUDA cores. So
+// p = exp2(s - lse2) carries no recompute rounding however large the logits
+// grow (at |logits| ~ 1e4, a different rounding put 4e-4 relative error on
+// dv). Putting q k^T on the tensor cores needs dQ redesigned the same way.
+//
+// dQ (first form, unchanged): a block of 64 threads, one query row per
+// thread, K and V tiles staged synchronously through static shared memory,
+// 16 staged rows per inner step, every product an fmaf on the CUDA cores.
+//
+// Common to all three:
 //   * causality: tiles wholly past the diagonal are never loaded; inside a
-//     tile, 16-row steps that lie wholly past every row of a warp are
-//     skipped (a warp-uniform branch); the diagonal is masked element by
-//     element with the inclusive rule (query i sees keys 0..i);
+//     tile, steps that lie wholly past every row of a warp are skipped (a
+//     warp-uniform branch); the diagonal is masked element by element with
+//     the inclusive rule (query i sees keys 0..i);
 //   * ragged L is masked, not padded: staged rows >= L are zero-filled and
-//     masked, and threads whose row is >= L compute but never write;
+//     masked, and rows >= L are computed but never written;
 //   * causal imbalance: the last query tile does up to L/64 times the work
 //     of the first, so the grid puts the longest blocks first (query tiles
-//     in descending order, key tiles in ascending order) and the short ones
-//     fill the tail;
+//     in descending order, key tiles in ascending order);
 //   * the backward is split as the TPU kernel splits it: dK/dV by key tile,
 //     dQ by query tile, each block owning its outputs, so there are no
 //     atomics and the result is deterministic;
-//   * logits are kept in base 2: q is pre-scaled by s * log2(e) and
-//     exponentials are exp2f, which is accurate to 2 ulp (the CUDA math
-//     API's bound) without -use_fast_math, for the price of one MUFU op plus
-//     range handling. __expf is ex2.approx on a pre-multiplied argument,
-//     whose error grows with |x|; it is not used. The log-sum-exp handed
-//     from the forward to the backward is in base 2 as well, and both
-//     backward kernels recompute every logit bit for bit as the forward
-//     computed it (same scaled q, same fmaf order), so p = exp2(s - lse)
-//     adds no rounding of its own however large the logits grow.
-//   * everything is float32 with fmaf accumulation: no TF32 anywhere.
-//   * registers: at D=16 a thread holds 16 q values and 16 accumulators
-//     (forward), 4 x 16 (dK/dV) or 3 x 16 (dQ) — 80, 165 and 105 registers,
-//     no spills. Larger D hits the 255-register limit: dK/dV spills a
-//     little at D=32 and heavily at 64, dQ spills at 64, and at D=128 every
-//     kernel spills. Those sizes are right but slow.
+//   * logits are kept in base 2: exponentials are exp2f, accurate to 2 ulp
+//     without -use_fast_math (__expf, an ex2.approx of a pre-multiplied
+//     argument whose error grows with |x|, is not used); the log-sum-exp
+//     handed from the forward to the backward is in base 2 as well.
+//
+// Registers at D=16 (ptxas, sm_90a): forward 118, dK/dV 128 (both under
+// __launch_bounds__(128, 4)), dQ 105, none spilling; at D=32 180, 239 and
+// 181, none spilling; at D >= 64 all but the forward at D=64 spill.
+// chip_smoke.py prints the registers and spills at every head dim.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,12 +128,12 @@ static_assert(MOVAE_FLASH_D == 8 || MOVAE_FLASH_D == 16 ||
 
 namespace {
 
-constexpr int kRows = 64;   // rows a block owns: one per thread
-constexpr int kStep = 16;   // staged rows per inner step
+constexpr int kRows = 64;   // rows a block owns (dQ: one per thread)
+constexpr int kStep = 16;   // dQ: staged rows per inner step
 
 template <int D>
 struct Tile {
-  // staged rows per shared-memory tile: two tiles of kStaged x D floats
+  // dQ: staged rows per shared-memory tile: two tiles of kStaged x D floats
   static constexpr int kStaged = D <= 64 ? 64 : 32;
 };
 
@@ -129,6 +179,7 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
   }
 }
 
+// the logit chain: acc = fmaf(a[i], b[i], acc), i ascending from acc = 0
 template <int D>
 __device__ __forceinline__ float dot(const float (&a)[D],
                                      const float* __restrict__ b) {
@@ -144,163 +195,556 @@ __device__ __forceinline__ float dot(const float (&a)[D],
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// forward and dK/dV: 4 warps, tensor-core products in split TF32, cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;  // 4 warps of 16 owned rows each
+constexpr int kTile = 64;      // rows a block owns
+constexpr int kKeyStep = 32;   // forward: keys per online-softmax step
+constexpr int kQStep = 16;     // dK/dV: queries per inner step
+
+// blocks an SM must hold at once: 4 at D <= 16 caps a thread at 128
+// registers, which both kernels fit without spilling
+template <int D>
+constexpr int kMinBlocks = D <= 16 ? 4 : 1;
+
+// rows per streamed tile (32 at D=128, so that dK/dV's 7 staged tiles fit)
+template <int D>
+constexpr int kStream = D <= 64 ? 64 : 32;
+// staged rows are padded to D + 4 floats: the 16-byte loads of 4 rows 2t
+// apart, the 4-byte loads of rows 2t (+1) at 8 columns and of rows g at 4
+// columns then all fall on distinct banks
+template <int D>
+constexpr int kStride = D + 4;
+template <int D>
+constexpr int kMat = kStream<D> * kStride<D>;  // floats of one staged tile
+
+template <int D>
+constexpr int fwd_smem_bytes() {
+  // 2 buffers of K and of V (split in place: big), V small
+  return 5 * kMat<D> * static_cast<int>(sizeof(float));
+}
+template <int D>
+constexpr int dkv_smem_bytes() {
+  // 2 buffers of q (scaled) and of do (split in place: big), q big, q small,
+  // do small, and 2 buffers of lse2 and of di
+  return (7 * kMat<D> + 4 * kStream<D>) * static_cast<int>(sizeof(float));
+}
+
+// two logit chains against one staged row, each exactly dot<D>'s
+template <int D>
+__device__ __forceinline__ void dot2(const float (&a0)[D],
+                                     const float (&a1)[D],
+                                     const float* __restrict__ b, float& d0,
+                                     float& d1) {
+  float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(b + i);
+    acc0 = fmaf(a0[i], v.x, acc0);
+    acc1 = fmaf(a1[i], v.x, acc1);
+    acc0 = fmaf(a0[i + 1], v.y, acc0);
+    acc1 = fmaf(a1[i + 1], v.y, acc1);
+    acc0 = fmaf(a0[i + 2], v.z, acc0);
+    acc1 = fmaf(a1[i + 2], v.z, acc1);
+    acc0 = fmaf(a0[i + 3], v.w, acc0);
+    acc1 = fmaf(a1[i + 3], v.w, acc1);
+  }
+  d0 = acc0;
+  d1 = acc1;
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: the value of cvt.rna.tf32.f32 for every x that is not a NaN,
+// in 2 integer instructions where ptxas expands the cvt into 4
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = big + small, both TF32; x - big is exact in float32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  const float b = tf32_rna(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(tf32_rna(x - b));
+}
+
+struct FragA {  // m16 x k8 operand: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split(a0, big[0], small[0]);
+    split(a1, big[1], small[1]);
+    split(a2, big[2], small[2]);
+    split(a3, big[3], small[3]);
+  }
+};
+
+struct FragB {  // k8 x n8 operand: (t, g), (t+4, g), from a split tile
+  uint32_t big[2], small[2];
+  // elements at offsets i0 and i1 of the big and small halves
+  __device__ __forceinline__ void load(const float* __restrict__ b,
+                                       const float* __restrict__ s, int i0,
+                                       int i1) {
+    big[0] = __float_as_uint(b[i0]);
+    big[1] = __float_as_uint(b[i1]);
+    small[0] = __float_as_uint(s[i0]);
+    small[1] = __float_as_uint(s[i1]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in split TF32: the two small cross terms first, then big x big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the 16-byte chunks of a staged tile that thread threadIdx.x copies and
+// splits: i = threadIdx.x + kThreads * it, row i / (D / 4), column 4 (i % (D
+// / 4)); the trip count is known at compile time
+template <int D>
+constexpr int kChunkIters = kStream<D> * D / 4 / kThreads;
+
+__device__ __forceinline__ unsigned chunk(int it) {
+  return threadIdx.x + static_cast<unsigned>(kThreads * it);
+}
+
+// rows [r0, r0 + kStream) of an (L, D) matrix into a padded staged tile,
+// zeros past L (a copy of 0 bytes from row 0)
+template <int D>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ src,
+                                          float* __restrict__ dst, int r0,
+                                          int L) {
+  static_assert(kStream<D> * D / 4 % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < kChunkIters<D>; ++it) {
+    const unsigned i = chunk(it), c = 4 * (i % (D / 4));
+    const int r = static_cast<int>(i / (D / 4));
+    const bool in = r0 + r < L;
+    cp_async16(dst + r * kStride<D> + c,
+               src + static_cast<int64_t>(in ? r0 + r : 0) * D + c, in);
+  }
+}
+
+// once this thread's copies of a staged tile have landed (the same chunks
+// as copy_tile's): x = raw * mul, kept in raw when kKeep; its TF32 halves
+// into big and small (big may be raw itself, split in place)
+template <int D, bool kKeep>
+__device__ __forceinline__ void split_tile(float* raw, float* big,
+                                           float* small, float mul) {
+#pragma unroll
+  for (int it = 0; it < kChunkIters<D>; ++it) {
+    const unsigned i = chunk(it);
+    const unsigned at = (i / (D / 4)) * kStride<D> + 4 * (i % (D / 4));
+    float4 x = *reinterpret_cast<const float4*>(raw + at);
+    if (kKeep) {
+      x = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+      *reinterpret_cast<float4*>(raw + at) = x;
+    }
+    const float4 b = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                                 tf32_rna(x.w));
+    *reinterpret_cast<float4*>(big + at) = b;
+    *reinterpret_cast<float4*>(small + at) =
+        make_float4(tf32_rna(x.x - b.x), tf32_rna(x.y - b.y),
+                    tf32_rna(x.z - b.z), tf32_rna(x.w - b.w));
+  }
+}
+
+// one forward step over the kKeyStep staged keys from row c of the tile
+// (key index `key`): logits, online softmax, p v. kMasked: the step holds
+// keys past some row of the warp (the diagonal)
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_step(const float (&qr)[2][D],
+                                         float (&acc)[D / 8][4],
+                                         float (&m)[2], float (&l)[2],
+                                         const float* __restrict__ ks,
+                                         const float* __restrict__ vbig,
+                                         const float* __restrict__ vsmall,
+                                         int c, int key, int row0) {
+  constexpr int S = kStride<D>, N8 = D / 8;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // s[j]: keys key + 8j + 2t (+1) of rows row0, row0 + 8, accumulator order
+  float s[kKeyStep / 8][4];
+#pragma unroll
+  for (int j = 0; j < kKeyStep / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * j + 2 * t + e;
+      float d0, d1;
+      dot2<D>(qr[0], qr[1], ks + (c + r) * S, d0, d1);
+      s[j][e] = kMasked && key + r > row0 ? -INFINITY : d0;
+      s[j][2 + e] = kMasked && key + r > row0 + 8 ? -INFINITY : d1;
+    }
+  }
+  float mx[2] = {m[0], m[1]}, corr[2];
+#pragma unroll
+  for (int j = 0; j < kKeyStep / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // key 0 is in every row's first step, so mx is finite from there on
+    corr[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+  // this step's p v
+  float pv[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kKeyStep / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = exp2f(s[j][i] - m[i >> 1]);
+      l[i >> 1] += s[j][i];
+    }
+    // p as the A operand, reduction index k = t -> key 2t, t+4 -> 2t+1
+    FragA pa;
+    pa.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+    const int v0 = (c + 8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      FragB vf;
+      vf.load(vbig, vsmall, v0 + 8 * n, v0 + S + 8 * n);
+      mma_3xtf32(pv[n], pa, vf);
+    }
+  }
+  // the tensor cores round their sums toward zero: one long-lived
+  // accumulator would drift with L, so each step's products are added to
+  // the running sum with an ordinary float32 add
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[n][i] = fmaf(acc[n][i], corr[i >> 1], pv[n][i]);
+}
+
 // grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
 template <int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse2, int L, float scale_log2) {
-  constexpr int S = Tile<D>::kStaged;
-  __shared__ __align__(16) float ks[S * D];
-  __shared__ __align__(16) float vs[S * D];
+  constexpr int M = kMat<D>, N8 = D / 8, R = kStream<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;          // 2 buffers
+  float* vs = smem + 2 * M;  // 2 buffers, split in place: big
+  float* vsm = smem + 4 * M;
 
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
   const int qt = gridDim.y - 1 - blockIdx.y;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
-  const int row = qt * kRows + threadIdx.x;
-  const bool valid = row < L;
-  const int warp_last = qt * kRows + (threadIdx.x | 31);
-  const int last = min(qt * kRows + kRows, L) - 1;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  const int warp_first = qt * kTile + 16 * warp;
+  const int rows[2] = {warp_first + g, warp_first + g + 8};
+  // key tiles up to the one that holds the block's last row
+  const int n_tiles = (min(qt * kTile + kTile, L) - 1) / R + 1;
 
-  float qr[D], acc[D];
-  load_row<D>(q + base + static_cast<int64_t>(row) * D, qr, valid);
+  copy_tile<D>(kb, ks, 0, L);
+  copy_tile<D>(vb, vs, 0, L);
+  cp_async_commit();
+
+  float qr[2][D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    qr[i] *= scale_log2;
-    acc[i] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    load_row<D>(q + base + static_cast<int64_t>(rows[r]) * D, qr[r],
+                rows[r] < L);
+#pragma unroll
+    for (int i = 0; i < D; ++i) qr[r][i] *= scale_log2;
   }
-  float m = -INFINITY, l = 0.f;
+  // accumulator n-tile n: rows g, g+8 by columns 8n + 2t, 8n + 2t + 1
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int t0 = 0; t0 <= last; t0 += S) {
-    __syncthreads();
-    stage<D, S>(k + base, ks, t0, L);
-    stage<D, S>(v + base, vs, t0, L);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = (kt & 1) * M;
+    if (kt + 1 < n_tiles) {
+      const int next = ((kt + 1) & 1) * M;
+      copy_tile<D>(kb, ks + next, (kt + 1) * R, L);
+      copy_tile<D>(vb, vs + next, (kt + 1) * R, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    split_tile<D, false>(vs + buf, vs + buf, vsm, 1.f);
     __syncthreads();
 #pragma unroll 1
-    for (int c0 = 0; c0 < S; c0 += kStep) {
-      const int key0 = t0 + c0;
-      if (key0 > warp_last) break;  // every key here is ahead of the warp
-      float s[kStep];
-      float mx = m;
+    for (int c0 = 0; c0 < R; c0 += kKeyStep) {
+      const int key0 = kt * R + c0;
+      if (key0 > warp_first + 15) break;  // every key here is ahead
+      if (key0 + kKeyStep - 1 <= warp_first)
+        fwd_step<D, false>(qr, acc, m, l, ks + buf, vs + buf, vsm, c0, key0,
+                           rows[0]);
+      else
+        fwd_step<D, true>(qr, acc, m, l, ks + buf, vs + buf, vsm, c0, key0,
+                          rows[0]);
+    }
+    __syncthreads();  // before tile kt + 2 overwrites this buffer
+  }
+
 #pragma unroll
-      for (int c = 0; c < kStep; ++c) {
-        const float d = dot<D>(qr, ks + (c0 + c) * D);
-        s[c] = key0 + c > row ? -INFINITY : d;
-        mx = fmaxf(mx, s[c]);
-      }
-      // key 0 is in every row's first step, so mx is finite from there on
-      const float corr = exp2f(m - mx);
-      m = mx;
-      l *= corr;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (rows[r] >= L) continue;
+    const float inv = 1.f / l[r];
+    float* orow = o + base + static_cast<int64_t>(rows[r]) * D + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D; ++i) acc[i] *= corr;
+    for (int n = 0; n < N8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t == 0)
+      lse2[static_cast<int64_t>(blockIdx.x) * L + rows[r]] =
+          m[r] + log2f(l[r]);
+  }
+}
+
+// staged query tile of dK/dV from row c on: q scaled (logits), its halves,
+// do's halves, lse2 and di
+struct DkvTile {
+  const float *q, *qbig, *qsmall, *dobig, *dosmall, *lse2, *di;
+};
+
+// one dK/dV step over the kQStep staged queries from row c of the tile
+// (query index qi0): logits, dp, p, ds, then dv and dk. kMasked: the step
+// holds a query before some key of the warp, or past L
+template <int D, bool kMasked>
+__device__ __forceinline__ void dkv_step(const float (&kr)[2][D],
+                                         const FragA (&va)[D / 8],
+                                         float (&dka)[D / 8][4],
+                                         float (&dva)[D / 8][4],
+                                         const DkvTile& tile, int c, int qi0,
+                                         int col0, int L) {
+  constexpr int S = kStride<D>, N8 = D / 8;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // s[j], dp[j]: keys col0, col0 + 8 by queries qi0 + 8j + 2t (+1)
+  float s[kQStep / 8][4], dp[kQStep / 8][4];
 #pragma unroll
-      for (int c = 0; c < kStep; ++c) {
-        const float p = exp2f(s[c] - mx);
-        l += p;
-        const float* vr = vs + (c0 + c) * D;
+  for (int j = 0; j < kQStep / 8; ++j) {
 #pragma unroll
-        for (int i = 0; i < D; i += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + i);
-          acc[i] = fmaf(p, vv.x, acc[i]);
-          acc[i + 1] = fmaf(p, vv.y, acc[i + 1]);
-          acc[i + 2] = fmaf(p, vv.z, acc[i + 2]);
-          acc[i + 3] = fmaf(p, vv.w, acc[i + 3]);
-        }
-      }
+    for (int e = 0; e < 2; ++e)
+      dot2<D>(kr[0], kr[1], tile.q + (c + 8 * j + 2 * t + e) * S, s[j][e],
+              s[j][2 + e]);
+    dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    const int d0 = (c + 8 * j + g) * S + t;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      FragB df;  // do^T: reduction index d = 8n + t (+4), query g
+      df.load(tile.dobig, tile.dosmall, d0 + 8 * n, d0 + 8 * n + 4);
+      mma_3xtf32(dp[j], va[n], df);
     }
   }
-  if (valid) {
-    store_row<D>(o + base + static_cast<int64_t>(row) * D, acc, 1.f / l);
-    lse2[static_cast<int64_t>(blockIdx.x) * L + row] = m + log2f(l);
+  // this step's dv and dk, added to the running sums with a float32 add
+  // (the tensor cores round their sums toward zero)
+  float sdv[N8][4], sdk[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sdv[n][i] = sdk[n][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kQStep / 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = c + 8 * j + 2 * t + (i & 1);
+      const int qi = qi0 - c + r;
+      const float p = kMasked && (qi < col0 + 8 * (i >> 1) || qi >= L)
+                          ? 0.f
+                          : exp2f(s[j][i] - tile.lse2[r]);
+      ds[i] = p * (dp[j][i] - tile.di[r]);
+      s[j][i] = p;
+    }
+    // p^T and ds^T as A operands: k = t -> query 2t, t+4 -> 2t+1
+    FragA pa, sa;
+    pa.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+    sa.set(ds[0], ds[2], ds[1], ds[3]);
+    const int r0 = (c + 8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      FragB df, qf;
+      df.load(tile.dobig, tile.dosmall, r0 + 8 * n, r0 + S + 8 * n);
+      qf.load(tile.qbig, tile.qsmall, r0 + 8 * n, r0 + S + 8 * n);
+      mma_3xtf32(sdv[n], pa, df);
+      mma_3xtf32(sdk[n], sa, qf);
+    }
   }
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dva[n][i] += sdv[n][i];
+      dka[n][i] += sdk[n][i];
+    }
 }
 
 // grid (B*H, ceil(L/64)); blockIdx.y = 0 is the FIRST key tile, which sees
 // every query tile
 template <int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse2,
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int L, float scale_log2,
                      float scale) {
-  constexpr int S = Tile<D>::kStaged;
-  __shared__ __align__(16) float qs[S * D];
-  __shared__ __align__(16) float dos[S * D];
-  __shared__ float ls[S];
-  __shared__ float dis[S];
+  constexpr int M = kMat<D>, N8 = D / 8, R = kStream<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;             // 2 buffers: q, scaled once landed
+  float* dos = smem + 2 * M;    // 2 buffers: do, split in place: big
+  float* qbig = smem + 4 * M;
+  float* qsmall = smem + 5 * M;
+  float* dosmall = smem + 6 * M;
+  float* ls = smem + 7 * M;     // 2 buffers of R
+  float* dis = ls + 2 * R;      // 2 buffers of R
 
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
   const int kt = blockIdx.y;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
   const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
-  const int col = kt * kRows + threadIdx.x;
-  const bool valid = col < L;
-  const int warp_first = kt * kRows + (threadIdx.x & ~31);
+  const float* qb = q + base;
+  const float* dob = dout + base;
+  const int warp_first = kt * kTile + 16 * warp;
+  const int cols[2] = {warp_first + g, warp_first + g + 8};
+  const int n_tiles = (L - kt * kTile + R - 1) / R;
 
-  // q is staged pre-scaled by scale_log2, exactly as the forward and dQ
-  // kernels scale their q rows, so that each logit here is bit-identical to
-  // the forward's (same products, same fmaf order) and p = exp2(s - lse2)
-  // carries no recompute rounding; at |logits| ~ 1e4 (a deep random-init
-  // prior) a rounding of k instead put ~4e-4 relative error on dv
-  float kr[D], vr[D], dka[D], dva[D];
-  load_row<D>(k + base + static_cast<int64_t>(col) * D, kr, valid);
-  load_row<D>(v + base + static_cast<int64_t>(col) * D, vr, valid);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-
-  for (int t0 = (kt * kRows / S) * S; t0 < L; t0 += S) {
-    __syncthreads();
-    stage<D, S, true>(q + base, qs, t0, L, scale_log2);
-    stage<D, S>(dout + base, dos, t0, L);
-    for (int i = threadIdx.x; i < S; i += kRows) {
-      const bool in = t0 + i < L;
-      ls[i] = in ? lse2[lbase + t0 + i] : 0.f;
-      dis[i] = in ? di[lbase + t0 + i] : 0.f;
+  // one query tile (rows t0 .. t0 + R - 1) of q, do, lse2, di into buffer b
+  auto issue = [&](int t0, int b) {
+    copy_tile<D>(qb, qs + b * M, t0, L);
+    copy_tile<D>(dob, dos + b * M, t0, L);
+    if (threadIdx.x < 2 * R) {  // 2R <= kThreads: one value a thread
+      const int r = threadIdx.x % R;
+      const bool in = t0 + r < L;
+      const int64_t at = lbase + (in ? t0 + r : 0);
+      if (threadIdx.x < R)
+        cp_async4(ls + b * R + r, lse2 + at, in);
+      else
+        cp_async4(dis + b * R + r, di + at, in);
     }
+    cp_async_commit();
+  };
+  issue(kt * kTile, 0);
+
+  // the warp's k rows (logits) and v as split A operands of dp = v do^T
+  float kr[2][D];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    load_row<D>(k + base + static_cast<int64_t>(cols[r]) * D, kr[r],
+                cols[r] < L);
+  FragA va[N8];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = cols[i & 1], d = 8 * n + t + 4 * (i >> 1);
+      x[i] = col < L ? __ldg(v + base + static_cast<int64_t>(col) * D + d)
+                     : 0.f;
+    }
+    va[n].set(x[0], x[1], x[2], x[3]);
+  }
+  // accumulators: rows (keys) g, g+8 by columns 8n + 2t, 8n + 2t + 1
+  float dka[N8][4], dva[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = kt * kTile + it * R, b = it & 1;
+    if (it + 1 < n_tiles) {
+      issue(t0 + R, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // q is scaled as it lands, exactly as the forward and dQ scale their q
+    // rows, so that each logit here is bit-identical to theirs
+    split_tile<D, true>(qs + b * M, qbig, qsmall, scale_log2);
+    split_tile<D, false>(dos + b * M, dos + b * M, dosmall, 1.f);
     __syncthreads();
+    const DkvTile tile{qs + b * M, qbig,   qsmall, dos + b * M,
+                       dosmall,    ls + b * R, dis + b * R};
 #pragma unroll 1
-    for (int c0 = 0; c0 < S; c0 += kStep) {
+    for (int c0 = 0; c0 < R; c0 += kQStep) {
       const int qi0 = t0 + c0;
       if (qi0 >= L) break;
       // every query here comes before every key of the warp
-      if (qi0 + kStep - 1 < warp_first) continue;
+      if (qi0 + kQStep - 1 < warp_first) continue;
+      if (qi0 >= warp_first + 15 && qi0 + kQStep <= L)
+        dkv_step<D, false>(kr, va, dka, dva, tile, c0, qi0, cols[0], L);
+      else
+        dkv_step<D, true>(kr, va, dka, dva, tile, c0, qi0, cols[0], L);
+    }
+    __syncthreads();  // before tile it + 2 overwrites this buffer
+  }
+
+  // dka sums ds * q * scale_log2; dk wants ds * q * scale
+  const float mul = scale / scale_log2;
 #pragma unroll
-      for (int c = 0; c < kStep; ++c) {
-        const int qi = qi0 + c;
-        const float* qrow = qs + (c0 + c) * D;
-        const float* dorow = dos + (c0 + c) * D;
-        const float sv = dot<D>(kr, qrow);
-        const float dp = dot<D>(vr, dorow);
-        const float p =
-            (qi < col || qi >= L) ? 0.f : exp2f(sv - ls[c0 + c]);
-        const float ds = p * (dp - dis[c0 + c]);
+  for (int r = 0; r < 2; ++r) {
+    if (cols[r] >= L) continue;
+    const int64_t at = base + static_cast<int64_t>(cols[r]) * D + 2 * t;
 #pragma unroll
-        for (int i = 0; i < D; i += 4) {
-          const float4 dd = *reinterpret_cast<const float4*>(dorow + i);
-          const float4 qq = *reinterpret_cast<const float4*>(qrow + i);
-          dva[i] = fmaf(p, dd.x, dva[i]);
-          dva[i + 1] = fmaf(p, dd.y, dva[i + 1]);
-          dva[i + 2] = fmaf(p, dd.z, dva[i + 2]);
-          dva[i + 3] = fmaf(p, dd.w, dva[i + 3]);
-          dka[i] = fmaf(ds, qq.x, dka[i]);
-          dka[i + 1] = fmaf(ds, qq.y, dka[i + 1]);
-          dka[i + 2] = fmaf(ds, qq.z, dka[i + 2]);
-          dka[i + 3] = fmaf(ds, qq.w, dka[i + 3]);
-        }
-      }
+    for (int n = 0; n < N8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(dka[n][2 * r] * mul, dka[n][2 * r + 1] * mul);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
-  if (valid) {
-    // dka sums ds * q * scale_log2; dk wants ds * q * scale
-    store_row<D>(dk + base + static_cast<int64_t>(col) * D, dka,
-                 scale / scale_log2);
-    store_row<D>(dv + base + static_cast<int64_t>(col) * D, dva, 1.f);
-  }
 }
+
+// ---------------------------------------------------------------------------
+// dQ: first form, one query row per thread on the CUDA cores
+// ---------------------------------------------------------------------------
 
 // grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
 template <int D>
@@ -380,6 +824,14 @@ inline int prologue(int bh, int L, int d, int device) {
   return static_cast<int>(cudaSetDevice(device));
 }
 
+// past the 48 KB default a kernel must be allowed its dynamic shared memory
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 }  // namespace
 
 // C interface for ctypes. Every tensor is contiguous float32 with 16-byte
@@ -393,7 +845,10 @@ extern "C" int movae_flash_fwd(const float* q, const float* k, const float* v,
                                float scale, int device, void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  flash_fwd_kernel<kD><<<grid_for(bh, L), kRows, 0,
+  constexpr int smem = fwd_smem_bytes<kD>();
+  err = allow_smem(flash_fwd_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_fwd_kernel<kD><<<grid_for(bh, L), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       q, k, v, o, lse2, L, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -406,7 +861,10 @@ extern "C" int movae_flash_bwd_dkv(const float* q, const float* k,
                                    float scale, int device, void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  flash_bwd_dkv_kernel<kD><<<grid_for(bh, L), kRows, 0,
+  constexpr int smem = dkv_smem_bytes<kD>();
+  err = allow_smem(flash_bwd_dkv_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_bwd_dkv_kernel<kD><<<grid_for(bh, L), kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       q, k, v, dout, lse2, di, dk, dv, L, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
