@@ -8,12 +8,18 @@ Phases, each of which fails the run:
   1. build every CUDA kernel of the main paths from the sources in the
      checkout (``build/kernels/``), one nvcc per library (the flash
      attention is one library per head dim), all at once; print each
-     kernel's registers and spills (ptxas) and its tensor-core mma count
-     (HMMA in ``cuobjdump -sass``, where the toolkit has it);
+     kernel's registers and spills (ptxas) and its SASS counts (HMMA, the
+     tensor-core mma, FFMA, MUFU, LDS in ``cuobjdump -sass``, where the
+     toolkit has it): the nearest-code and every flash kernel must have
+     HMMA;
   2. hold the nearest-code kernel against its plain PyTorch version on the
-     card at the main path's shapes (plus a ragged N and a small D), and
-     time the kernel, the plain version and one PyTorch library call that
-     computes the same function;
+     card at the main path's shapes (plus a ragged N and K and small and
+     large D), on a codebook with duplicated rows (the lowest index of each
+     group of equal rows must win, exactly) and on rows of NaN (the index
+     stays in range); time the kernel, the plain version and one PyTorch
+     library call that computes the same function at stage 1's shape and
+     at stage 2's extraction shape, by CUDA-graph replay (the host's launch
+     path is not timed);
   2b. the same for the three causal flash-attention kernels (forward, dK/dV,
      dQ): output and gradients against the plain version at the prior's
      shape (B=16, H=8, L=4096, D=16), at L=4096, 1600 and 1025, and at
@@ -68,6 +74,8 @@ WARMUP, TIMED = 3, 20
 # is cut from the configs' 128 to 16
 PRIOR_SIZE, PRIOR_BATCH, PRIOR_WARMUP, PRIOR_TIMED = 256, 16, 3, 10
 EXTRACT_BATCH = 52  # 4 extraction batches = 208 code grids = 13 prior batches
+# latent rows of one extraction batch: 52 images of 64 x 64 codes
+EXTRACT_N = EXTRACT_BATCH * (PRIOR_SIZE // 4) ** 2
 PRIOR_ARGS = dict(prior_type="pixelsnail", batch_size=PRIOR_BATCH, seed=0,
                   pixelcnn_epochs=1, pixelcnn_lr=3e-4,
                   pixelcnn_hidden_channels=128, pixelsnail_num_blocks=8,
@@ -145,14 +153,23 @@ def bound(flops: float, exps: float, nbytes: float, peaks) -> dict:
             "fp32_ms": max(flops / fp32 * 1e3, bytes_ms), "flops": flops}
 
 
+# a kernel's name in a mangled symbol, with its first int template
+# argument (``nearest_code_kernel<64>``, ``flash_fwd_kernel<16>``)
+KERNEL_NAME = r"([a-z_]+_kernel)(?:ILi(\d+)E)?"
+
+
+def kernel_name(m) -> str:
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def ptxas_summary(log_text: str) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from the
     ``-Xptxas -v`` report of one library."""
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)", line)
+        m = re.search(r"Compiling entry function '.*?" + KERNEL_NAME, line)
         if m:
-            name = m.group(1)
+            name = kernel_name(m)
             out[name] = [None, 0, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -175,9 +192,9 @@ def sass_counts(cuobjdump: str, lib: str, ops=SASS_OPS) -> dict:
                           text=True, timeout=120).stdout
     out, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Function : .*?([a-z_]+_kernel)", line)
+        m = re.search(r"Function : .*?" + KERNEL_NAME, line)
         if m:
-            name = m.group(1)
+            name = kernel_name(m)
             out[name] = dict.fromkeys((*ops, "all"), 0)
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
@@ -201,6 +218,36 @@ def time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int = 100) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed (CUDA events). Replaying a graph leaves out the
+    host's launch path, which for a kernel of a few tens of µs (Python
+    checks and a ctypes call) can take longer than the kernel itself: back
+    to back launches would then time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +279,73 @@ def compare_nearest(torch, nc, z, cb) -> dict:
     }
 
 
+def check_nearest_ties(torch, nc, dev, gen) -> float:
+    """A codebook whose rows come in groups of equal rows: every member of
+    a group has the same distance to a latent bit for bit, so the kernel
+    must pick the lowest index of its group, exactly, on every row; and on
+    rows of NaN its index must stay in range."""
+    groups, n = 128, 4096
+    base = torch.randn(groups, SLICE_D, generator=gen, device=dev)
+    owner = torch.randint(0, groups, (SLICE_K,), generator=gen, device=dev)
+    cb = base[owner].contiguous()
+    # lowest[c]: the lowest index of code c's group
+    first = torch.full((groups,), SLICE_K, dtype=torch.long, device=dev)
+    first.scatter_reduce_(0, owner, torch.arange(SLICE_K, device=dev),
+                          "amin")
+    lowest = first[owner]
+    pick = torch.randint(0, groups, (n,), generator=gen, device=dev)
+    z = base[pick] + 0.3 * torch.randn(n, SLICE_D, generator=gen,
+                                       device=dev)
+    res = compare_nearest(torch, nc, z, cb)
+    got = nc.nearest_code_cuda(z, cb).long()
+    res["not_lowest_of_group"] = int((lowest[got] != got).sum())
+    nan_rows = torch.full((64, SLICE_D), float("nan"), device=dev)
+    nan_got = nc.nearest_code_cuda(nan_rows, cb)
+    torch.cuda.synchronize()
+    res["nan_rows_in_range"] = bool(((nan_got >= 0)
+                                     & (nan_got < SLICE_K)).all())
+    log(f"nearest_code duplicated rows N={n} K={SLICE_K} ({groups} distinct) "
+        f"D={SLICE_D}: {json.dumps(res)}")
+    check(res["in_range"] and res["bad"] == 0
+          and res["not_lowest_of_group"] == 0 and res["nan_rows_in_range"],
+          f"nearest_code on duplicated codebook rows: {res}")
+    return res["max_abs_err"]
+
+
+def time_nearest(torch, nc, dev, gen, n: int, peaks) -> dict:
+    """Kernel, plain version and ``cdist + argmin`` at (n, SLICE_K,
+    SLICE_D), each timed by CUDA-graph replay, with the bound; the kernel
+    also launched back to back from the host, as the path launches it."""
+    z = torch.randn(n, SLICE_D, generator=gen, device=dev)
+    cb = torch.randn(SLICE_K, SLICE_D, generator=gen, device=dev)
+    # fewer calls a graph where each holds (n, K) intermediates
+    reps = 100 if n <= SLICE_N else 10
+    ms = graph_ms(torch, lambda: nc.nearest_code_cuda(z, cb), reps)
+    launched_ms = time_ms(torch, lambda: nc.nearest_code_cuda(z, cb))
+    plain_ms = graph_ms(torch, lambda: nc.nearest_code_plain(z, cb), reps)
+    library_ms = graph_ms(torch, lambda: torch.cdist(z, cb).argmin(1), reps)
+    flops = 2.0 * n * SLICE_K * SLICE_D + 2.0 * SLICE_K * SLICE_D
+    nbytes = 4.0 * (n * SLICE_D + SLICE_K * SLICE_D) + 4.0 * n
+    b = bound(flops, 0.0, nbytes, peaks)
+    log(f"nearest_code timing N={n} K={SLICE_K} D={SLICE_D} (graph "
+        f"replay): kernel {ms * 1e3:.2f} us (launched back to back from "
+        f"the host {launched_ms * 1e3:.2f} us), "
+        f"plain {plain_ms * 1e3:.2f} us, "
+        f"cdist+argmin {library_ms * 1e3:.2f} us, bound {b['ms'] * 1e3:.2f} "
+        f"us (products at split TF32 {b['products_ms'] * 1e3:.2f} us, bytes "
+        f"{b['bytes_ms'] * 1e3:.2f} us; on the fp32 CUDA cores "
+        f"{b['fp32_ms'] * 1e3:.2f} us), "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    del z, cb
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b["ms"], "bound_by": b["by"]}
+
+
 def phase_kernels(torch, nc, dev, peaks) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(SLICE_N, SLICE_K, SLICE_D), (1000, SLICE_K, SLICE_D),
-             (4096, 64, 8), (777, 1000, 128)]
+             (4096, 64, 8), (777, 1000, 128), (EXTRACT_N, SLICE_K, SLICE_D)]
     worst = 0.0
     for n, k, d in cases:
         z = torch.randn(n, d, generator=gen, device=dev)
@@ -246,29 +356,18 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
               f"nearest_code disagrees with its plain version at "
               f"N={n} K={k} D={d}: {res}")
         worst = max(worst, res["max_abs_err"])
+    worst = max(worst, check_nearest_ties(torch, nc, dev, gen))
 
-    z = torch.randn(SLICE_N, SLICE_D, generator=gen, device=dev)
-    cb = torch.randn(SLICE_K, SLICE_D, generator=gen, device=dev)
-    ms = time_ms(torch, lambda: nc.nearest_code_cuda(z, cb))
-    plain_ms = time_ms(torch, lambda: nc.nearest_code_plain(z, cb))
-    library_ms = time_ms(torch, lambda: torch.cdist(z, cb).argmin(1))
-    flops = 2.0 * SLICE_N * SLICE_K * SLICE_D + 2.0 * SLICE_K * SLICE_D
-    nbytes = 4.0 * (SLICE_N * SLICE_D + SLICE_K * SLICE_D) + 4.0 * SLICE_N
-    b = bound(flops, 0.0, nbytes, peaks)
-    log(f"nearest_code timing N={SLICE_N} K={SLICE_K} D={SLICE_D}: "
-        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-        f"cdist+argmin {library_ms * 1e3:.2f} us, bound {b['ms'] * 1e3:.2f} "
-        f"us (products at split TF32 {b['products_ms'] * 1e3:.2f} us, bytes "
-        f"{b['bytes_ms'] * 1e3:.2f} us; on the fp32 CUDA cores "
-        f"{b['fp32_ms'] * 1e3:.2f} us), "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    # stage 1's shape (the row's numbers), then stage 2's extraction shape
+    t = time_nearest(torch, nc, dev, gen, SLICE_N, peaks)
+    time_nearest(torch, nc, dev, gen, EXTRACT_N, peaks)
     return {
         "name": "nearest_code", "route": "cuda",
         "source": "movae_tpu_torch/kernels/nearest_code.cu",
         "replaces": "movae_tpu/ops/vq.py:93",
-        "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b["ms"], "bound_by": b["by"],
-        "library_ms": library_ms,
+        "launches": None, "max_abs_err": worst, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }
 
 
@@ -515,7 +614,10 @@ def profile_device(torch, label: str, run, steps: int, step_ms: float
              f"an untraced step of {step_ms:.3f} ms "
              f"({100.0 * dev_ms / steps / step_ms:.1f}% busy), "
              f"{sum(e.count for e in kernels) // steps} kernels/step"]
-    for e in kernels[:15]:
+    # the top 15, then every kernel in an anonymous namespace wherever it
+    # ranks: the port's own kernels (and some of PyTorch's)
+    for e in kernels[:15] + [e for e in kernels[15:]
+                             if "anonymous namespace" in e.key]:
         lines.append(f"  {getattr(e, attr) / 1e3 / steps:9.3f} ms/step  "
                      f"{e.count // steps:5d}x  {e.key[:90]}")
     log("\n".join(lines))
@@ -756,9 +858,13 @@ def main() -> int:
         cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                                  "cuobjdump")
         if os.path.exists(cuobjdump):
-            log("SASS instructions per kernel (HMMA: tensor-core mma): " + json.dumps(
-                {n: sass_counts(cuobjdump, str(p))
-                 for n, p in zip(build.TARGETS, libs)}))
+            sass = {n: sass_counts(cuobjdump, str(p))
+                    for n, p in zip(build.TARGETS, libs)}
+            log("SASS instructions per kernel (HMMA: tensor-core mma): "
+                + json.dumps(sass))
+            no_mma = [f"{lib}:{kern}" for lib, kerns in sass.items()
+                      for kern, ops in kerns.items() if ops["HMMA"] == 0]
+            check(not no_mma, f"kernels without tensor-core mma: {no_mma}")
         else:
             log(f"SASS counts: no cuobjdump at {cuobjdump}")
 

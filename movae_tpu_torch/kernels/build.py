@@ -5,8 +5,9 @@ shared libraries under ``<checkout>/build/kernels/`` (gitignored), then
 loaded with ``ctypes``. ``TARGETS`` names every library: a source built once
 per template value (the flash-attention head dim) gives one library per
 value, so that each is its own ``nvcc`` job and all compile in parallel.
-Libraries are named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.
+Libraries are named by a hash of the source, the headers beside it
+(``*.cuh``) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 
 Nothing here runs at import: the first launch of a kernel calls
 :func:`load`, and a CPU-only host (no ``nvcc``) never reaches it.
@@ -60,6 +61,8 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((KERNEL_DIR / TARGETS[name][0]).read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

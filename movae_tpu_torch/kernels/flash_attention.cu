@@ -10,7 +10,10 @@
 //   flash_bwd_dkv_kernel <- _flash_attention_bwd_dkv (:941, pallas_call
 //                           :1121); body _flash_attention_dkv_kernel (:796:
 //                           logits :845, dv :900, dp :909, dk :918);
-//   flash_bwd_dq_kernel  <- _flash_attention_bwd_dq (:1287, pallas_call :1456).
+//   flash_bwd_dq_kernel  <- _flash_attention_bwd_dq (:1287, pallas_call
+//                           :1456); body _flash_attention_dq_kernel (:1146:
+//                           logits :1187, p :1227, dp :1237, ds :1243,
+//                           dq :1257).
 // Same functions: o = softmax(q k^T * s with an inclusive causal mask) v over
 // (B, H, L, D) float32, and its gradients dq, dk, dv given do, the forward's
 // per-row log-sum-exp and di = sum_d o * do (computed by the caller, as the
@@ -30,15 +33,16 @@
 // (On the CUDA cores alone, 67 TFLOP/s of fp32, the products would take
 // 1.03, 2.05 and 1.54 ms.)
 //
-// Forward and dK/dV (redesigned for Hopper):
+// Design, shared by all three kernels:
 //   * a block of 4 warps owns 64 rows of the outer dimension (query rows in
-//     the forward, key rows in dK/dV), 16 per warp, and streams the other
-//     side in tiles of 64 rows (32 at D=128) through shared memory. The
-//     tiles are double buffered with cp.async (commit_group / wait_group 1):
-//     tile t+1 loads while tile t computes. Rows are padded to D + 4 floats,
-//     which makes every shared load below free of bank conflicts. Shared
-//     memory is dynamic (26 and 37 KB at D=16, 84 and 119 KB at D=128,
-//     allowed past the 48 KB default with cudaFuncSetAttribute);
+//     the forward and dQ, key rows in dK/dV), 16 per warp, and streams the
+//     other side in tiles of 64 rows (32 at D=128) through shared memory.
+//     The tiles are double buffered with cp.async (commit_group / wait_group
+//     1): tile t+1 loads while tile t computes. Rows are padded to D + 4
+//     floats, which makes every shared load below free of bank conflicts.
+//     Shared memory is dynamic (26, 37 and 35 KB at D=16 for the forward,
+//     dK/dV and dQ; 84, 119 and 118 KB at D=128), allowed past the 48 KB
+//     default with cudaFuncSetAttribute;
 //   * logits stay on the CUDA cores: each thread computes a 2 x 2 block of
 //     (row, column) logits per 8 columns, the layout of an m16n8 mma
 //     accumulator (rows g and g+8 of its warp's 16, columns 2t and 2t+1 of
@@ -46,19 +50,16 @@
 //     two staged rows, so every staged value feeds two dot products;
 //   * every other product is on the tensor cores as
 //     mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in split TF32
-//     ("3xTF32"): x = big + small, big = x rounded to TF32 to nearest (ties
-//     away, the value of cvt.rna.tf32.f32, tf32_rna), small = x - big so
-//     rounded; a.b ~ a_small b_big + a_big b_small + a_big b_big in float32
-//     (the dropped a_small b_small is ~2^-22 relative). No product is a
-//     single TF32 pass. mma.sync takes p and ds as its A operand in the
-//     registers where they are made; wgmma would also need the B operand
-//     transposed in shared memory and every warp of the group on the same
-//     steps. The accumulator layout of the logits becomes the A layout by
-//     permuting the reduction index (k = t -> column 2t, k = t + 4 -> column
-//     2t + 1), and the B fragment is read from the same permuted rows;
-//   * the B operands (V in the forward, do and q in dK/dV) are split once
-//     per tile, as the tile lands, into big and small halves in shared
-//     memory, so the 4 warps that read them do not split them again;
+//     (tf32_mma.cuh): no product is a single TF32 pass. mma.sync takes p and
+//     ds as its A operand in the registers where they are made; wgmma would
+//     also need the B operand transposed in shared memory and every warp of
+//     the group on the same steps. The accumulator layout of the logits
+//     becomes the A layout by permuting the reduction index (k = t -> column
+//     2t, k = t + 4 -> column 2t + 1), and the B fragment is read from the
+//     same permuted rows;
+//   * the B operands (V in the forward; do and q in dK/dV; V and K in dQ) are
+//     split once per tile, as the tile lands, into big and small halves in
+//     shared memory, so the 4 warps that read them do not split them again;
 //   * the tensor cores round their sums toward zero, so each step's products
 //     are summed apart and added to the running float32 sums with an
 //     ordinary add: a single long-lived accumulator drifts with L;
@@ -69,27 +70,31 @@
 //     queries, the logits, dp = v do^T on the tensor cores (its accumulator
 //     is laid out as the logits), p = exp2(s - lse2), ds = p (dp - di), then
 //     dv += p^T do and dk += ds^T q;
+//   * dQ: do is held as split A fragments for the whole block; per 32 keys,
+//     the logits, dp = do v^T on the tensor cores (B read from the staged V
+//     rows; the accumulator is laid out as the logits), p = exp2(s - lse2),
+//     ds = p (dp - di), then dq += ds k (ds the A operand through the
+//     permutation above, the split K tile the B operand); dq is stored times
+//     s. Its staged tiles: K raw in 2 buffers (the logit chain), K big, K
+//     small, V in 2 buffers split in place (big), V small;
 //   * only the steps that touch the diagonal or the ragged end of L are
 //     masked (a warp-uniform choice between two instances of the step);
-//   * what bounds them now: instruction issue on the CUDA cores, where the
+//   * what bounds them: instruction issue on the CUDA cores, where the
 //     logit chains (D fmaf a pair) are under half of a step's instructions
 //     and exp2f, the TF32 splits of p and ds, the softmax and the loads the
 //     rest; the mma.sync products add their tensor-core time to it (most in
 //     dK/dV: at D=16, 36 mmas a warp per 16 queries) rather than hide under
 //     it. chip_smoke.py prints the SASS counts.
 //
-// The recompute contract with dQ: every logit in all three kernels is the
-// same scalar chain, bit for bit: q scaled once by s * log2(e) (one float
+// The recompute contract: every logit in all three kernels is the same
+// scalar chain, bit for bit: q scaled once by s * log2(e) (one float
 // multiply; dK/dV multiplies each staged q value after its cp.async lands,
 // as the forward and dQ do their q rows in registers), then acc = fmaf(q_s[i],
-// k[i], acc) for i = 0 .. D-1 ascending from acc = 0, on the CUDA cores. So
-// p = exp2(s - lse2) carries no recompute rounding however large the logits
-// grow (at |logits| ~ 1e4, a different rounding put 4e-4 relative error on
-// dv). Putting q k^T on the tensor cores needs dQ redesigned the same way.
-//
-// dQ (first form, unchanged): a block of 64 threads, one query row per
-// thread, K and V tiles staged synchronously through static shared memory,
-// 16 staged rows per inner step, every product an fmaf on the CUDA cores.
+// k[i], acc) for i = 0 .. D-1 ascending from acc = 0, on the CUDA cores
+// (dot2). So p = exp2(s - lse2) carries no recompute rounding however large
+// the logits grow (at |logits| ~ 1e4, a different rounding put 4e-4 relative
+// error on dv). Putting q k^T on the tensor cores would change all three
+// kernels at once.
 //
 // Common to all three:
 //   * causality: tiles wholly past the diagonal are never loaded; inside a
@@ -109,14 +114,16 @@
 //     argument whose error grows with |x|, is not used); the log-sum-exp
 //     handed from the forward to the backward is in base 2 as well.
 //
-// Registers at D=16 (ptxas, sm_90a): forward 118, dK/dV 128 (both under
-// __launch_bounds__(128, 4)), dQ 105, none spilling; at D=32 180, 239 and
-// 181, none spilling; at D >= 64 all but the forward at D=64 spill.
+// Registers at D=16 (ptxas, sm_90a): forward 118, dK/dV 127, dQ 128 (all
+// under __launch_bounds__(128, 4)), none spilling; at D=32 180, 239 and
+// 244, none spilling; at D >= 64 all but the forward at D=64 spill.
 // chip_smoke.py prints the registers and spills at every head dim.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 #ifndef MOVAE_FLASH_D
 #error "build with -DMOVAE_FLASH_D=<head dim>: one library per head dim"
@@ -128,14 +135,7 @@ static_assert(MOVAE_FLASH_D == 8 || MOVAE_FLASH_D == 16 ||
 
 namespace {
 
-constexpr int kRows = 64;   // rows a block owns (dQ: one per thread)
-constexpr int kStep = 16;   // dQ: staged rows per inner step
-
-template <int D>
-struct Tile {
-  // dQ: staged rows per shared-memory tile: two tiles of kStaged x D floats
-  static constexpr int kStaged = D <= 64 ? 64 : 32;
-};
+using namespace movae;
 
 template <int D>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
@@ -151,74 +151,19 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&src)[D], float mul) {
-  float4* p = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i)
-    p[i] = make_float4(src[4 * i] * mul, src[4 * i + 1] * mul,
-                       src[4 * i + 2] * mul, src[4 * i + 3] * mul);
-}
-
-// rows [r0, r0 + S) of an (L, D) matrix into shared memory, zeros past L;
-// kScaled multiplies every value by mul on the way
-template <int D, int S, bool kScaled = false>
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      float* __restrict__ dst, int r0, int L,
-                                      float mul = 1.f) {
-  constexpr int kVecs = S * D / 4;
-  const float4* s = reinterpret_cast<const float4*>(
-      src + static_cast<int64_t>(r0) * D);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < kVecs; i += kRows) {
-    const bool in = r0 + i / (D / 4) < L;
-    float4 x = in ? __ldg(s + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-    if (kScaled) x = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
-    d[i] = x;
-  }
-}
-
-// the logit chain: acc = fmaf(a[i], b[i], acc), i ascending from acc = 0
-template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D],
-                                     const float* __restrict__ b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(b + i);
-    acc = fmaf(a[i], v.x, acc);
-    acc = fmaf(a[i + 1], v.y, acc);
-    acc = fmaf(a[i + 2], v.z, acc);
-    acc = fmaf(a[i + 3], v.w, acc);
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
-// forward and dK/dV: 4 warps, tensor-core products in split TF32, cp.async
+// 4 warps a block, tensor-core products in split TF32, cp.async staging
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;  // 4 warps of 16 owned rows each
 constexpr int kTile = 64;      // rows a block owns
 constexpr int kKeyStep = 32;   // forward: keys per online-softmax step
 constexpr int kQStep = 16;     // dK/dV: queries per inner step
+constexpr int kDqStep = 32;    // dQ: keys per inner step
 
 // blocks an SM must hold at once: 4 at D <= 16 caps a thread at 128
-// registers, which both kernels fit without spilling
+// registers, which all three kernels fit without spilling
 template <int D>
 constexpr int kMinBlocks = D <= 16 ? 4 : 1;
-
-// rows per streamed tile (32 at D=128, so that dK/dV's 7 staged tiles fit)
-template <int D>
-constexpr int kStream = D <= 64 ? 64 : 32;
-// staged rows are padded to D + 4 floats: the 16-byte loads of 4 rows 2t
-// apart, the 4-byte loads of rows 2t (+1) at 8 columns and of rows g at 4
-// columns then all fall on distinct banks
-template <int D>
-constexpr int kStride = D + 4;
-template <int D>
-constexpr int kMat = kStream<D> * kStride<D>;  // floats of one staged tile
 
 template <int D>
 constexpr int fwd_smem_bytes() {
@@ -231,8 +176,15 @@ constexpr int dkv_smem_bytes() {
   // do small, and 2 buffers of lse2 and of di
   return (7 * kMat<D> + 4 * kStream<D>) * static_cast<int>(sizeof(float));
 }
+template <int D>
+constexpr int dq_smem_bytes() {
+  // 2 buffers of K (raw: the logits), K big, K small, 2 buffers of V (split
+  // in place: big), V small
+  return 7 * kMat<D> * static_cast<int>(sizeof(float));
+}
 
-// two logit chains against one staged row, each exactly dot<D>'s
+// the logit chain, acc = fmaf(a[i], b[i], acc) for i ascending from acc = 0,
+// for two rows a0, a1 against one staged row b
 template <int D>
 __device__ __forceinline__ void dot2(const float (&a0)[D],
                                      const float (&a1)[D],
@@ -253,114 +205,6 @@ __device__ __forceinline__ void dot2(const float (&a0)[D],
   }
   d0 = acc0;
   d1 = acc1;
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero: the value of cvt.rna.tf32.f32 for every x that is not a NaN,
-// in 2 integer instructions where ptxas expands the cvt into 4
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-// x = big + small, both TF32; x - big is exact in float32
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  const float b = tf32_rna(x);
-  big = __float_as_uint(b);
-  small = __float_as_uint(tf32_rna(x - b));
-}
-
-struct FragA {  // m16 x k8 operand: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2,
-                                      float a3) {
-    split(a0, big[0], small[0]);
-    split(a1, big[1], small[1]);
-    split(a2, big[2], small[2]);
-    split(a3, big[3], small[3]);
-  }
-};
-
-struct FragB {  // k8 x n8 operand: (t, g), (t+4, g), from a split tile
-  uint32_t big[2], small[2];
-  // elements at offsets i0 and i1 of the big and small halves
-  __device__ __forceinline__ void load(const float* __restrict__ b,
-                                       const float* __restrict__ s, int i0,
-                                       int i1) {
-    big[0] = __float_as_uint(b[i0]);
-    big[1] = __float_as_uint(b[i1]);
-    small[0] = __float_as_uint(s[i0]);
-    small[1] = __float_as_uint(s[i1]);
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in split TF32: the two small cross terms first, then big x big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
-                                           const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the 16-byte chunks of a staged tile that thread threadIdx.x copies and
-// splits: i = threadIdx.x + kThreads * it, row i / (D / 4), column 4 (i % (D
-// / 4)); the trip count is known at compile time
-template <int D>
-constexpr int kChunkIters = kStream<D> * D / 4 / kThreads;
-
-__device__ __forceinline__ unsigned chunk(int it) {
-  return threadIdx.x + static_cast<unsigned>(kThreads * it);
-}
-
-// rows [r0, r0 + kStream) of an (L, D) matrix into a padded staged tile,
-// zeros past L (a copy of 0 bytes from row 0)
-template <int D>
-__device__ __forceinline__ void copy_tile(const float* __restrict__ src,
-                                          float* __restrict__ dst, int r0,
-                                          int L) {
-  static_assert(kStream<D> * D / 4 % kThreads == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < kChunkIters<D>; ++it) {
-    const unsigned i = chunk(it), c = 4 * (i % (D / 4));
-    const int r = static_cast<int>(i / (D / 4));
-    const bool in = r0 + r < L;
-    cp_async16(dst + r * kStride<D> + c,
-               src + static_cast<int64_t>(in ? r0 + r : 0) * D + c, in);
-  }
 }
 
 // once this thread's copies of a staged tile have landed (the same chunks
@@ -742,76 +586,183 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// dQ: first form, one query row per thread on the CUDA cores
-// ---------------------------------------------------------------------------
+// staged key tile of dQ from row c on: K raw (the logits), K's halves, V's
+// halves
+struct DqTile {
+  const float *k, *kbig, *ksmall, *vbig, *vsmall;
+};
+
+// one dQ step over the kDqStep staged keys from row c of the tile (key index
+// key): logits, dp, p, ds, then dq. kMasked: the step holds keys past some
+// row of the warp (the diagonal)
+template <int D, bool kMasked>
+__device__ __forceinline__ void dq_step(const float (&qr)[2][D],
+                                        const FragA (&doa)[D / 8],
+                                        const float (&lr)[2],
+                                        const float (&dir)[2],
+                                        float (&dqa)[D / 8][4],
+                                        const DqTile& tile, int c, int key,
+                                        int row0) {
+  constexpr int S = kStride<D>, N8 = D / 8;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // s[j], dp[j]: keys key + 8j + 2t (+1) of rows row0, row0 + 8, in the
+  // forward's accumulator order
+  float s[kDqStep / 8][4], dp[kDqStep / 8][4];
+#pragma unroll
+  for (int j = 0; j < kDqStep / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      dot2<D>(qr[0], qr[1], tile.k + (c + 8 * j + 2 * t + e) * S, s[j][e],
+              s[j][2 + e]);
+    dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    const int v0 = (c + 8 * j + g) * S + t;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      FragB vf;  // v^T: reduction index d = 8n + t (+4), key g
+      vf.load(tile.vbig, tile.vsmall, v0 + 8 * n, v0 + 8 * n + 4);
+      mma_3xtf32(dp[j], doa[n], vf);
+    }
+  }
+  // this step's ds k, added to the running sum with a float32 add (the
+  // tensor cores round their sums toward zero)
+  float sdq[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+    sdq[n][0] = sdq[n][1] = sdq[n][2] = sdq[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kDqStep / 8; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      const float p = kMasked && key + 8 * j + 2 * t + (i & 1) > row0 + 8 * r
+                          ? 0.f
+                          : exp2f(s[j][i] - lr[r]);
+      ds[i] = p * (dp[j][i] - dir[r]);
+    }
+    // ds as the A operand: k = t -> key 2t, t+4 -> 2t+1
+    FragA da;
+    da.set(ds[0], ds[2], ds[1], ds[3]);
+    const int k0 = (c + 8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      FragB kf;
+      kf.load(tile.kbig, tile.ksmall, k0 + 8 * n, k0 + S + 8 * n);
+      mma_3xtf32(sdq[n], da, kf);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dqa[n][i] += sdq[n][i];
+}
 
 // grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
 template <int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse2,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int L, float scale_log2, float scale) {
-  constexpr int S = Tile<D>::kStaged;
-  __shared__ __align__(16) float ks[S * D];
-  __shared__ __align__(16) float vs[S * D];
+  constexpr int M = kMat<D>, N8 = D / 8, R = kStream<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;          // 2 buffers: raw, for the logits
+  float* vs = smem + 2 * M;  // 2 buffers, split in place: big
+  float* kbig = smem + 4 * M;
+  float* ksmall = smem + 5 * M;
+  float* vsmall = smem + 6 * M;
 
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
   const int qt = gridDim.y - 1 - blockIdx.y;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
   const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
-  const int row = qt * kRows + threadIdx.x;
-  const bool valid = row < L;
-  const int warp_last = qt * kRows + (threadIdx.x | 31);
-  const int last = min(qt * kRows + kRows, L) - 1;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  const int warp_first = qt * kTile + 16 * warp;
+  const int rows[2] = {warp_first + g, warp_first + g + 8};
+  // key tiles up to the one that holds the block's last row
+  const int n_tiles = (min(qt * kTile + kTile, L) - 1) / R + 1;
 
-  float qr[D], dor[D], dqa[D];
-  load_row<D>(q + base + static_cast<int64_t>(row) * D, qr, valid);
-  load_row<D>(dout + base + static_cast<int64_t>(row) * D, dor, valid);
+  copy_tile<D>(kb, ks, 0, L);
+  copy_tile<D>(vb, vs, 0, L);
+  cp_async_commit();
+
+  // the warp's q rows, scaled once (the logits, as in the forward), do as
+  // split A operands of dp = do v^T, and lse2, di of both rows
+  float qr[2][D], lr[2], dir[2];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    qr[i] *= scale_log2;
-    dqa[i] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < L;
+    load_row<D>(q + base + static_cast<int64_t>(rows[r]) * D, qr[r], in);
+#pragma unroll
+    for (int i = 0; i < D; ++i) qr[r][i] *= scale_log2;
+    lr[r] = in ? lse2[lbase + rows[r]] : 0.f;
+    dir[r] = in ? di[lbase + rows[r]] : 0.f;
   }
-  const float lr = valid ? lse2[lbase + row] : 0.f;
-  const float dir = valid ? di[lbase + row] : 0.f;
-
-  for (int t0 = 0; t0 <= last; t0 += S) {
-    __syncthreads();
-    stage<D, S>(k + base, ks, t0, L);
-    stage<D, S>(v + base, vs, t0, L);
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < S; c0 += kStep) {
-      const int key0 = t0 + c0;
-      if (key0 > warp_last) break;
+  FragA doa[N8];
 #pragma unroll
-      for (int c = 0; c < kStep; ++c) {
-        const float* krow = ks + (c0 + c) * D;
-        const float sv = dot<D>(qr, krow);
-        const float dp = dot<D>(dor, vs + (c0 + c) * D);
-        const float p = key0 + c > row ? 0.f : exp2f(sv - lr);
-        const float ds = p * (dp - dir);
+  for (int n = 0; n < N8; ++n) {
+    float x[4];
 #pragma unroll
-        for (int i = 0; i < D; i += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(krow + i);
-          dqa[i] = fmaf(ds, kk.x, dqa[i]);
-          dqa[i + 1] = fmaf(ds, kk.y, dqa[i + 1]);
-          dqa[i + 2] = fmaf(ds, kk.z, dqa[i + 2]);
-          dqa[i + 3] = fmaf(ds, kk.w, dqa[i + 3]);
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int row = rows[i & 1], d = 8 * n + t + 4 * (i >> 1);
+      x[i] = row < L
+                 ? __ldg(dout + base + static_cast<int64_t>(row) * D + d)
+                 : 0.f;
     }
+    doa[n].set(x[0], x[1], x[2], x[3]);
   }
-  if (valid) store_row<D>(dq + base + static_cast<int64_t>(row) * D, dqa, scale);
+  // accumulator n-tile n: rows g, g+8 by columns 8n + 2t, 8n + 2t + 1
+  float dqa[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = (kt & 1) * M;
+    if (kt + 1 < n_tiles) {
+      const int next = ((kt + 1) & 1) * M;
+      copy_tile<D>(kb, ks + next, (kt + 1) * R, L);
+      copy_tile<D>(vb, vs + next, (kt + 1) * R, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    split_tile<D, false>(ks + buf, kbig, ksmall, 1.f);
+    split_tile<D, false>(vs + buf, vs + buf, vsmall, 1.f);
+    __syncthreads();
+    const DqTile tile{ks + buf, kbig, ksmall, vs + buf, vsmall};
+#pragma unroll 1
+    for (int c0 = 0; c0 < R; c0 += kDqStep) {
+      const int key0 = kt * R + c0;
+      if (key0 > warp_first + 15) break;  // every key here is ahead
+      if (key0 + kDqStep - 1 <= warp_first)
+        dq_step<D, false>(qr, doa, lr, dir, dqa, tile, c0, key0, rows[0]);
+      else
+        dq_step<D, true>(qr, doa, lr, dir, dqa, tile, c0, key0, rows[0]);
+    }
+    __syncthreads();  // before tile kt + 2 and the next split overwrite
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= L) continue;
+    float* drow = dq + base + static_cast<int64_t>(rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+      *reinterpret_cast<float2*>(drow + 8 * n) =
+          make_float2(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
+  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
 
 inline dim3 grid_for(int bh, int L) {
   return dim3(static_cast<unsigned>(bh),
-              static_cast<unsigned>((L + kRows - 1) / kRows));
+              static_cast<unsigned>((L + kTile - 1) / kTile));
 }
 
 // one library per head dim, each its own nvcc job (kernels/build.py)
@@ -819,7 +770,7 @@ constexpr int kD = MOVAE_FLASH_D;
 
 inline int prologue(int bh, int L, int d, int device) {
   // gridDim.y is at most 65535 tiles of 64 rows
-  if (d != kD || bh <= 0 || L <= 0 || (L + kRows - 1) / kRows > 65535)
+  if (d != kD || bh <= 0 || L <= 0 || (L + kTile - 1) / kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
 }
@@ -877,7 +828,10 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
                                   int device, void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  flash_bwd_dq_kernel<kD><<<grid_for(bh, L), kRows, 0,
+  constexpr int smem = dq_smem_bytes<kD>();
+  err = allow_smem(flash_bwd_dq_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_bwd_dq_kernel<kD><<<grid_for(bh, L), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       q, k, v, dout, lse2, di, dq, L, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());

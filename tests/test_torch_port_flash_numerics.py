@@ -2,11 +2,12 @@
 
 ``movae_tpu_torch/kernels/flash_attention.cu`` computes every logit as a
 float32 ``fmaf`` chain on q scaled by ``s * log2(e)``, and the forward's
-p v and dK/dV's do v^T, p^T do and ds^T q on the tensor cores in split TF32:
-x = big + small, each rounded to nearest TF32 (10 explicit mantissa bits),
-and a b ~ a_small b_big + a_big b_small + a_big b_big, summed in float32.
-The forward runs an online softmax over steps of 32 keys, adding each
-step's p v to its running sum.
+p v, dK/dV's do v^T, p^T do and ds^T q, and dQ's do v^T and ds k on the
+tensor cores in split TF32: x = big + small, each rounded to nearest TF32
+(10 explicit mantissa bits), and a b ~ a_small b_big + a_big b_small +
+a_big b_big, summed in float32. The forward runs an online softmax over
+steps of 32 keys, adding each step's p v to its running sum; dQ adds each
+step of 32 keys' ds k to its running sum.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
 the plain version there). This file emulates their arithmetic in torch on the
@@ -31,6 +32,7 @@ from movae_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 O_TOL, GRAD_TOL, PLAIN_FACTOR = 1e-4, 1e-3, 2.0
 LOG2E = 1.4426950408889634
 KEY_STEP = 32  # the forward's keys per online-softmax step
+DQ_STEP = 32  # dQ's keys per step
 
 
 def tf32(x):
@@ -102,6 +104,19 @@ def emulated_dkv(q, k, v, do, lse2, di, scale, mm=mm3):
     return dk, mm(p.transpose(-1, -2), do)
 
 
+def emulated_dq(q, k, v, do, lse2, di, scale, mm=mm3):
+    """dq as the dQ kernel computes it: the forward's logits and p, dp = do
+    v^T, ds = p (dp - di), and per step of 32 keys the product ds k, added
+    to the running float32 sum; stored times the scale."""
+    s, mask = _logits(q, k, scale)
+    p = torch.where(mask, torch.exp2(s - lse2[..., None]), 0.0)
+    ds = p * (mm(do, v.transpose(-1, -2)) - di[..., None])
+    dq = torch.zeros_like(q)
+    for c in range(0, q.shape[2], DQ_STEP):
+        dq = dq + mm(ds[..., c:c + DQ_STEP], k[..., c:c + DQ_STEP, :])
+    return dq * float(np.float32(scale))
+
+
 @functools.lru_cache(maxsize=None)
 def _case(scale_kind, L, d):
     """The emulated kernels' outputs with split-TF32 and with exact float32
@@ -122,7 +137,8 @@ def _case(scale_kind, L, d):
         o, lse2 = emulated_forward(q, k, v, scale, mm)
         di = (o * do).sum(-1)
         dk, dv = emulated_dkv(q, k, v, do, lse2, di, scale, mm)
-        emulated[name] = {"o": o, "dk": dk, "dv": dv}
+        dq = emulated_dq(q, k, v, do, lse2, di, scale, mm)
+        emulated[name] = {"o": o, "dq": dq, "dk": dk, "dv": dv}
     refs = {}
     for dtype in (torch.float32, torch.float64):
         leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
@@ -186,6 +202,11 @@ def test_dkv_split_tf32_within_gate(L, d):
     _assert_within_gate("unit", L, d, "dv", GRAD_TOL)
 
 
+@pytest.mark.parametrize("L,d", SIZES)
+def test_dq_split_tf32_within_gate(L, d):
+    _assert_within_gate("unit", L, d, "dq", GRAD_TOL)
+
+
 # At logits ~1e4 a float32 logit carries ~1e-3 of rounding. The chain that
 # the three kernels share (and must share, so that the backward's p is the
 # forward's) can then land past twice the plain version's error, with exact
@@ -201,4 +222,10 @@ def test_dkv_split_tf32_at_logits_1e4(L, d):
     _assert_within_gate("logits_1e4", L, d, "dk", GRAD_TOL,
                         chain_allowed=True)
     _assert_within_gate("logits_1e4", L, d, "dv", GRAD_TOL,
+                        chain_allowed=True)
+
+
+@pytest.mark.parametrize("L,d", SIZES)
+def test_dq_split_tf32_at_logits_1e4(L, d):
+    _assert_within_gate("logits_1e4", L, d, "dq", GRAD_TOL,
                         chain_allowed=True)
