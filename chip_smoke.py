@@ -13,13 +13,13 @@ Phases, each of which fails the run:
      toolkit has it): the nearest-code and every flash kernel must have
      HMMA;
   2. hold the nearest-code kernel against its plain PyTorch version on the
-     card at the main path's shapes (plus a ragged N and K and small and
+     card at the main paths' shapes (plus a ragged N and K and small and
      large D), on a codebook with duplicated rows (the lowest index of each
      group of equal rows must win, exactly) and on rows of NaN (the index
      stays in range); time the kernel, the plain version and one PyTorch
-     library call that computes the same function at stage 1's shape and
-     at stage 2's extraction shape, by CUDA-graph replay (the host's launch
-     path is not timed);
+     library call that computes the same function at stage 1's shape, at
+     stage 2's extraction shape and at the VQ-VAE-2's two levels, by
+     CUDA-graph replay (the host's launch path is not timed);
   2b. the same for the three causal flash-attention kernels (forward, dK/dV,
      dQ): output and gradients against the plain version at the prior's
      shape (B=16, H=8, L=4096, D=16), at L=4096, 1600 and 1025, and at
@@ -39,7 +39,25 @@ Phases, each of which fails the run:
      flash kernels against their plain version on the trained prior's own
      q, k, v (its last attention layer);
   6. card vs CPU lockstep of the prior at a small width with L=1600:
-     3 steps from one init within 1e-4.
+     3 steps from one init within 1e-4;
+  7. drive the 256-px VQ-VAE-2 path — the model of configs/celeba-hq/
+     vq_vae2/{sum,upgrad}/mse/config_1.yaml at full width (channel 128,
+     K=512, D=64, batch 128, uint8 inputs normalized) with agg=sum and
+     agg=upgrad, then (top 32x32, bottom 64x64) code extraction — counts
+     set to 0 just before and read just after: two nearest-code launches
+     per forward and per extraction batch; then the kernel against its
+     plain version on the trained model's latents at both levels;
+  8. train the hierarchical prior those configs build (HierarchicalPixelCNN,
+     15 layers, 128 channels, batch 32) on the extracted codes, then 3
+     steps of HierarchicalPixelSNAIL, whose top attention at L=1024 is
+     dense (no flash launch);
+  9. sample: sample_hierarchical from the trained prior (batch 16) decoded
+     to 256-px images by VQVAE2.decode_code, and sample_fast_snail from
+     phase 5's PixelSNAIL at 64x64 with the int8 and the float32 caches;
+     at small grids, the cached samplers against sample_naive on the same
+     noise (near ties excepted) and teacher-forced logits card vs CPU;
+  10. card vs CPU lockstep of the VQ-VAE-2 at a small width: 3 steps of sum
+     and of upgrad within 1e-4.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
@@ -81,6 +99,41 @@ PRIOR_ARGS = dict(prior_type="pixelsnail", batch_size=PRIOR_BATCH, seed=0,
                   pixelcnn_hidden_channels=128, pixelsnail_num_blocks=8,
                   pixelsnail_num_res_blocks=2, pixelsnail_num_heads=8,
                   pixelsnail_dropout=0.1, attention_dropout="output")
+# the 256-px VQ-VAE-2 of configs/celeba-hq/vq_vae2/{sum,upgrad}/mse/
+# config_1.yaml, not cut: channel 128 (hidden_dims[0]), 2 residual layers,
+# K=512, D=64, mse with no output activation, loss weights recon 1.0,
+# embedding 1.0, commitment 0.25, adam 1e-4 under the per-epoch cosine (all
+# steps fall in its first epoch), batch 128, normalized uint8 inputs
+V2_SIZE, V2_BATCH, V2_WARMUP, V2_TIMED = 256, 128, 3, 10
+V2_WIDTH = dict(arch="vq_vae2", embedding_dim=SLICE_D, num_embeddings=SLICE_K,
+                hidden_dims=(128, 256), num_residual_layers=2,
+                recons_objective="mse", recons_activation="none",
+                loss_weights={"reconstruction_loss": 1.0,
+                              "embedding_loss": 1.0, "commitment_loss": 0.25})
+# latent rows of one VQ-VAE-2 batch at each level: 128 images of 32 x 32
+# (top) and 64 x 64 (bottom) codes
+V2_TOP_N = V2_BATCH * (V2_SIZE // 8) ** 2
+V2_BOTTOM_N = V2_BATCH * (V2_SIZE // 4) ** 2
+# the hierarchical prior those configs build (no prior_type: a
+# HierarchicalPixelCNN of 15 layers, 128 channels, kernel 7) on 4 extracted
+# batches; the prior batch is cut from the configs' 128 to 32
+V2_EXTRACT_BATCHES = 4
+HPRIOR_BATCH, HPRIOR_WARMUP, HPRIOR_TIMED, HSNAIL_STEPS = 32, 3, 10, 3
+HPRIOR_ARGS = dict(batch_size=HPRIOR_BATCH, seed=0, pixelcnn_epochs=1,
+                   pixelcnn_lr=3e-4, pixelcnn_hidden_channels=128,
+                   pixelcnn_num_layers=15)
+# the same with prior_type pixelsnail: its top runs dense attention at L=1024
+HSNAIL_ARGS = dict(HPRIOR_ARGS, **{k: v for k, v in PRIOR_ARGS.items()
+                                   if k.startswith(("prior_type",
+                                                    "pixelsnail",
+                                                    "attention"))})
+# sampling: batch 16 at the full grids (top 32x32, bottom 64x64, flat
+# 64x64); the sampler checks at small grids, batch 4
+SAMPLE_BATCH = 16
+CHECK_BATCH, CHECK_TOP, CHECK_FLAT = 4, (8, 8), (8, 8)
+# two perturbed logits closer than this are a near tie (either draw is
+# right), as nearest-code ties are in phase 2
+SAMPLE_TIE = 1e-5
 FLASH_SLICE = (PRIOR_BATCH, 8, 4096, 16)  # (B, H, L, D) of every prior layer
 # the other shapes compared: L=4096 at batch 2, a 40x40 grid, L just past
 # the dense threshold, and short ragged L at the two remaining head dims
@@ -345,7 +398,8 @@ def time_nearest(torch, nc, dev, gen, n: int, peaks) -> dict:
 def phase_kernels(torch, nc, dev, peaks) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(SLICE_N, SLICE_K, SLICE_D), (1000, SLICE_K, SLICE_D),
-             (4096, 64, 8), (777, 1000, 128), (EXTRACT_N, SLICE_K, SLICE_D)]
+             (4096, 64, 8), (777, 1000, 128), (EXTRACT_N, SLICE_K, SLICE_D),
+             (V2_TOP_N, SLICE_K, SLICE_D), (V2_BOTTOM_N, SLICE_K, SLICE_D)]
     worst = 0.0
     for n, k, d in cases:
         z = torch.randn(n, d, generator=gen, device=dev)
@@ -359,8 +413,10 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
     worst = max(worst, check_nearest_ties(torch, nc, dev, gen))
 
     # stage 1's shape (the row's numbers), then stage 2's extraction shape
+    # and the VQ-VAE-2's top and bottom levels
     t = time_nearest(torch, nc, dev, gen, SLICE_N, peaks)
-    time_nearest(torch, nc, dev, gen, EXTRACT_N, peaks)
+    for n in (EXTRACT_N, V2_TOP_N, V2_BOTTOM_N):
+        time_nearest(torch, nc, dev, gen, n, peaks)
     return {
         "name": "nearest_code", "route": "cuda",
         "source": "movae_tpu_torch/kernels/nearest_code.cu",
@@ -532,7 +588,17 @@ def phase_flash(torch, fa, dev, peaks) -> list:
 # phase 3: the main path, full-width VQ-VAE training
 # ---------------------------------------------------------------------------
 
-def train_mode(torch, agg: str, dev):
+# the stage-1 VQ-VAE (phase 3) and the VQ-VAE-2 (phase 7): width, image
+# size, batch, steps, the learning-rate schedule's arguments, uint8 inputs
+# (normalized) or float ones in [-1, 1], and nearest-code launches a forward
+STAGE1 = dict(width=FULL_WIDTH, size=SIZE, batch=BATCH, warmup=WARMUP,
+              timed=TIMED, lr=(1e-3, None, 1, 1), uint8=False, vq=1)
+VQVAE2 = dict(width=V2_WIDTH, size=V2_SIZE, batch=V2_BATCH, warmup=V2_WARMUP,
+              timed=V2_TIMED, lr=(1e-4, "cosine", 400, V2_WARMUP + V2_TIMED),
+              uint8=True, vq=2)
+
+
+def train_mode(torch, agg: str, dev, path: dict):
     from movae_tpu_torch.kernels import LAUNCH_COUNTS
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.moo import AggregatorConfig, init_state
@@ -540,45 +606,56 @@ def train_mode(torch, agg: str, dev):
     from movae_tpu_torch.train.state import TrainState
     from movae_tpu_torch.train.step import make_train_step
 
-    model = init_model(get_network(SIZE, 3, FULL_WIDTH), seed=0, device=dev)
+    size, batch = path["size"], path["batch"]
+    model = init_model(get_network(size, 3, path["width"]), seed=0,
+                       device=dev)
     cfg = AggregatorConfig(name=agg, num_objectives=len(model.objective_names))
+    lr, sched, epochs, spe = path["lr"]
     state = TrainState.create(
-        model, build_optimizer("adam", lr_schedule(1e-3, None, 1, 1)),
+        model, build_optimizer("adam", lr_schedule(lr, sched, epochs, spe,
+                                                   lr_min=1e-6)),
         init_state(cfg))
-    step = make_train_step(model, cfg)
+    step = make_train_step(model, cfg, normalize_inputs=path["uint8"])
     gen = torch.Generator(device=dev).manual_seed(1)
-    batches = [torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
-               * 2 - 1 for _ in range(4)]
+    shape = (batch, size, size, 3)
+    if path["uint8"]:
+        batches = [torch.randint(0, 256, shape, generator=gen, device=dev,
+                                 dtype=torch.uint8) for _ in range(4)]
+    else:
+        batches = [torch.rand(shape, generator=gen, device=dev) * 2 - 1
+                   for _ in range(4)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = LAUNCH_COUNTS["nearest_code"]
     times, mets = [], []
-    for i in range(WARMUP + TIMED):
+    forwards = path["warmup"] + path["timed"]
+    for i in range(forwards):
         t0 = time.perf_counter()
         state, met = step(state, batches[i % len(batches)], gen)
         torch.cuda.synchronize()
-        if i >= WARMUP:
+        if i >= path["warmup"]:
             times.append(time.perf_counter() - t0)
         mets.append({k: float(v) for k, v in met.items()})
     launches = LAUNCH_COUNTS["nearest_code"] - start
+    arch = path["width"]["arch"]
     for i, met in enumerate(mets):
         check(all(v == v and abs(v) != float("inf") for v in met.values()),
-              f"{agg} step {i}: non-finite metric {met}")
+              f"{arch} {agg} step {i}: non-finite metric {met}")
         check(met["skipped_nonfinite"] == 0.0,
-              f"{agg} step {i}: non-finite loss or gradient")
+              f"{arch} {agg} step {i}: non-finite loss or gradient")
         check("codebook_usage_percentage" in met,
-              f"{agg} step {i}: codebook_usage_percentage missing")
-    forwards = WARMUP + TIMED
-    check(launches == forwards,
-          f"{agg}: nearest_code launched {launches} times in {forwards} "
-          f"forwards")
+              f"{arch} {agg} step {i}: codebook_usage_percentage missing")
+    check(launches == path["vq"] * forwards,
+          f"{arch} {agg}: nearest_code launched {launches} times in "
+          f"{forwards} forwards of {path['vq']} quantizers")
     med = statistics.median(times)
-    res = {"agg": agg, "steps": forwards, "nearest_code_launches": launches,
+    res = {"arch": arch, "agg": agg, "steps": forwards,
+           "nearest_code_launches": launches,
            "median_step_ms": med * 1e3, "min_step_ms": min(times) * 1e3,
-           "images_per_sec": BATCH / med,
+           "images_per_sec": batch / med,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "first": mets[0], "last": mets[-1]}
-    log(f"train agg={agg}: {json.dumps(res)}")
+    log(f"train {arch} {size}px batch {batch} agg={agg}: {json.dumps(res)}")
     return res, (step, state, batches, gen)
 
 
@@ -600,9 +677,13 @@ def profile_device(torch, label: str, run, steps: int, step_ms: float
     wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: the CPU-side ops' device totals, and the GPU
     # ranges of annotations such as "Optimizer.step#Adam.step", would count
-    # their kernels a second time
+    # their kernels a second time. A kernel's own name can hold a "#" too,
+    # in a lambda's signature ("{lambda(float)#1}": PyTorch's elementwise
+    # copies, relu, sigmoid, tanh), so only "#" outside parentheses marks
+    # an annotation
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "#" not in e.key
+               if e.device_type == DeviceType.CUDA
+               and not ("#" in e.key and "(" not in e.key)
                and not getattr(e, "is_user_annotation", False)]
     attr = ("self_device_time_total"
             if hasattr(kernels[0], "self_device_time_total")
@@ -627,7 +708,10 @@ def profile_device(torch, label: str, run, steps: int, step_ms: float
 # phase 4: card vs CPU lockstep
 # ---------------------------------------------------------------------------
 
-def phase_lockstep(torch, dev) -> float:
+def phase_lockstep(torch, dev, small: dict, size: int, agg: str) -> float:
+    """3 steps of ``agg`` from one init on the CPU and on the card, at a
+    small width (``small`` overrides FULL_WIDTH): the parameters must end
+    within 1e-4 of each other."""
     import numpy as np
 
     from movae_tpu_torch.models import get_network, init_model
@@ -636,15 +720,14 @@ def phase_lockstep(torch, dev) -> float:
     from movae_tpu_torch.train.state import TrainState
     from movae_tpu_torch.train.step import make_train_step
 
-    small = dict(FULL_WIDTH, hidden_dims=(8, 16), embedding_dim=8,
-                 num_embeddings=32)
+    width = dict(FULL_WIDTH, **small)
     rng = np.random.default_rng(0)
-    batches = [torch.tensor(rng.uniform(-1, 1, (4, 16, 16, 3)).astype(
+    batches = [torch.tensor(rng.uniform(-1, 1, (4, size, size, 3)).astype(
         np.float32)) for _ in range(3)]
     runs = {}
     for where in ("cpu", dev):
-        model = init_model(get_network(16, 3, small), seed=3, device=where)
-        cfg = AggregatorConfig(name="upgrad",
+        model = init_model(get_network(size, 3, width), seed=3, device=where)
+        cfg = AggregatorConfig(name=agg,
                                num_objectives=len(model.objective_names))
         state = TrainState.create(model, build_optimizer("adam", 1e-3,
                                                          eps=1e-4),
@@ -658,9 +741,10 @@ def phase_lockstep(torch, dev) -> float:
     (cpu_sd, cpu_l), (dev_sd, dev_l) = runs["cpu"], runs[str(dev)]
     delta = max(float((cpu_sd[k] - dev_sd[k].cpu()).abs().max())
                 for k in cpu_sd)
-    log(f"lockstep card vs cpu, 3 upgrad steps: losses cpu {cpu_l} card "
-        f"{dev_l}, max param delta {delta:.3e}")
-    check(delta < 1e-4, f"card and CPU parameters differ by {delta:.3e}")
+    log(f"lockstep card vs cpu, {width['arch']} 3 {agg} steps: losses cpu "
+        f"{cpu_l} card {dev_l}, max param delta {delta:.3e}")
+    check(delta < 1e-4, f"{width['arch']} {agg}: card and CPU parameters "
+          f"differ by {delta:.3e}")
     return delta
 
 
@@ -808,6 +892,365 @@ def phase_prior_lockstep(torch, dev) -> float:
     return delta
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the 256-px VQ-VAE-2 path, training and code extraction
+# ---------------------------------------------------------------------------
+
+def vq_rows(torch, model, x) -> list:
+    """The two quantizers' inputs on the images ``x``, as the contiguous
+    (N, D) rows in NHWC order that ``nearest_code`` sees, with their
+    codebooks: [(top rows, top codebook), (bottom rows, bottom codebook)]."""
+    seen = []
+    hooks = [conv.register_forward_hook(lambda m, a, out: seen.append(out))
+             for conv in (model.quantize_conv_t, model.quantize_conv_b)]
+    with torch.no_grad():
+        model.get_code_indices_pair(x)
+    for h in hooks:
+        h.remove()
+    d = model.embedding_dim
+    rows = [out.permute(0, 2, 3, 1).reshape(-1, d).contiguous()
+            for out in seen]
+    return [(rows[0], model.quantize_t().detach().contiguous()),
+            (rows[1], model.quantize_b().detach().contiguous())]
+
+
+def check_vqvae2_latents(torch, nc, model) -> float:
+    """``nearest_code`` against its plain version on the trained VQ-VAE-2's
+    own latents at both levels (N = 131,072 and 524,288 rows), near ties
+    excepted as in phase 2; returns the largest float64 distance error."""
+    from movae_tpu_torch.train.step import preprocess_batch
+
+    gen = torch.Generator(device=next(model.parameters()).device)
+    x = preprocess_batch(torch.randint(
+        0, 256, (V2_BATCH, V2_SIZE, V2_SIZE, 3), generator=gen.manual_seed(4),
+        device=gen.device, dtype=torch.uint8), True)
+    worst = 0.0
+    for level, (z, cb) in zip(("top", "bottom"), vq_rows(torch, model, x)):
+        res = compare_nearest(torch, nc, z, cb)
+        log(f"nearest_code on trained VQ-VAE-2 {level} latents: "
+            f"{json.dumps(res)}")
+        check(res["bad"] == 0 and res["in_range"],
+              f"nearest_code disagrees on trained {level} latents: {res}")
+        worst = max(worst, res["max_abs_err"])
+    return worst
+
+
+def phase_vqvae2_extract(torch, model, dev) -> tuple:
+    """(top, bottom) code grids of V2_EXTRACT_BATCHES batches of seeded
+    uint8 images through ``extract_codes(hierarchical=True)``: two
+    nearest-code launches a batch."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS
+    from movae_tpu_torch.train.prior import extract_codes
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = [torch.randint(0, 256, (V2_BATCH, V2_SIZE, V2_SIZE, 3),
+                            generator=gen, device=dev, dtype=torch.uint8)
+              for _ in range(V2_EXTRACT_BATCHES)]
+    extract = extract_codes(model, normalize_inputs=True, hierarchical=True)
+    torch.cuda.synchronize()
+    start = LAUNCH_COUNTS["nearest_code"]
+    t0 = time.perf_counter()
+    pairs = [extract(x) for x in images]
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = LAUNCH_COUNTS["nearest_code"] - start
+    top = torch.cat([t for t, _ in pairs]).cpu().numpy()
+    bottom = torch.cat([b for _, b in pairs]).cpu().numpy()
+    n, st, sb = V2_EXTRACT_BATCHES * V2_BATCH, V2_SIZE // 8, V2_SIZE // 4
+    for name, codes, side in (("top", top, st), ("bottom", bottom, sb)):
+        check(codes.shape == (n, side, side) and str(codes.dtype) == "int32"
+              and 0 <= codes.min() and codes.max() < SLICE_K,
+              f"extracted {name} codes: shape {codes.shape} dtype "
+              f"{codes.dtype} range [{codes.min()}, {codes.max()}]")
+    check(launches == 2 * V2_EXTRACT_BATCHES,
+          f"nearest_code launched {launches} times in {V2_EXTRACT_BATCHES} "
+          f"VQ-VAE-2 extraction batches")
+    res = {"batches": V2_EXTRACT_BATCHES, "nearest_code_launches": launches,
+           "extract_s": extract_s,
+           "images_per_sec": n / extract_s,
+           "distinct_top": int(len(set(top.reshape(-1).tolist()))),
+           "distinct_bottom": int(len(set(bottom.reshape(-1).tolist())))}
+    log(f"extract VQ-VAE-2 codes (top {st}x{st}, bottom {sb}x{sb}): "
+        f"{json.dumps(res)}")
+    return res, top, bottom
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the hierarchical priors on the extracted codes
+# ---------------------------------------------------------------------------
+
+def phase_hier_prior(torch, dev, vq, top, bottom, profile: bool) -> tuple:
+    """The HierarchicalPixelCNN the configs build: HPRIOR_WARMUP untimed
+    steps in one call, then HPRIOR_TIMED in a second call timed as one
+    window; then HSNAIL_STEPS steps of HierarchicalPixelSNAIL, whose top
+    runs dense attention at L=1024 (no flash launch). Returns the results
+    and the trained HierarchicalPixelCNN."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.train.prior import train_prior
+
+    args = SimpleNamespace(**HPRIOR_ARGS)
+    warm = HPRIOR_WARMUP * HPRIOR_BATCH
+    end = warm + HPRIOR_TIMED * HPRIOR_BATCH
+    trace = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_prior({"top": top[:warm], "bottom": bottom[:warm]}, vq, args,
+                      device=dev, step_trace=trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_prior({"top": top[warm:end], "bottom": bottom[warm:end]}, vq,
+                      args, device=dev, step_trace=trace, prior=out["model"])
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = HPRIOR_WARMUP + HPRIOR_TIMED
+    prior = out["model"]
+    check(out["hierarchical"] and type(prior).__name__
+          == "HierarchicalPixelCNN", f"built {type(prior).__name__}")
+    check(len(trace) == steps and all(v == v and abs(v) != float("inf")
+                                      for v in trace),
+          f"hierarchical prior CE over {steps} steps: {trace}")
+    check(trace[-1] < trace[0], f"hierarchical prior CE did not fall: "
+          f"{trace}")
+    step_s = window_s / HPRIOR_TIMED
+    codes = top.shape[1] * top.shape[2] + bottom.shape[1] * bottom.shape[2]
+    res = {"steps": steps, "timed_steps": HPRIOR_TIMED,
+           "window_s": window_s, "step_ms": step_s * 1e3,
+           "codes_per_sec": HPRIOR_BATCH * codes / step_s,
+           "peak_mem_gib": peak, "ce_first": trace[0], "ce_last": trace[-1]}
+    log(f"hierarchical prior (HierarchicalPixelCNN, top {top.shape[1:]}, "
+        f"bottom {bottom.shape[1:]}, batch {HPRIOR_BATCH}): "
+        f"{json.dumps(res)}")
+    if profile:
+        few = {"top": top[:3 * HPRIOR_BATCH],
+               "bottom": bottom[:3 * HPRIOR_BATCH]}
+        profile_device(torch, "hierarchical prior", lambda: train_prior(
+            few, vq, args, device=dev, prior=prior), 3, res["step_ms"])
+
+    snail_args = SimpleNamespace(**HSNAIL_ARGS)
+    n = HSNAIL_STEPS * HPRIOR_BATCH
+    snail_trace = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    snail = train_prior({"top": top[:n], "bottom": bottom[:n]}, vq,
+                        snail_args, device=dev, step_trace=snail_trace)
+    torch.cuda.synchronize()
+    snail_s = time.perf_counter() - t0
+    flash = {k: v for k, v in LAUNCH_COUNTS.items() if k.startswith("flash")}
+    check(type(snail["model"]).__name__ == "HierarchicalPixelSNAIL",
+          f"built {type(snail['model']).__name__}")
+    check(len(snail_trace) == HSNAIL_STEPS
+          and all(v == v and abs(v) != float("inf") for v in snail_trace),
+          f"hierarchical PixelSNAIL CE: {snail_trace}")
+    check(not any(flash.values()),
+          f"flash kernels launched at L={top.shape[1] * top.shape[2]} "
+          f"(dense attention expected): {flash}")
+    snail_res = {"steps": HSNAIL_STEPS, "wall_s": snail_s,
+                 "flash_launches": flash, "ce": snail_trace,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"hierarchical prior (HierarchicalPixelSNAIL, dense top attention "
+        f"at L={top.shape[1] * top.shape[2]}): {json.dumps(snail_res)}")
+    del snail
+    torch.cuda.empty_cache()
+    return res, prior
+
+
+# ---------------------------------------------------------------------------
+# phase 9: sampling, and the samplers held against the naive one
+# ---------------------------------------------------------------------------
+
+def phase_sampling(torch, dev, hprior, vq, snail, profile: bool) -> dict:
+    """sample_hierarchical from the trained HierarchicalPixelCNN (top
+    32x32, bottom 64x64, batch 16), decoded by VQVAE2.decode_code; then
+    sample_fast_snail from stage 2's trained PixelSNAIL at 64x64 with the
+    int8 and the float32 caches, on the same noise."""
+    from movae_tpu_torch.models import pixelcnn as pc
+
+    b, st, sb = SAMPLE_BATCH, V2_SIZE // 8, V2_SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(7)
+    marks = []
+    level_split = hprior.condition_from_top
+
+    def marked(z):  # the top level has been sampled: mark the time
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return level_split(z)
+
+    hprior.condition_from_top = marked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zt, zb = pc.sample_hierarchical(hprior, gen, b, (st, st), (sb, sb))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del hprior.condition_from_top
+    with torch.no_grad():
+        images = vq.decode_code(zt, zb)
+    torch.cuda.synchronize()
+    for name, z, side in (("top", zt, st), ("bottom", zb, sb)):
+        check(tuple(z.shape) == (b, side, side) and int(z.min()) >= 0
+              and int(z.max()) < SLICE_K,
+              f"sampled {name} codes: shape {tuple(z.shape)} range "
+              f"[{int(z.min())}, {int(z.max())}]")
+    check(tuple(images.shape) == (b, V2_SIZE, V2_SIZE, 3)
+          and bool(torch.isfinite(images).all()),
+          f"decoded images: shape {tuple(images.shape)}, finite "
+          f"{bool(torch.isfinite(images).all())}")
+    top_s, bottom_s = marks[0] - t0, t1 - marks[0]
+    res = {"hierarchical_top_px_per_sec": b * st * st / top_s,
+           "hierarchical_bottom_px_per_sec": b * sb * sb / bottom_s,
+           "hierarchical_top_s": top_s, "hierarchical_bottom_s": bottom_s,
+           "distinct_top": int(zt.unique().numel()),
+           "distinct_bottom": int(zb.unique().numel()),
+           "images_range": [float(images.min()), float(images.max())]}
+    if profile:
+        rows = 2
+        cond = hprior.condition_from_top(zt)[:, :rows]
+        profile_device(torch, f"sampler hierarchical bottom (sample_fast, "
+                       f"first {rows} rows; per pixel)",
+                       lambda: pc.sample_fast(hprior.prior_bottom, gen, b,
+                                              rows, sb, condition=cond),
+                       rows * sb, bottom_s / (sb * sb) * 1e3)
+
+    flat = PRIOR_SIZE // 4
+    noise = pc.gumbel_noise(gen, flat * flat, b, SLICE_K, dev)
+    codes = {}
+    for name, dtype in (("int8", torch.int8), ("f32", torch.float32)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes[name] = pc.sample_fast_snail(snail, None, b, flat, flat,
+                                           cache_dtype=dtype, gumbel=noise)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        z = codes[name]
+        check(int(z.min()) >= 0 and int(z.max()) < SLICE_K,
+              f"sample_fast_snail {name}: codes out of range")
+        res[f"snail_{name}_px_per_sec"] = b * flat * flat / secs
+        res[f"snail_{name}_s"] = secs
+        if profile:
+            rows = 2
+            profile_device(torch, f"sampler PixelSNAIL {name} cache (first "
+                           f"{rows} rows; per pixel)",
+                           lambda: pc.sample_fast_snail(
+                               snail, None, b, rows, flat, cache_dtype=dtype,
+                               gumbel=noise[:rows * flat]),
+                           rows * flat, secs / (flat * flat) * 1e3)
+    # once a pixel's draw differs the two sequences part, so the agreement
+    # is read with the raster index of each row's first difference
+    diff = (codes["int8"] != codes["f32"]).reshape(b, -1)
+    res["snail_int8_f32_code_agreement"] = float(
+        (~diff).float().mean())
+    res["snail_int8_f32_first_difference"] = [
+        int(r.nonzero()[0, 0]) if bool(r.any()) else flat * flat
+        for r in diff]
+    if not profile:
+        res["launches_per_pixel"] = "not measured (run with --profile)"
+    log(f"sampling (batch {b}; hierarchical top {st}x{st}, bottom "
+        f"{sb}x{sb}; flat PixelSNAIL {flat}x{flat}): {json.dumps(res)}")
+    return res
+
+
+def first_mismatches(torch, model, fast, naive, noise, condition=None
+                     ) -> dict:
+    """Rows where ``fast`` and ``naive`` codes differ, judged at their first
+    differing pixel (later pixels follow other histories): a near tie if the
+    top two perturbed logits there lie within SAMPLE_TIE. The logits come
+    from the full forward on the naive codes, whose prefix up to that pixel
+    both samplers share."""
+    b = fast.shape[0]
+    diff = (fast != naive).reshape(b, -1)
+    res = {"rows": b, "rows_equal": int((~diff.any(1)).sum()),
+           "near_tie": 0, "bad": 0, "gaps": []}
+    if res["rows_equal"] == b:
+        return res
+    with torch.no_grad():
+        logits = model(naive, condition=condition).reshape(b, diff.shape[1],
+                                                           -1)
+    for row in diff.any(1).nonzero()[:, 0].tolist():
+        t = int(diff[row].nonzero()[0, 0])
+        top2 = (logits[row, t] + noise[t, row]).topk(2).values
+        gap = float(top2[0] - top2[1])
+        res["gaps"].append(gap)
+        res["near_tie" if gap < SAMPLE_TIE else "bad"] += 1
+    return res
+
+
+def phase_sampler_checks(torch, dev, hprior, snail) -> dict:
+    """At small grids on the card, with the same noise: sample_fast (both
+    hierarchical levels, the bottom on the condition of the sampled top) and
+    sample_fast_snail (float32 cache) give sample_naive's codes, near ties
+    excepted; sample_fast_snail's teacher-forced logits on the card match
+    the same call on the CPU. The trained prior's attention logits reach
+    ~1e4, where float32 is off by ~1e-4 of the largest output logit, so
+    both are held against the call in float64 on the CPU: the card within
+    1e-4 of the largest logit or FLASH_PLAIN_FACTOR times the CPU float32
+    call's own error, whichever is larger (as phase 5 holds the flash
+    kernels)."""
+    import copy
+
+    from movae_tpu_torch.models import pixelcnn as pc
+
+    b = CHECK_BATCH
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    top_shape = CHECK_TOP
+    bottom_shape = (2 * top_shape[0], 2 * top_shape[1])
+    g = pc.gumbel_noise(gen, top_shape[0] * top_shape[1], b, SLICE_K, dev)
+    fast = pc.sample_fast(hprior.prior_top, None, b, *top_shape, gumbel=g)
+    naive = pc.sample_naive(hprior.prior_top, None, b, *top_shape, gumbel=g)
+    out["top"] = first_mismatches(torch, hprior.prior_top, fast, naive, g)
+    with torch.no_grad():
+        cond = hprior.condition_from_top(fast)
+    g = pc.gumbel_noise(gen, bottom_shape[0] * bottom_shape[1], b, SLICE_K,
+                        dev)
+    args = (None, b, *bottom_shape)
+    fast = pc.sample_fast(hprior.prior_bottom, *args, condition=cond,
+                          gumbel=g)
+    naive = pc.sample_naive(hprior.prior_bottom, *args, condition=cond,
+                            gumbel=g)
+    out["bottom"] = first_mismatches(torch, hprior.prior_bottom, fast, naive,
+                                     g, cond)
+    g = pc.gumbel_noise(gen, CHECK_FLAT[0] * CHECK_FLAT[1], b, SLICE_K, dev)
+    fast = pc.sample_fast_snail(snail, None, b, *CHECK_FLAT,
+                                cache_dtype=torch.float32, gumbel=g)
+    naive = pc.sample_naive(snail, None, b, *CHECK_FLAT, gumbel=g)
+    out["snail_f32"] = first_mismatches(torch, snail, fast, naive, g)
+    for name, r in out.items():
+        check(r["bad"] == 0, f"cached sampler ({name}) drew other codes than "
+              f"sample_naive away from a near tie: {r}")
+
+    forced = torch.randint(0, SLICE_K, (b, *CHECK_FLAT), generator=gen,
+                           device=dev)
+    _, on_card = pc.sample_fast_snail(snail, None, b, *CHECK_FLAT,
+                                      cache_dtype=torch.float32,
+                                      forced=forced, return_logits=True)
+    on_cpu = {}
+    for dtype in (torch.float32, torch.float64):
+        model = copy.deepcopy(snail).cpu().to(dtype)
+        _, on_cpu[dtype] = pc.sample_fast_snail(
+            model, None, b, *CHECK_FLAT, cache_dtype=dtype,
+            forced=forced.cpu(), return_logits=True)
+    exact = on_cpu[torch.float64]
+    scale = float(exact.abs().max())
+    res = {"max_abs_err": float((on_card.cpu().double() - exact).abs().max()),
+           "plain_err": float((on_cpu[torch.float32].double()
+                               - exact).abs().max()),
+           "card_vs_cpu": float((on_card.cpu()
+                                 - on_cpu[torch.float32]).abs().max()),
+           "max_abs": scale}
+    out["forced_logits"] = res
+    log(f"sampler checks on the card (batch {b}; top {top_shape}, bottom "
+        f"{bottom_shape}, flat {CHECK_FLAT}): {json.dumps(out)}")
+    limit = max(1e-4 * scale, FLASH_PLAIN_FACTOR * res["plain_err"])
+    check(res["max_abs_err"] <= limit,
+          f"forced logits on the card are off the float64 CPU call: {res} "
+          f"(limit {limit:.3e})")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -872,7 +1315,8 @@ def main() -> int:
         flash_rows = phase_flash(torch, fa, dev, peaks)
 
         reset_launch_counts()
-        runs = [train_mode(torch, agg, dev) for agg in ("sum", "upgrad")]
+        runs = [train_mode(torch, agg, dev, STAGE1)
+                for agg in ("sum", "upgrad")]
         row["launches"] = LAUNCH_COUNTS["nearest_code"]
         check(row["launches"] == sum(r["steps"] for r, _ in runs),
               f"nearest_code launches {row['launches']} != forwards")
@@ -894,17 +1338,51 @@ def main() -> int:
                     step(state, batches[i % len(batches)], gen)
                     for i in range(5)], 5, res_mode["median_step_ms"])
 
-        phase_lockstep(torch, dev)
+        phase_lockstep(torch, dev, dict(hidden_dims=(8, 16), embedding_dim=8,
+                                        num_embeddings=32), 16, "upgrad")
 
-        prior, model, codes = phase_prior(torch, dev, args.profile)
+        prior, snail, codes = phase_prior(torch, dev, args.profile)
         row["launches"] += prior["launches"]["nearest_code"]
-        trained = phase_prior_kernels(torch, fa, model, codes)
-        del model
+        trained = phase_prior_kernels(torch, fa, snail, codes)
         torch.cuda.empty_cache()
         for r in flash_rows:
             r["launches"] = prior["launches"][r["name"]]
             r["max_abs_err"] = max(r["max_abs_err"], trained[r["name"]])
         phase_prior_lockstep(torch, dev)
+
+        # the 256-px VQ-VAE-2 path: train, extract, hierarchical prior,
+        # sample, decode; nearest_code counts are read per phase
+        reset_launch_counts()
+        v2_runs = [train_mode(torch, agg, dev, VQVAE2)
+                   for agg in ("sum", "upgrad")]
+        vq2 = v2_runs[-1][1][1].model
+        _, top, bottom = phase_vqvae2_extract(torch, vq2, dev)
+        v2_launches = LAUNCH_COUNTS["nearest_code"]
+        forwards = sum(r["steps"] for r, _ in v2_runs)
+        check(v2_launches == 2 * (forwards + V2_EXTRACT_BATCHES),
+              f"nearest_code launched {v2_launches} times in the VQ-VAE-2 "
+              f"path, expected 2 x ({forwards} forwards + "
+              f"{V2_EXTRACT_BATCHES} extraction batches)")
+        row["launches"] += v2_launches
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 check_vqvae2_latents(torch, nc, vq2))
+        if args.profile:
+            for res_mode, (step, state, batches, gen) in v2_runs:
+                profile_device(torch, f"vq_vae2 agg={res_mode['agg']}",
+                               lambda: [step(state, batches[i % 4], gen)
+                                        for i in range(3)], 3,
+                               res_mode["median_step_ms"])
+        del v2_runs
+        _, hprior = phase_hier_prior(torch, dev, vq2, top, bottom,
+                                     args.profile)
+        phase_sampling(torch, dev, hprior, vq2, snail, args.profile)
+        phase_sampler_checks(torch, dev, hprior, snail)
+        del hprior, vq2, snail
+        torch.cuda.empty_cache()
+        small2 = dict(arch="vq_vae2", hidden_dims=(16, 32), embedding_dim=8,
+                      num_embeddings=32, recons_activation="none")
+        for agg in ("sum", "upgrad"):
+            phase_lockstep(torch, dev, small2, 32, agg)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,9 @@
-"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``.
+"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``
+and ``vq_vae2``.
 
-The priors are not in this registry: ``movae_tpu_torch/train/prior.py:
-build_prior`` builds them, as in the JAX package.
+The priors (flat and hierarchical) are not in this registry:
+``movae_tpu_torch/train/prior.py:build_prior`` builds them, as in the JAX
+package.
 
 Other architectures raise ``NotImplementedError`` naming the ``ROADMAP.md``
 item that ports them.
@@ -16,11 +18,11 @@ import torch
 from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.models.base import MOVAEModel, resolve_lambda_weights
 from movae_tpu_torch.models.vq_vae import VQVAE
+from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
-__all__ = ["VQVAE", "MOVAEModel", "get_network", "init_model"]
+__all__ = ["VQVAE", "VQVAE2", "MOVAEModel", "get_network", "init_model"]
 
 _NOT_PORTED = {
-    "vq_vae2": "Queue 1 item 7 (VQ-VAE-2)",
     "pixelcnn": "Queue 1 item 8 (the flat priors are built by "
                 "movae_tpu_torch/train/prior.py:build_prior)",
     "pixelsnail": "Queue 1 item 8 (the flat priors are built by "
@@ -53,7 +55,7 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     """Build a model from an args namespace/dict. The module's weights are
     not initialized yet: call :func:`init_model`."""
     arch = (_get(args, "arch", "vae") or "vae").lower()
-    if arch != "vq_vae":
+    if arch not in ("vq_vae", "vq_vae2"):
         item = _NOT_PORTED.get(arch, "Queue 1 item 11 (rest of the model zoo)")
         raise NotImplementedError(
             f"arch {arch!r} is not ported to movae_tpu_torch yet: "
@@ -80,13 +82,23 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     lambda_weights = (_get(args, "loss_weights", None)
                       or _get(args, "lambda_weights", None))
     vq_ema = bool(_get(args, "vq_ema", False))
+    # EMA maintains the codebooks; the gradient-free embedding loss leaves
+    # the objective vector
+    emb = () if vq_ema else ("embedding_loss",)
 
-    names = ("reconstruction_loss",
-             *(() if vq_ema else ("embedding_loss",)), "commitment_loss")
-    defaults = {"reconstruction_loss": 1.0, "commitment_loss": 0.25}
-    if not vq_ema:
-        defaults["embedding_loss"] = 1.0
-    return VQVAE(
+    if arch == "vq_vae":
+        cls = VQVAE
+        names = ("reconstruction_loss", *emb, "commitment_loss")
+        defaults = {"reconstruction_loss": 1.0, "commitment_loss": 0.25,
+                    "embedding_loss": 1.0}
+    else:
+        # vq_vae2 keeps the embedding loss last, and the registry's defaults
+        # (commitment 1.0, embedding 0.25) win over the class's all-ones
+        cls = VQVAE2
+        names = ("reconstruction_loss", "commitment_loss", *emb)
+        defaults = {"reconstruction_loss": 1.0, "commitment_loss": 1.0,
+                    "embedding_loss": 0.25}
+    return cls(
         in_channels=num_channels,
         embedding_dim=_get(args, "embedding_dim", 64) or 64,
         num_embeddings=_get(args, "num_embeddings", 512) or 512,

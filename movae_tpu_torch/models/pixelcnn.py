@@ -1,26 +1,38 @@
-"""PixelCNN / PixelSNAIL priors over discrete VQ codes — port of
-``movae_tpu/models/pixelcnn.py:37-367`` (the flat priors).
+"""PixelCNN / PixelSNAIL priors over discrete VQ codes and their samplers —
+port of ``movae_tpu/models/pixelcnn.py``.
 
 Masked A/B convolutions, gated residual blocks and, in PixelSNAIL, causal
-self-attention over the raster sequence with coordinate channels. Code grids
-are (B, H, W) integers and logits NHWC (B, H, W, K) at the public methods,
-as in the JAX package; convolutions run NCHW inside. Submodules are named so
-that ``state_dict()`` keys equal the reference-torch layout of
-``movae_tpu/utils/torch_export.py:_export_pixelcnn`` / ``_export_pixelsnail``:
-``embedding.weight``, ``conv_in``, ``res_blocks.{l}`` or
+self-attention over the raster sequence with coordinate channels; the
+two-level priors P(z_top) P(z_bottom | z_top) of VQ-VAE-2. Code grids are
+(B, H, W) integers, conditioning planes and logits NHWC (B, H, W, C) at the
+public methods, as in the JAX package; convolutions run NCHW inside.
+Submodules are named so that ``state_dict()`` keys equal the reference-torch
+layout of ``movae_tpu/utils/torch_export.py:_export_pixelcnn`` /
+``_export_pixelsnail`` / ``_export_hierarchical``: ``embedding.weight``,
+``conv_in``, ``res_blocks.{l}`` or
 ``blocks.{b}.{res_blocks.{r},attention.{q,k,v,out}_proj,out_conv}`` (the
-projections as 1x1 convolutions) and ``conv_out.{1,3}``.
+projections as 1x1 convolutions), ``conv_out.{1,3}``; ``prior_top.*``,
+``embedding_top.weight``, ``upsample_top`` and ``prior_bottom.*``.
+
+Samplers (after the models): ``sample_naive`` (the oracle: one full forward
+per pixel), ``sample_fast`` (PixelCNN with per-layer padded activation
+caches), ``sample_fast_snail`` (PixelSNAIL, plus a key/value cache per
+attention block in float32, bfloat16 or int8), the ``sample_prior`` dispatch
+and ``sample_hierarchical``. Each draws pixel t as the argmax of its logits
+over the temperature plus Gumbel noise ``gumbel[t]`` — the Gumbel-max form of
+the JAX package's ``jax.random.categorical`` — where ``gumbel`` (L, B, K) is
+drawn up front from a ``torch.Generator`` or given by the caller, so every
+sampler draws the same codes from the same noise. Not ported:
+``sample_wavefront`` (``ROADMAP.md`` Queue 1 item 9).
 
 Dropout draws come from an explicit ``torch.Generator``; the JAX package's
-draws differ, so tests compare at dropout 0 or by statistics. Not ported
-yet: the hierarchical priors (``ROADMAP.md`` Queue 1 item 7, with VQ-VAE-2)
-and the samplers (item 9).
+draws differ, so tests compare at dropout 0 or by statistics.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -237,19 +249,35 @@ class _Prior(nn.Module):
         self.embedding.reset_parameters(generator)
 
     def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    condition: Optional[Tensor] = None) -> Tensor:
         raise NotImplementedError
 
+    def _input(self, codes: Tensor, extra: Optional[Tensor],
+               condition: Optional[Tensor]) -> Tensor:
+        """conv_in's NCHW input: the code embedding, then ``extra``
+        channels (NCHW), then the NHWC ``condition`` plane."""
+        h = [self.embedding(codes).permute(0, 3, 1, 2)]
+        if extra is not None:
+            h.append(extra.to(h[0].dtype))
+        if condition is not None:
+            h.append(condition.permute(0, 3, 1, 2).to(h[0].dtype))
+        return torch.cat(h, dim=1) if len(h) > 1 else h[0]
+
     def forward(self, codes: Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Tensor:
-        """(B, H, W) int codes -> (B, H, W, K) float32 logits."""
-        return self.logits_nchw(codes, train, generator).permute(0, 2, 3, 1)
+                generator: Optional[torch.Generator] = None,
+                condition: Optional[Tensor] = None) -> Tensor:
+        """(B, H, W) int codes (and an NHWC ``condition`` plane where the
+        prior has conditional channels) -> (B, H, W, K) float32 logits."""
+        return self.logits_nchw(codes, train, generator,
+                                condition).permute(0, 2, 3, 1)
 
     def loss_function(self, codes: Tensor, train: bool = True,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      condition: Optional[Tensor] = None
                       ) -> Dict[str, Tensor]:
         """Mean cross-entropy of the codes under their own logits."""
-        logits = self.logits_nchw(codes, train, generator)
+        logits = self.logits_nchw(codes, train, generator, condition)
         return {"total_loss": F.cross_entropy(logits, codes.long())}
 
 
@@ -258,21 +286,24 @@ class PixelCNN(_Prior):
 
     def __init__(self, num_embeddings: int, embedding_dim: int = 64,
                  hidden_channels: int = 128, num_layers: int = 15,
-                 kernel_size: int = 7):
+                 kernel_size: int = 7, conditional_channels: int = 0):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.hidden_channels = hidden_channels
+        self.kernel_size = kernel_size
+        self.conditional_channels = conditional_channels
         self.embedding = GatherEmbed(num_embeddings, embedding_dim)
-        self.conv_in = MaskedConv(embedding_dim, hidden_channels,
-                                  kernel_size, "A")
+        self.conv_in = MaskedConv(embedding_dim + conditional_channels,
+                                  hidden_channels, kernel_size, "A")
         self.res_blocks = nn.ModuleList(
             GatedResBlock(hidden_channels) for _ in range(num_layers))
         self.conv_out = self._head()
 
     def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Tensor:
-        h = self.conv_in(self.embedding(codes).permute(0, 3, 1, 2))
+                    generator: Optional[torch.Generator] = None,
+                    condition: Optional[Tensor] = None) -> Tensor:
+        h = self.conv_in(self._input(codes, None, condition))
         for blk in self.res_blocks:
             h = blk(h)
         return self.conv_out(h)
@@ -284,17 +315,20 @@ class PixelSNAIL(_Prior):
     def __init__(self, num_embeddings: int, embedding_dim: int = 64,
                  hidden_channels: int = 128, num_blocks: int = 8,
                  num_res_blocks_per_layer: int = 2, num_heads: int = 8,
-                 kernel_size: int = 7, dropout: float = 0.1,
-                 attn_dropout_mode: str = "output"):
+                 kernel_size: int = 7, conditional_channels: int = 0,
+                 dropout: float = 0.1, attn_dropout_mode: str = "output"):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.hidden_channels = hidden_channels
+        self.kernel_size = kernel_size
+        self.conditional_channels = conditional_channels
+        self.num_heads = num_heads
         self.dropout = dropout
         self.attn_dropout_mode = attn_dropout_mode
         self.embedding = GatherEmbed(num_embeddings, embedding_dim)
-        self.conv_in = MaskedConv(embedding_dim + 2, hidden_channels,
-                                  kernel_size, "A")
+        self.conv_in = MaskedConv(embedding_dim + 2 + conditional_channels,
+                                  hidden_channels, kernel_size, "A")
         self.blocks = nn.ModuleList(
             PixelSNAILBlock(hidden_channels, num_res_blocks_per_layer,
                             num_heads, dropout, attn_dropout_mode)
@@ -302,12 +336,471 @@ class PixelSNAIL(_Prior):
         self.conv_out = self._head()
 
     def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    condition: Optional[Tensor] = None) -> Tensor:
         b, hh, ww = codes.shape
-        h = self.embedding(codes).permute(0, 3, 1, 2)
         pos = torch.from_numpy(_pos_encoding(hh, ww).transpose(0, 3, 1, 2))
-        pos = pos.to(device=h.device, dtype=h.dtype).expand(b, -1, -1, -1)
-        h = self.conv_in(torch.cat([h, pos], dim=1))
+        pos = pos.to(codes.device).expand(b, -1, -1, -1)
+        h = self.conv_in(self._input(codes, pos, condition))
         for blk in self.blocks:
             h = h + blk(h, train=train, generator=generator)
         return self.conv_out(h)
+
+
+class HierarchicalPrior(nn.Module):
+    """Two-level prior P(z_top) P(z_bottom | z_top) for VQ-VAE-2: a top
+    prior over z_top, and a PixelCNN over z_bottom conditioned on
+    ``condition_from_top(z_top)`` — the top codes embedded and upsampled 2x
+    by a k4-s2 transposed conv. Subclasses give ``make_top_module`` and
+    ``make_bottom_module``, the single config source of both submodules
+    (the samplers sample ``prior_top`` and ``prior_bottom`` themselves)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 hidden_channels: int):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.hidden_channels = hidden_channels
+        self.prior_top = self.make_top_module()
+        self.embedding_top = GatherEmbed(num_embeddings, embedding_dim)
+        self.upsample_top = nn.ConvTranspose2d(embedding_dim, embedding_dim,
+                                               4, 2, 1)
+        self.prior_bottom = self.make_bottom_module()
+
+    def make_top_module(self) -> _Prior:
+        raise NotImplementedError
+
+    def make_bottom_module(self) -> "PixelCNN":
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's initializers (see ``_Prior``); the upsampling
+        transposed conv is lecun-normal over its input channels."""
+        self.prior_top.reset_parameters(generator)
+        self.embedding_top.reset_parameters(generator)
+        w = self.upsample_top.weight
+        std = math.sqrt(1.0 / (w.shape[0] * w.shape[2] * w.shape[3]))
+        std /= _TRUNC_STD_CORRECTION
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        self.upsample_top.bias.zero_()
+        self.prior_bottom.reset_parameters(generator)
+
+    def condition_from_top(self, z_top: Tensor) -> Tensor:
+        """(B, h, w) top codes -> (B, 2h, 2w, D) conditioning plane."""
+        emb = self.embedding_top(z_top).permute(0, 3, 1, 2)
+        return self.upsample_top(emb).permute(0, 2, 3, 1)
+
+    def forward(self, z_top: Tensor, z_bottom: Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Tensor]:
+        cond = self.condition_from_top(z_top)
+        return {"logits_top": self.prior_top(z_top, train, generator),
+                "logits_bottom": self.prior_bottom(z_bottom, train, generator,
+                                                   condition=cond)}
+
+    def loss_function(self, z_top: Tensor, z_bottom: Tensor,
+                      train: bool = True,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Tensor]:
+        """Mean cross-entropy of each level; ``total_loss`` is their sum."""
+        cond = self.condition_from_top(z_top)
+        lt = self.prior_top.loss_function(z_top, train,
+                                          generator)["total_loss"]
+        lb = self.prior_bottom.loss_function(
+            z_bottom, train, generator, condition=cond)["total_loss"]
+        return {"loss_top": lt, "loss_bottom": lb, "total_loss": lt + lb}
+
+
+class HierarchicalPixelCNN(HierarchicalPrior):
+    """PixelCNN top prior, conditioned PixelCNN bottom prior."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int = 64,
+                 hidden_channels: int = 128, num_layers: int = 15):
+        self.num_layers = num_layers
+        super().__init__(num_embeddings, embedding_dim, hidden_channels)
+
+    def make_top_module(self) -> "PixelCNN":
+        return PixelCNN(self.num_embeddings, self.embedding_dim,
+                        self.hidden_channels, self.num_layers)
+
+    def make_bottom_module(self) -> "PixelCNN":
+        return PixelCNN(self.num_embeddings, self.embedding_dim,
+                        self.hidden_channels, self.num_layers,
+                        conditional_channels=self.embedding_dim)
+
+
+class HierarchicalPixelSNAIL(HierarchicalPrior):
+    """Attention (PixelSNAIL) top prior, conditioned PixelCNN bottom prior,
+    per the VQ-VAE-2 paper."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int = 64,
+                 hidden_channels: int = 128, num_blocks_top: int = 8,
+                 num_res_blocks_per_layer: int = 2, num_heads: int = 8,
+                 num_layers_bottom: int = 15, dropout: float = 0.1,
+                 attn_dropout_mode: str = "output"):
+        self.num_blocks_top = num_blocks_top
+        self.num_res_blocks_per_layer = num_res_blocks_per_layer
+        self.num_heads = num_heads
+        self.num_layers_bottom = num_layers_bottom
+        self.dropout = dropout
+        self.attn_dropout_mode = attn_dropout_mode
+        super().__init__(num_embeddings, embedding_dim, hidden_channels)
+
+    def make_top_module(self) -> "PixelSNAIL":
+        return PixelSNAIL(
+            self.num_embeddings, self.embedding_dim, self.hidden_channels,
+            self.num_blocks_top, self.num_res_blocks_per_layer,
+            self.num_heads, dropout=self.dropout,
+            attn_dropout_mode=self.attn_dropout_mode)
+
+    def make_bottom_module(self) -> "PixelCNN":
+        return PixelCNN(self.num_embeddings, self.embedding_dim,
+                        self.hidden_channels, self.num_layers_bottom,
+                        conditional_channels=self.embedding_dim)
+
+
+# ===========================================================================
+# Sampling
+# ===========================================================================
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def gumbel_noise(generator: Optional[torch.Generator], length: int,
+                 batch_size: int, num_embeddings: int,
+                 device: torch.device) -> Tensor:
+    """(L, B, K) standard Gumbel noise drawn in one call from ``generator``:
+    pixel t's draw is row t, whatever the sampler."""
+    u = torch.rand((length, batch_size, num_embeddings), generator=generator,
+                   device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def _noise(gumbel: Optional[Tensor], generator, model, batch_size: int,
+           length: int) -> Tensor:
+    dev = _device(model)
+    if gumbel is None:
+        return gumbel_noise(generator, length, batch_size,
+                            model.num_embeddings, dev)
+    gumbel = torch.as_tensor(gumbel, dtype=torch.float32, device=dev)
+    want = (length, batch_size, model.num_embeddings)
+    if tuple(gumbel.shape) != want:
+        raise ValueError(f"gumbel noise must be (L, B, K) = {want}, got "
+                         f"{tuple(gumbel.shape)}")
+    return gumbel
+
+
+@torch.no_grad()
+def sample_naive(model: _Prior, generator: Optional[torch.Generator],
+                 batch_size: int, height: int, width: int,
+                 condition: Optional[Tensor] = None,
+                 temperature: float = 1.0,
+                 gumbel: Optional[Tensor] = None) -> Tensor:
+    """Raster sampling with the full forward once per pixel — the oracle the
+    cached samplers are held against. Works for any flat prior."""
+    g = _noise(gumbel, generator, model, batch_size, height * width)
+    samples = torch.zeros((batch_size, height, width), dtype=torch.int32,
+                          device=g.device)
+    for t in range(height * width):
+        i, j = divmod(t, width)
+        logits = model.logits_nchw(samples, condition=condition)[:, :, i, j]
+        samples[:, i, j] = (logits / temperature + g[t]).argmax(-1).to(
+            torch.int32)
+    return samples
+
+
+def _flat_masked(conv: MaskedConv) -> Tensor:
+    """Masked (cout, cin, kh, kw) kernel -> (kh * kw * cin, cout), the order
+    of an NHWC neighbourhood flattened row by row."""
+    w = conv.weight * conv.mask
+    return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+
+
+def _w1x1(conv: nn.Conv2d) -> Tensor:
+    """1x1 conv (cout, cin, 1, 1) -> (cin, cout) for ``x @ w``."""
+    return conv.weight[:, :, 0, 0].T
+
+
+class _CachedGatedRes:
+    """One ``GatedResBlock`` at one pixel: conv1 into a padded cache of its
+    output plane, the masked k3 conv over the cached 3x3 neighbourhood, and
+    the gate and feature 1x1 convs fused into one product (each output
+    column keeps its own reduction, so the fusion changes no number)."""
+
+    def __init__(self, blk: GatedResBlock, batch_size: int, height: int,
+                 width: int):
+        self.w1, self.b1 = _w1x1(blk.conv1), blk.conv1.bias
+        self.w2, self.b2 = _flat_masked(blk.conv2), blk.conv2.bias
+        self.wgf = torch.cat([_w1x1(blk.conv_gate), _w1x1(blk.conv_feature)],
+                             dim=1)
+        self.bgf = torch.cat([blk.conv_gate.bias, blk.conv_feature.bias])
+        self.hc = blk.conv_gate.out_channels
+        self.cache = self.w1.new_zeros((batch_size, height + 2, width + 2,
+                                        self.w1.shape[1]))
+
+    def __call__(self, x: Tensor, i: int, j: int) -> Tensor:
+        b = x.shape[0]
+        self.cache[:, i + 1, j + 1] = F.relu(torch.addmm(self.b1, x, self.w1))
+        nb = self.cache[:, i:i + 3, j:j + 3].reshape(b, -1)
+        c2 = F.relu(torch.addmm(self.b2, nb, self.w2))
+        gf = torch.addmm(self.bgf, c2, self.wgf)
+        return x + torch.sigmoid(gf[:, :self.hc]) * torch.tanh(gf[:, self.hc:])
+
+
+class _CachedInput:
+    """The mask-A input conv at one pixel over a padded NHWC cache of its
+    input plane: code embeddings are written as they are drawn; ``fixed``
+    channels (coordinates, condition) are written up front."""
+
+    def __init__(self, model: _Prior, fixed: Optional[Tensor],
+                 batch_size: int, height: int, width: int):
+        k = model.conv_in.kernel_size[0]
+        self.k, self.pad, self.e = k, k // 2, model.embedding_dim
+        self.table = model.embedding.weight
+        self.w, self.b = _flat_masked(model.conv_in), model.conv_in.bias
+        cin = model.conv_in.in_channels
+        self.cache = self.w.new_zeros(
+            (batch_size, height + 2 * self.pad, width + 2 * self.pad, cin))
+        if fixed is not None:
+            p = self.pad
+            self.cache[:, p:p + height, p:p + width, self.e:] = fixed
+
+    def __call__(self, i: int, j: int) -> Tensor:
+        nb = self.cache[:, i:i + self.k, j:j + self.k]
+        return torch.addmm(self.b, nb.reshape(nb.shape[0], -1), self.w)
+
+    def write(self, code: Tensor, i: int, j: int) -> None:
+        self.cache[:, i + self.pad, j + self.pad, :self.e] = self.table[code]
+
+
+def _fixed_channels(model: _Prior, batch_size: int, height: int, width: int,
+                    condition: Optional[Tensor]) -> Optional[Tensor]:
+    """NHWC planes that follow the code embedding in conv_in's input:
+    PixelSNAIL's coordinates, then the condition."""
+    w = model.conv_in.weight
+    planes = []
+    if isinstance(model, PixelSNAIL):
+        pos = torch.from_numpy(_pos_encoding(height, width)).to(w)
+        planes.append(pos.expand(batch_size, -1, -1, -1))
+    if condition is not None:
+        planes.append(condition.to(w))
+    return torch.cat(planes, dim=-1) if planes else None
+
+
+def _head(model: _Prior, h: Tensor, temperature: float) -> Tensor:
+    """The 1x1 output head at one pixel: (B, hc) -> (B, K) logits / T."""
+    head = model.conv_out
+    h = F.relu(torch.addmm(head[1].bias, F.relu(h), _w1x1(head[1])))
+    return torch.addmm(head[3].bias, h, _w1x1(head[3])) / temperature
+
+
+@torch.no_grad()
+def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
+                batch_size: int, height: int, width: int,
+                condition: Optional[Tensor] = None, temperature: float = 1.0,
+                gumbel: Optional[Tensor] = None) -> Tensor:
+    """Cached raster sampler for PixelCNN: at each pixel every layer
+    computes one output vector from its cached k x k neighbourhood instead
+    of a full-plane convolution. The caches are padded, so no bounds are
+    checked. Draws the codes of :func:`sample_naive` from the same noise."""
+    g = _noise(gumbel, generator, model, batch_size, height * width)
+    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
+                                              width, condition),
+                       batch_size, height, width)
+    layers = [_CachedGatedRes(blk, batch_size, height, width)
+              for blk in model.res_blocks]
+    samples = torch.zeros((batch_size, height, width), dtype=torch.int32,
+                          device=g.device)
+    for t in range(height * width):
+        i, j = divmod(t, width)
+        x = inp(i, j)
+        for layer in layers:
+            x = layer(x, i, j)
+        code = (_head(model, x, temperature) + g[t]).argmax(-1)
+        samples[:, i, j] = code.to(torch.int32)
+        inp.write(code, i, j)
+    return samples
+
+
+class _CachedAttention:
+    """One ``CausalAttention`` at one pixel with a key/value cache: the
+    pixel's (k, v) rows are appended and its query attends over the live
+    prefix 0..t. A ``cache_dtype`` of the model's own dtype (float32, or
+    float64 for a reference) keeps the rows exact; bfloat16 rounds them
+    (and the query and probabilities) to bfloat16; int8 stores each row as
+    int8 with a per-(batch, head) max-abs scale, which factors out of both
+    products (logit_j = (q . k8_j) s^k_j, out = sum_j (p_j s^v_j) v8_j),
+    the query and the scaled probabilities rounded to bfloat16. The
+    products run in the model's dtype on the exact upcast values, so they
+    accumulate in float32 as the JAX package's ``preferred_element_type``
+    does."""
+
+    def __init__(self, att: CausalAttention, batch_size: int, length: int,
+                 cache_dtype: torch.dtype):
+        self.nh, self.hd = att.num_heads, att.head_dim
+        self.wqkv = torch.cat([_w1x1(att.q_proj), _w1x1(att.k_proj),
+                               _w1x1(att.v_proj)], dim=1)
+        self.bqkv = torch.cat([att.q_proj.bias, att.k_proj.bias,
+                               att.v_proj.bias])
+        self.wo, self.bo = _w1x1(att.out_proj), att.out_proj.bias
+        self.scale = 1.0 / math.sqrt(self.hd)
+        self.dtype = cache_dtype
+        self.int8 = cache_dtype == torch.int8
+        self.lossy = cache_dtype in (torch.bfloat16, torch.int8)
+        shape = (batch_size, self.nh, length, self.hd)
+        self.k = self.wqkv.new_zeros(shape, dtype=cache_dtype)
+        self.v = self.wqkv.new_zeros(shape, dtype=cache_dtype)
+        if self.int8:
+            self.ks = self.wqkv.new_zeros(shape[:3])
+            self.vs = self.wqkv.new_zeros(shape[:3])
+
+    def _lossy(self, x: Tensor) -> Tensor:
+        """What the products see of an operand: itself, or its bfloat16
+        rounding for the bfloat16 and int8 caches."""
+        return x.to(torch.bfloat16).to(x.dtype) if self.lossy else x
+
+    def _store(self, cache: Tensor, scales: Optional[Tensor], row: Tensor,
+               t: int) -> None:
+        if self.int8:
+            s = row.abs().amax(-1).clamp_min(1e-8) / 127.0
+            scales[:, :, t] = s
+            row = torch.clamp(torch.round(row / s[..., None]), -127, 127)
+        cache[:, :, t] = row.to(self.dtype)
+
+    def __call__(self, x: Tensor, t: int) -> Tensor:
+        b = x.shape[0]
+        qkv = torch.addmm(self.bqkv, x, self.wqkv).reshape(b, 3, self.nh,
+                                                           self.hd)
+        self._store(self.k, self.ks if self.int8 else None, qkv[:, 1], t)
+        self._store(self.v, self.vs if self.int8 else None, qkv[:, 2], t)
+        q = self._lossy(qkv[:, 0])
+        keys = self.k[:, :, :t + 1].to(q.dtype)
+        logits = torch.einsum("bnd,bnld->bnl", q, keys) * self.scale
+        if self.int8:
+            logits = logits * self.ks[:, :, :t + 1]
+        probs = torch.softmax(logits, dim=-1)
+        if self.int8:
+            probs = probs * self.vs[:, :, :t + 1]
+        out = torch.einsum("bnl,bnld->bnd", self._lossy(probs),
+                           self.v[:, :, :t + 1].to(probs.dtype))
+        # dim-major flatten (channel d * heads + head), as CausalAttention
+        return torch.addmm(self.bo, out.transpose(1, 2).reshape(b, -1),
+                           self.wo)
+
+
+@torch.no_grad()
+def sample_fast_snail(model: PixelSNAIL, generator: Optional[torch.Generator],
+                      batch_size: int, height: int, width: int,
+                      condition: Optional[Tensor] = None,
+                      temperature: float = 1.0,
+                      cache_dtype: torch.dtype = torch.int8,
+                      forced: Optional[Tensor] = None,
+                      return_logits: bool = False,
+                      gumbel: Optional[Tensor] = None):
+    """Cached raster sampler for PixelSNAIL: :func:`sample_fast`'s
+    activation caches plus a key/value cache per attention block, so each
+    pixel's attention reads the live prefix 0..t once (the JAX package's
+    static-shape ``SNAIL_KV_SEGMENTS`` prefixes reduce to this in eager
+    PyTorch). ``cache_dtype`` (the model's dtype, bfloat16 or int8, see
+    ``_CachedAttention``): float32 draws the codes of :func:`sample_naive`.
+
+    ``forced`` (B, H, W) teacher-forces the sequence: each pixel's code is
+    read from it instead of drawn. ``return_logits`` also returns the
+    per-pixel logits over the temperature, (B, H, W, K) in the model's
+    dtype, as ``(samples, logits)``."""
+    L = height * width
+    dev = _device(model)
+    if forced is not None:
+        forced, g = torch.as_tensor(forced, device=dev).long(), None
+    else:
+        g = _noise(gumbel, generator, model, batch_size, L)
+    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
+                                              width, condition),
+                       batch_size, height, width)
+    blocks = [([_CachedGatedRes(r, batch_size, height, width)
+                for r in blk.res_blocks],
+               _CachedAttention(blk.attention, batch_size, L, cache_dtype),
+               _w1x1(blk.out_conv), blk.out_conv.bias)
+              for blk in model.blocks]
+    samples = torch.zeros((batch_size, height, width), dtype=torch.int32,
+                          device=dev)
+    logits_buf = (inp.w.new_zeros((batch_size, height, width,
+                                   model.num_embeddings))
+                  if return_logits else None)
+    for t in range(L):
+        i, j = divmod(t, width)
+        h = inp(i, j)
+        for res, att, woc, boc in blocks:
+            x = h
+            for layer in res:
+                x = layer(x, i, j)
+            merged = torch.addmm(boc, torch.cat([x, att(x, t)], dim=1), woc)
+            h = h + merged + x
+        logits = _head(model, h, temperature)
+        if return_logits:
+            logits_buf[:, i, j] = logits
+        if forced is not None:
+            code = forced[:, i, j]
+        else:
+            code = (logits + g[t]).argmax(-1)
+        samples[:, i, j] = code.to(torch.int32)
+        inp.write(code, i, j)
+    if return_logits:
+        return samples, logits_buf
+    return samples
+
+
+def sample_prior(model: _Prior, generator: Optional[torch.Generator],
+                 batch_size: int, height: int, width: int,
+                 condition: Optional[Tensor] = None,
+                 temperature: float = 1.0, fast: bool = True,
+                 cache_dtype: torch.dtype = torch.int8,
+                 gumbel: Optional[Tensor] = None) -> Tensor:
+    """Dispatch: the cached sampler for PixelSNAIL and PixelCNN with
+    ``fast``, :func:`sample_naive` otherwise. ``cache_dtype`` only affects
+    the PixelSNAIL key/value cache (float32 for the naive sampler's codes;
+    int8, the default, reads a quarter of the bytes). PixelCNN goes to
+    :func:`sample_fast` at every grid size: the JAX package's wavefront
+    sampler, which it takes for 256 <= H*W <= 1024 and which draws the same
+    codes, is not ported (``ROADMAP.md`` Queue 1 item 9)."""
+    if fast and isinstance(model, PixelSNAIL):
+        return sample_fast_snail(model, generator, batch_size, height, width,
+                                 condition, temperature,
+                                 cache_dtype=cache_dtype, gumbel=gumbel)
+    if fast and isinstance(model, PixelCNN):
+        return sample_fast(model, generator, batch_size, height, width,
+                           condition, temperature, gumbel=gumbel)
+    return sample_naive(model, generator, batch_size, height, width,
+                        condition, temperature, gumbel=gumbel)
+
+
+@torch.no_grad()
+def sample_hierarchical(model: HierarchicalPrior,
+                        generator: Optional[torch.Generator],
+                        batch_size: int, top_shape: Tuple[int, int],
+                        bottom_shape: Tuple[int, int],
+                        temperature: float = 1.0, fast: bool = True,
+                        cache_dtype: torch.dtype = torch.int8,
+                        gumbel: Optional[Tuple[Tensor, Tensor]] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Sample z_top, then z_bottom | z_top through ``condition_from_top``.
+    The top noise is drawn before the bottom noise, or both are given as
+    ``gumbel = (top (Lt, B, K), bottom (Lb, B, K))``."""
+    g_top, g_bottom = gumbel if gumbel is not None else (None, None)
+    if g_top is None:
+        g_top = _noise(None, generator, model, batch_size,
+                       top_shape[0] * top_shape[1])
+        g_bottom = _noise(None, generator, model, batch_size,
+                          bottom_shape[0] * bottom_shape[1])
+    z_top = sample_prior(model.prior_top, None, batch_size, *top_shape,
+                         temperature=temperature, fast=fast,
+                         cache_dtype=cache_dtype, gumbel=g_top)
+    cond = model.condition_from_top(z_top)
+    z_bottom = sample_prior(model.prior_bottom, None, batch_size,
+                            *bottom_shape, condition=cond,
+                            temperature=temperature, fast=fast,
+                            cache_dtype=cache_dtype, gumbel=g_bottom)
+    return z_top, z_bottom

@@ -118,6 +118,24 @@ def _conv_block(conv: nn.Module) -> nn.Sequential:
     return nn.Sequential(conv, nn.LeakyReLU(_SLOPE))
 
 
+@torch.no_grad()
+def reset_conv_parameters(module: nn.Module,
+                          generator: torch.Generator) -> None:
+    """The JAX package's conv initializers on every (transposed) conv in
+    ``module``: lecun-normal (truncated) kernels over the fan-in, zero
+    biases."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            fan_in = (w.shape[0] if isinstance(mod, nn.ConvTranspose2d)
+                      else w.shape[1]) * w.shape[2] * w.shape[3]
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+
+
 class VQVAE(MOVAEModel):
 
     feature_names = ("encoding",)
@@ -177,16 +195,7 @@ class VQVAE(MOVAEModel):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's initializers: lecun-normal (truncated) conv
         kernels, zero biases, U(-1/K, 1/K) codebook."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = mod.weight
-                fan_in = (w.shape[0] if isinstance(mod, nn.ConvTranspose2d)
-                          else w.shape[1]) * w.shape[2] * w.shape[3]
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
-                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
+        reset_conv_parameters(self, generator)
         self.vq_layer.reset_parameters(generator)
 
     @property

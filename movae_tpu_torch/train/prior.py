@@ -1,5 +1,6 @@
 """Prior training stage (PixelCNN / PixelSNAIL over frozen VQ codes) — port
-of ``movae_tpu/train/prior.py`` for the flat priors.
+of ``movae_tpu/train/prior.py``, for the flat priors over a VQ-VAE's codes
+and the hierarchical priors over a VQ-VAE-2's (top, bottom) codes.
 
 Freeze the VQ model, extract its code grids (:func:`extract_codes`, the
 nearest-code CUDA kernel on the card), and train the prior with Adam
@@ -7,10 +8,10 @@ nearest-code CUDA kernel on the card), and train the prior with Adam
 global-norm clipping at 1.0, and the best-epoch-loss rule
 (:func:`train_prior`).
 
-Not ported yet, each raising with its ``ROADMAP.md`` item: the hierarchical
-priors (Queue 1 item 7), ``grad_accum > 1`` and bf16 compute (item 6),
-context / pipeline parallelism and fsdp (item 13), checkpoints, preemption
-and resume under a ``save_root`` (item 12), periodic sample figures (item 9).
+Not ported yet, each raising with its ``ROADMAP.md`` item:
+``grad_accum > 1`` and bf16 compute (Queue 1 item 6), context / pipeline
+parallelism and fsdp (item 13), checkpoints, preemption and resume under a
+``save_root`` and periodic sample figures (item 12).
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from movae_tpu_torch.device import DeviceLike, resolve_device
-from movae_tpu_torch.models.pixelcnn import PixelCNN, PixelSNAIL
+from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
+                                             HierarchicalPixelSNAIL,
+                                             PixelCNN, PixelSNAIL)
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
 from movae_tpu_torch.train.step import preprocess_batch
 from movae_tpu_torch.utils.codes import CodeLoader
@@ -44,9 +47,6 @@ def build_prior(args, num_embeddings: int, hierarchical: bool = False,
     code-embedding width follows a prior checkpoint's echo, then the VQ
     model's ``embedding_dim``, then the args' echo, then 64. The module's
     weights are not initialized: call ``reset_parameters``."""
-    if hierarchical:
-        raise _not_ported("the hierarchical priors",
-                          "Queue 1 item 7 (VQ-VAE-2 and its priors)")
     dtype = _get(args, "compute_dtype", "float32")
     if dtype not in (None, "float32", torch.float32):
         raise _not_ported(f"compute_dtype {dtype!r} (bf16 compute)",
@@ -54,35 +54,46 @@ def build_prior(args, num_embeddings: int, hierarchical: bool = False,
     d = (_get(args, "prior_embedding_dim") or embedding_dim
          or _get(args, "embedding_dim") or 64)
     hc = _get(args, "pixelcnn_hidden_channels", 128)
+    nl = _get(args, "pixelcnn_num_layers", 15)
     if _get(args, "prior_type", "pixelcnn") == "pixelsnail":
-        return PixelSNAIL(
-            num_embeddings=num_embeddings, embedding_dim=d,
-            hidden_channels=hc,
-            num_blocks=_get(args, "pixelsnail_num_blocks", 8),
+        snail = dict(
             num_res_blocks_per_layer=_get(args, "pixelsnail_num_res_blocks",
                                           2),
             num_heads=_get(args, "pixelsnail_num_heads", 8),
             dropout=_get(args, "pixelsnail_dropout", 0.1),
             attn_dropout_mode=_get(args, "attention_dropout", "output")
             or "output")
-    return PixelCNN(num_embeddings=num_embeddings, embedding_dim=d,
-                    hidden_channels=hc,
-                    num_layers=_get(args, "pixelcnn_num_layers", 15))
+        blocks = _get(args, "pixelsnail_num_blocks", 8)
+        if hierarchical:
+            return HierarchicalPixelSNAIL(
+                num_embeddings=num_embeddings, embedding_dim=d,
+                hidden_channels=hc, num_blocks_top=blocks,
+                num_layers_bottom=nl, **snail)
+        return PixelSNAIL(num_embeddings=num_embeddings, embedding_dim=d,
+                          hidden_channels=hc, num_blocks=blocks, **snail)
+    cls = HierarchicalPixelCNN if hierarchical else PixelCNN
+    return cls(num_embeddings=num_embeddings, embedding_dim=d,
+               hidden_channels=hc, num_layers=nl)
 
 
-def extract_codes(model, normalize_inputs: bool = False
-                  ) -> Callable[[Any], torch.Tensor]:
+def extract_codes(model, normalize_inputs: bool = False,
+                  hierarchical: bool = False) -> Callable[[Any], Any]:
     """Frozen-VQ code extraction: returns ``extract(images)`` mapping an
     NHWC batch (uint8 or float, numpy or tensor) to its (B, h, w) int32
     code grid on the model's device, through ``get_code_indices`` (one
-    nearest-code launch per batch on the card)."""
+    nearest-code launch per batch on the card); with ``hierarchical``, a
+    VQ-VAE-2's (top, bottom) grids through ``get_code_indices_pair`` (two
+    launches per batch)."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
-    def extract(imgs) -> torch.Tensor:
-        x = torch.as_tensor(imgs).to(device)
-        codes = model.get_code_indices(preprocess_batch(x, normalize_inputs))
-        return codes.to(torch.int32)
+    def extract(imgs):
+        x = preprocess_batch(torch.as_tensor(imgs).to(device),
+                             normalize_inputs)
+        if hierarchical:
+            top, bottom = model.get_code_indices_pair(x)
+            return top.to(torch.int32), bottom.to(torch.int32)
+        return model.get_code_indices(x).to(torch.int32)
 
     return extract
 
@@ -99,8 +110,8 @@ def _check_supported(args, save_root: Optional[str]) -> None:
         raise _not_ported("prior checkpoints, preemption and resume",
                           "Queue 1 item 12")
     if _get(args, "prior_sample_every", 0):
-        raise _not_ported("periodic prior sample figures (the samplers)",
-                          "Queue 1 item 9")
+        raise _not_ported("periodic prior sample figures (train/figures.py)",
+                          "Queue 1 item 12")
 
 
 def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
@@ -108,11 +119,14 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
                 step_trace: Optional[List[float]] = None,
                 prior: Optional[torch.nn.Module] = None,
                 save_root: Optional[str] = None) -> Dict[str, Any]:
-    """Train a flat prior on frozen code grids; returns ``{"model",
-    "params" (the best epoch's state_dict), "hierarchical": False}``.
+    """Train a prior on frozen code grids; returns ``{"model", "params" (the
+    best epoch's state_dict), "hierarchical"}``.
 
-    ``levels``: ``{"codes": (N, H, W) int array}``. ``model_meta``: the VQ
-    model (or anything with ``num_embeddings`` and ``embedding_dim``).
+    ``levels``: ``{"codes": (N, H, W) int array}`` for a flat prior, or
+    ``{"top": (N, h, w), "bottom": (N, 2h, 2w)}`` for a hierarchical one
+    (one shuffled order serves both arrays; the step's loss is the sum of
+    the two levels' CE). ``model_meta``: the VQ model (or anything with
+    ``num_embeddings`` and ``embedding_dim``).
     ``prior``: a prior module to train as it stands (for example with
     weights loaded from the JAX package); by default one is built from
     ``args`` and initialized from ``seed``. Dropout draws come from a
@@ -125,20 +139,20 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
     no counterpart.
     """
     _check_supported(args, save_root)
-    if "codes" not in levels:
-        raise _not_ported("hierarchical code levels", "Queue 1 item 7")
+    hierarchical = "codes" not in levels
+    names = ("top", "bottom") if hierarchical else ("codes",)
     dev = resolve_device(device)
     seed = int(_get(args, "seed", 0) or 0)
     epochs = int(_get(args, "pixelcnn_epochs", 100))
     lr = float(_get(args, "pixelcnn_lr", 3e-4))
     wd = float(_get(args, "pixelcnn_weight_decay", 0.0) or 0.0)
     eps = float(_get(args, "pixelcnn_adam_eps", 1e-8) or 1e-8)
-    loader = CodeLoader({"codes": np.asarray(levels["codes"])},
+    loader = CodeLoader({k: np.asarray(levels[k]) for k in names},
                         int(_get(args, "batch_size")), shuffle=True,
                         seed=seed)
 
     if prior is None:
-        prior = build_prior(args, model_meta.num_embeddings, False,
+        prior = build_prior(args, model_meta.num_embeddings, hierarchical,
                             getattr(model_meta, "embedding_dim", None))
         prior.reset_parameters(torch.Generator().manual_seed(seed))
     prior = prior.to(dev)
@@ -173,8 +187,8 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
                 pending.clear()
 
         for batch, n_valid in loader:
-            codes = torch.from_numpy(batch["codes"]).to(dev)
-            loss = prior.loss_function(codes, train=True,
+            codes = [torch.from_numpy(batch[k]).to(dev) for k in names]
+            loss = prior.loss_function(*codes, train=True,
                                        generator=gen)["total_loss"]
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -190,4 +204,5 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
         if epoch % 10 == 0 or epoch == epochs:
             print(f"prior epoch {epoch}/{epochs}: CE={avg:.4f} "
                   f"(best {best_loss:.4f})")
-    return {"model": prior, "params": best_params, "hierarchical": False}
+    return {"model": prior, "params": best_params,
+            "hierarchical": hierarchical}

@@ -3,8 +3,9 @@
 The JAX package's flax trees come in as nested dicts of numpy arrays; they
 are mapped onto the reference-torch ``state_dict`` layout — the layout of
 ``movae_tpu/utils/torch_export.py:export_torch_state_dict``, of which this is
-a self-contained copy for ``vq_vae``, ``pixelcnn`` and ``pixelsnail`` — and
-loaded strictly. No JAX needed.
+a self-contained copy for ``vq_vae``, ``vq_vae2``, ``pixelcnn``,
+``pixelsnail`` and the hierarchical priors — and loaded strictly. No JAX
+needed.
 """
 
 from __future__ import annotations
@@ -114,47 +115,117 @@ def vqvae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     return mp.finish()
 
 
+def _ros_encoder(mp: _Mapper, t: str, f: str, stride: int) -> None:
+    """A VQ-VAE-2 ``Encoder``: ``{t}.blocks.N`` (ReLUs take indices)."""
+    mp.conv(f"{t}.blocks.0", f"{f}/down1")
+    if stride == 4:
+        mp.conv(f"{t}.blocks.2", f"{f}/down2")
+        mp.conv(f"{t}.blocks.4", f"{f}/mid")
+        base = 5
+    else:
+        mp.conv(f"{t}.blocks.2", f"{f}/mid")
+        base = 3
+    for r in range(_count(mp.params, f + "/res_{}/conv3/kernel")):
+        mp.conv(f"{t}.blocks.{base + r}.conv.1", f"{f}/res_{r}/conv3")
+        mp.conv(f"{t}.blocks.{base + r}.conv.3", f"{f}/res_{r}/conv1")
+
+
+def _ros_decoder(mp: _Mapper, t: str, f: str, stride: int) -> None:
+    """A VQ-VAE-2 ``Decoder``: k3 conv, residual blocks, transposed convs."""
+    mp.conv(f"{t}.blocks.0", f"{f}/in")
+    R = _count(mp.params, f + "/res_{}/conv3/kernel")
+    for r in range(R):
+        mp.conv(f"{t}.blocks.{1 + r}.conv.1", f"{f}/res_{r}/conv3")
+        mp.conv(f"{t}.blocks.{1 + r}.conv.3", f"{f}/res_{r}/conv1")
+    mp.conv(f"{t}.blocks.{R + 2}", f"{f}/up1", transpose=True)
+    if stride == 4:
+        mp.conv(f"{t}.blocks.{R + 4}", f"{f}/up2", transpose=True)
+
+
+def vqvae2_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
+                      ema_stats: bool = False) -> Dict[str, np.ndarray]:
+    """flax ``vq_vae2`` (params, batch_stats) -> reference-torch state_dict
+    (numpy values), in the key order of ``_export_vqvae2``. With EMA
+    codebooks the codebooks come from ``batch_stats``; their EMA statistics
+    are dropped as the exporter drops them, or kept as
+    ``quantize_{t,b}.{cluster_size,ema_embed}`` with ``ema_stats``."""
+    mp = _Mapper(params, batch_stats)
+    _ros_encoder(mp, "enc_b", "enc_b", 4)
+    _ros_encoder(mp, "enc_t", "enc_t", 2)
+    mp.conv("quantize_conv_t", "quantize_conv_t")
+    mp.state["quantize_t.embedding.weight"] = mp.take("vq_top/embedding")
+    _ros_decoder(mp, "dec_t", "dec_t", 2)
+    mp.conv("quantize_conv_b", "quantize_conv_b")
+    mp.state["quantize_b.embedding.weight"] = mp.take("vq_bottom/embedding")
+    mp.conv("upsample_t", "upsample_t", transpose=True)
+    _ros_decoder(mp, "dec", "dec", 4)
+    for side, tname in (("vq_top", "quantize_t"), ("vq_bottom", "quantize_b")):
+        for name in ("cluster_size", "ema_embed"):
+            if f"{side}/{name}" in mp.stats:
+                value = mp.take(f"{side}/{name}")
+                if ema_stats:
+                    mp.state[f"{tname}.{name}"] = value
+    return mp.finish()
+
+
 def _gated_res(mp: _Mapper, tprefix: str, fprefix: str) -> None:
     for name in ("conv1", "conv2", "conv_gate", "conv_feature"):
         mp.conv(f"{tprefix}.{name}", f"{fprefix}/{name}")
 
 
-def _prior_io(mp: _Mapper, body) -> Dict[str, np.ndarray]:
-    mp.state["embedding.weight"] = mp.take("embedding/embedding")
-    mp.conv("conv_in", "conv_in")
-    body()
-    mp.conv("conv_out.1", "out1")
-    mp.conv("conv_out.3", "out2")
-    return mp.finish()
+def _pixelcnn(mp: _Mapper, t: str = "", f: str = "") -> None:
+    mp.state[f"{t}embedding.weight"] = mp.take(f"{f}embedding/embedding")
+    mp.conv(f"{t}conv_in", f"{f}conv_in")
+    for i in range(_count(mp.params, f + "res_{}/conv1/kernel")):
+        _gated_res(mp, f"{t}res_blocks.{i}", f"{f}res_{i}")
+    mp.conv(f"{t}conv_out.1", f"{f}out1")
+    mp.conv(f"{t}conv_out.3", f"{f}out2")
+
+
+def _pixelsnail(mp: _Mapper, t: str = "", f: str = "") -> None:
+    mp.state[f"{t}embedding.weight"] = mp.take(f"{f}embedding/embedding")
+    mp.conv(f"{t}conv_in", f"{f}conv_in")
+    for b in range(_count(mp.params, f + "block_{}/out_conv/kernel")):
+        tb, fb = f"{t}blocks.{b}", f"{f}block_{b}"
+        for r in range(_count(mp.params, fb + "/res_{}/conv1/kernel")):
+            _gated_res(mp, f"{tb}.res_blocks.{r}", f"{fb}/res_{r}")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            mp.dense_as_1x1(f"{tb}.attention.{proj}",
+                            f"{fb}/attention/{proj}")
+        mp.conv(f"{tb}.out_conv", f"{fb}/out_conv")
+    mp.conv(f"{t}conv_out.1", f"{f}out1")
+    mp.conv(f"{t}conv_out.3", f"{f}out2")
 
 
 def pixelcnn_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     """flax ``PixelCNN`` params -> reference-torch state_dict (numpy)."""
     mp = _Mapper(params, None)
-
-    def body():
-        for i in range(_count(mp.params, "res_{}/conv1/kernel")):
-            _gated_res(mp, f"res_blocks.{i}", f"res_{i}")
-
-    return _prior_io(mp, body)
+    _pixelcnn(mp)
+    return mp.finish()
 
 
 def pixelsnail_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     """flax ``PixelSNAIL`` params -> reference-torch state_dict (numpy);
     the attention projections become 1x1 convolutions."""
     mp = _Mapper(params, None)
+    _pixelsnail(mp)
+    return mp.finish()
 
-    def body():
-        for b in range(_count(mp.params, "block_{}/out_conv/kernel")):
-            t, f = f"blocks.{b}", f"block_{b}"
-            for r in range(_count(mp.params, f + "/res_{}/conv1/kernel")):
-                _gated_res(mp, f"{t}.res_blocks.{r}", f"{f}/res_{r}")
-            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                mp.dense_as_1x1(f"{t}.attention.{proj}",
-                                f"{f}/attention/{proj}")
-            mp.conv(f"{t}.out_conv", f"{f}/out_conv")
 
-    return _prior_io(mp, body)
+def hierarchical_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``HierarchicalPixelCNN`` / ``HierarchicalPixelSNAIL`` params ->
+    reference-torch state_dict (numpy), in the key order of
+    ``_export_hierarchical``: ``prior_top.*`` (a PixelSNAIL where the top has
+    attention blocks), ``embedding_top.weight``, ``upsample_top``,
+    ``prior_bottom.*``."""
+    mp = _Mapper(params, None)
+    top = (_pixelsnail if "prior_top/block_0/out_conv/kernel" in mp.params
+           else _pixelcnn)
+    top(mp, "prior_top.", "prior_top/")
+    mp.state["embedding_top.weight"] = mp.take("embedding_top/embedding")
+    mp.conv("upsample_top", "upsample_top", transpose=True)
+    _pixelcnn(mp, "prior_bottom.", "prior_bottom/")
+    return mp.finish()
 
 
 def _load_strict(model: torch.nn.Module, state: Mapping[str, np.ndarray]
@@ -167,12 +238,17 @@ def _load_strict(model: torch.nn.Module, state: Mapping[str, np.ndarray]
 
 def load_jax_prior_params(model: torch.nn.Module, params: Mapping
                           ) -> torch.nn.Module:
-    """Copy a flax ``PixelCNN`` / ``PixelSNAIL`` param tree (nested dicts of
-    numpy arrays) into the port's prior in place, strictly; returns it."""
-    from movae_tpu_torch.models.pixelcnn import PixelSNAIL
+    """Copy a flax ``PixelCNN`` / ``PixelSNAIL`` / hierarchical prior param
+    tree (nested dicts of numpy arrays) into the port's prior in place,
+    strictly; returns it."""
+    from movae_tpu_torch.models import pixelcnn as pc
 
-    fn = (pixelsnail_state_dict if isinstance(model, PixelSNAIL)
-          else pixelcnn_state_dict)
+    if isinstance(model, pc.HierarchicalPrior):
+        fn = hierarchical_state_dict
+    elif isinstance(model, pc.PixelSNAIL):
+        fn = pixelsnail_state_dict
+    else:
+        fn = pixelcnn_state_dict
     _load_strict(model, fn(params))
     return model
 
@@ -180,6 +256,13 @@ def load_jax_prior_params(model: torch.nn.Module, params: Mapping
 def load_jax_params(model: MOVAEModel, params: Mapping,
                     batch_stats: Optional[Mapping] = None) -> MOVAEModel:
     """Copy a flax param tree (nested dicts of numpy arrays) and its
-    batch_stats into ``model`` in place, strictly; returns the model."""
-    _load_strict(model, vqvae_state_dict(params, batch_stats))
+    batch_stats into ``model`` (``VQVAE`` or ``VQVAE2``) in place, strictly;
+    returns the model."""
+    from movae_tpu_torch.models.vq_vae2 import VQVAE2
+
+    if isinstance(model, VQVAE2):
+        state = vqvae2_state_dict(params, batch_stats, ema_stats=model.vq_ema)
+    else:
+        state = vqvae_state_dict(params, batch_stats)
+    _load_strict(model, state)
     return model

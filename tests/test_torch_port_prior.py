@@ -110,7 +110,7 @@ def test_train_prior_locksteps_with_jax(kind, ce_tol, tmp_path):
     (dict(pipeline_parallel=2), "Queue 1 item 13"),
     (dict(fsdp=True), "Queue 1 item 13"),
     (dict(prior_resume="/nonexistent"), "Queue 1 item 12"),
-    (dict(prior_sample_every=1), "Queue 1 item 9"),
+    (dict(prior_sample_every=1), "Queue 1 item 12"),
     (dict(compute_dtype="bfloat16"), "Queue 1 item 6")])
 def test_unported_options_name_roadmap_item(kw, item):
     from movae_tpu_torch.train.prior import train_prior
@@ -122,10 +122,21 @@ def test_unported_options_name_roadmap_item(kw, item):
 
 
 def test_hierarchical_prior_and_save_root_name_roadmap_items():
+    """build_prior(hierarchical=True) builds the two-level prior of the
+    prior type; a save_root still names its ROADMAP item."""
+    from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
+                                                 HierarchicalPixelSNAIL)
     from movae_tpu_torch.train.prior import build_prior, train_prior
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_prior(prior_args("pixelsnail"), K, hierarchical=True)
+    snail = build_prior(prior_args("pixelsnail"), K, hierarchical=True,
+                        embedding_dim=D)
+    assert isinstance(snail, HierarchicalPixelSNAIL)
+    assert len(snail.prior_top.blocks) == 2
+    assert len(snail.prior_bottom.res_blocks) == 3
+    cnn = build_prior(prior_args("pixelcnn"), K, hierarchical=True,
+                      embedding_dim=D)
+    assert isinstance(cnn, HierarchicalPixelCNN)
+    assert cnn.prior_bottom.conditional_channels == D
     meta = types.SimpleNamespace(num_embeddings=K, embedding_dim=D)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         train_prior(make_codes(), meta, prior_args("pixelcnn"), device="cpu",
