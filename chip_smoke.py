@@ -57,7 +57,19 @@ Phases, each of which fails the run:
      at small grids, the cached samplers against sample_naive on the same
      noise (near ties excepted) and teacher-forced logits card vs CPU;
   10. card vs CPU lockstep of the VQ-VAE-2 at a small width: 3 steps of sum
-     and of upgrad within 1e-4.
+     and of upgrad within 1e-4;
+  11. stage 3, the metrics: the InceptionV3 and VGG16 towers (the port's
+     fixed-seed random weights, or the files that MOVAE_INCEPTION_WEIGHTS /
+     MOVAE_VGG16_WEIGHTS name) held on the card against themselves in
+     float64 on the CPU (4 images: 32 px through both resize methods for
+     Inception, 256 px for VGG16) and timed (Inception at 299 px, batch 128,
+     preprocessing and tower apart; LPIPS on 256-px pairs, batch 128); then
+     ``run_final_metrics`` on phase 7's VQ-VAE-2 and phase 8's hierarchical
+     prior (512 seeded uint8 images normalized, batch 128; 256 generated
+     images in 2 chunks of 128), counts set to 0 just before and read just
+     after (two nearest-code launches a recon batch), with the wall time of
+     each part; every final/* value finite (precision and recall nan, as in
+     the JAX package), FID and KID >= 0, IS >= 1.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
@@ -66,7 +78,8 @@ the older bound with the products on the fp32 CUDA cores beside it.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a card,
-or without the ``movae_tpu_torch`` package beside this script.
+without the ``movae_tpu_torch`` package beside this script, or when
+MOVAE_INCEPTION_WEIGHTS or MOVAE_VGG16_WEIGHTS names a missing file.
 """
 
 from __future__ import annotations
@@ -159,6 +172,18 @@ FLASH_REPLACES = {
     "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/"
                               "flash_attention.py:1287",
 }
+# stage 3 (phase 11): run_final_metrics on phase 7's VQ-VAE-2 and phase 8's
+# hierarchical prior. Cut: the sample counts from the configs' 10,000 to 512
+# (recon pass) and 256 (generation: 2 chunks of the batch, 128), and random
+# towers for pretrained ones; widths and image size are not cut
+S3_FID_SAMPLES, S3_GEN_SAMPLES, S3_BATCH = 512, 256, 128
+# images per tower held on the card against the CPU in float64, their sizes,
+# and the timed repetitions (median) of each tower at batch S3_BATCH
+S3_CHECK, S3_CHECK_SIZE, S3_TIMED = 4, 32, 10
+# the tower checks' limit: 1e-4 of the largest value, or this many times the
+# float32 CPU tower's own distance from float64, whichever is larger
+TOWER_TOL, TOWER_PLAIN_FACTOR = 1e-4, 2.0
+IS_ROUNDING = 1e-6
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -1251,6 +1276,259 @@ def phase_sampler_checks(torch, dev, hprior, snail) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: stage 3, the metric towers and run_final_metrics
+# ---------------------------------------------------------------------------
+
+def median_ms(torch, fn, reps: int = S3_TIMED, warmup: int = 2) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between its
+    own pair of CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def held_against_float64(torch, label: str, card, cpu32, cpu64) -> dict:
+    """Card float32 outputs against the same module in float64 on the CPU:
+    within TOWER_TOL of the largest value or TOWER_PLAIN_FACTOR times the
+    float32 CPU module's own error, whichever is larger."""
+    res = {}
+    for name in cpu64:
+        exact = cpu64[name].double()
+        scale = float(exact.abs().max())
+        err = float((card[name].detach().cpu().double() - exact).abs().max())
+        plain = float((cpu32[name].double() - exact).abs().max())
+        limit = max(TOWER_TOL * scale, TOWER_PLAIN_FACTOR * plain)
+        res[name] = {"max_abs_err": err, "plain_err": plain,
+                     "max_abs": scale, "limit": limit}
+        check(err <= limit, f"{label} {name} on the card is off the float64 "
+              f"CPU tower: {res[name]}")
+    return res
+
+
+def phase_towers(torch, dev, profile: bool) -> dict:
+    """The Inception tower (``InceptionTower.get``, which the recon and
+    generation passes then use) and a VGG16, each built once, held on the
+    card against themselves in float64 on the CPU, then timed."""
+    import copy
+
+    import numpy as np
+
+    from movae_tpu_torch.metrics.features import (InceptionTower,
+                                                  inception_preprocess)
+    from movae_tpu_torch.metrics.vgg import (build_vgg16, lpips_from_taps,
+                                             make_lpips_fn, preprocess)
+
+    tower = InceptionTower.get(dev)
+    vgg = build_vgg16(device=dev)
+    rng = np.random.default_rng(21)
+    small = rng.uniform(-1, 1, (S3_CHECK, S3_CHECK_SIZE, S3_CHECK_SIZE, 3))
+    big = rng.uniform(-1, 1, (S3_CHECK, V2_SIZE, V2_SIZE, 3))
+    res = {}
+    cpu = {dt: copy.deepcopy(tower.model).cpu().to(dt)
+           for dt in (torch.float32, torch.float64)}
+    with torch.no_grad():
+        for method in ("bicubic", "bilinear"):
+            outs = {}
+            for where, model, dt in (("card", tower.model, torch.float32),
+                                     ("cpu32", cpu[torch.float32],
+                                      torch.float32),
+                                     ("cpu64", cpu[torch.float64],
+                                      torch.float64)):
+                x = torch.tensor(small, dtype=dt,
+                                 device=dev if where == "card" else "cpu")
+                f, lg = model(inception_preprocess(x, method))
+                outs[where] = {"features": f, "logits": lg}
+            res[f"inception_{method}"] = held_against_float64(
+                torch, f"inception ({method})", *outs.values())
+    del cpu
+    cpu = {dt: copy.deepcopy(vgg).cpu().to(dt)
+           for dt in (torch.float32, torch.float64)}
+    with torch.no_grad():
+        outs = {}
+        for where, model, dt in (("card", vgg, torch.float32),
+                                 ("cpu32", cpu[torch.float32], torch.float32),
+                                 ("cpu64", cpu[torch.float64],
+                                  torch.float64)):
+            x = torch.tensor(big, dtype=dt,
+                             device=dev if where == "card" else "cpu")
+            taps = model(preprocess(x))
+            half = S3_CHECK // 2
+            taps["lpips"] = lpips_from_taps(
+                {k: v[:half] for k, v in taps.items()},
+                {k: v[half:] for k, v in taps.items()})
+            outs[where] = taps
+        res["vgg16"] = held_against_float64(torch, "vgg16", *outs.values())
+    del cpu, outs
+    log(f"towers on the card vs float64 on the CPU ({S3_CHECK} images; "
+        f"Inception {S3_CHECK_SIZE} px through the real resize, VGG16 "
+        f"{V2_SIZE} px): {json.dumps(res)}")
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    imgs = torch.rand((S3_BATCH, V2_SIZE, V2_SIZE, 3), generator=gen,
+                      device=dev) * 2 - 1
+    other = torch.rand(imgs.shape, generator=gen, device=dev) * 2 - 1
+    lpips_fn = make_lpips_fn(vgg)
+    with torch.no_grad():
+        x299 = inception_preprocess(imgs)
+        times = {
+            "inception_preprocess_ms": median_ms(
+                torch, lambda: inception_preprocess(imgs)),
+            "inception_tower_ms": median_ms(torch, lambda: tower.model(x299)),
+            "lpips_ms": median_ms(torch, lambda: lpips_fn(imgs, other)),
+        }
+    times["inception_preprocess_images_per_sec"] = (
+        S3_BATCH / times["inception_preprocess_ms"] * 1e3)
+    times["inception_tower_images_per_sec"] = (
+        S3_BATCH / times["inception_tower_ms"] * 1e3)
+    times["lpips_pairs_per_sec"] = S3_BATCH / times["lpips_ms"] * 1e3
+    res["timing"] = times
+    log(f"tower throughput (batch {S3_BATCH}; Inception 299 px from "
+        f"{V2_SIZE} px, bicubic; LPIPS on {V2_SIZE}-px pairs; median of "
+        f"{S3_TIMED}): {json.dumps(times)}")
+    if profile:
+        with torch.no_grad():
+            profile_device(torch, f"inception tower (batch {S3_BATCH}, 299 "
+                           f"px)", lambda: [tower.model(x299)
+                                            for _ in range(3)], 3,
+                           times["inception_tower_ms"])
+            profile_device(torch, f"lpips (VGG16 to conv4_3, batch "
+                           f"{S3_BATCH} pairs, {V2_SIZE} px)",
+                           lambda: [lpips_fn(imgs, other) for _ in range(3)],
+                           3, times["lpips_ms"])
+    del x299, imgs, other, vgg, lpips_fn
+    torch.cuda.empty_cache()
+    return res
+
+
+class PartTimer:
+    """Wall time of the parts of ``run_final_metrics``: each named module
+    function is wrapped (and restored on exit) to add its time, the card
+    synchronized, to its part. A factory's own time goes to
+    ``<part>_build`` and the calls of the function it returns to the
+    part."""
+
+    def __init__(self, torch, parts):
+        self.torch, self.parts = torch, parts
+        self.secs = {}
+
+    def _timed(self, name, fn, factory=False):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.secs.setdefault(name + ("_build" if factory else ""),
+                                 []).append(time.perf_counter() - t0)
+            return self._timed(name, out) if factory else out
+        return run
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for _, mod, attr, _ in self.parts]
+        for name, mod, attr, factory in self.parts:
+            setattr(mod, attr, self._timed(name, getattr(mod, attr),
+                                           factory))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def phase_stage3(torch, dev, vq, hprior) -> dict:
+    """``run_final_metrics`` on the trained VQ-VAE-2 and hierarchical prior,
+    counts set to 0 just before and read just after."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from scipy import linalg
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.metrics import features as feat_lib
+    from movae_tpu_torch.metrics import pixel as pixel_lib
+    from movae_tpu_torch.train import final_metrics as fm
+
+    rng = np.random.default_rng(23)
+    n_batches = S3_FID_SAMPLES // S3_BATCH
+    loader = [((rng.integers(0, 256, (S3_BATCH, V2_SIZE, V2_SIZE, 3),
+                             dtype=np.uint8) / 127.5 - 1.0).astype(
+                                 np.float32), None, S3_BATCH)
+              for _ in range(n_batches)]
+    args = SimpleNamespace(batch_size=S3_BATCH, seed=0,
+                           max_fid_samples=S3_FID_SAMPLES,
+                           max_gen_metrics_samples=S3_GEN_SAMPLES)
+    prior = {"model": hprior, "hierarchical": True}
+    parts = [("collect_recons", fm, "collect_recons", False),
+             ("pixel", pixel_lib, "psnr", False),
+             ("pixel", pixel_lib, "ssim", False),
+             ("lpips", fm, "make_lpips_fn", True),
+             ("inception", feat_lib, "extract_inception_features", False),
+             ("sqrtm", linalg, "sqrtm", False),
+             ("kid", feat_lib, "kid_from_features", False),
+             ("inception_score", feat_lib, "calculate_inception_score",
+              False),
+             ("generation", fm, "generate_samples", False)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with PartTimer(torch, parts) as timer:
+        finals = fm.run_final_metrics({"model": vq, "test_loader": loader},
+                                      args, prior)
+    wall_s = time.perf_counter() - t0
+    counts = dict(LAUNCH_COUNTS)
+
+    secs = {k: sum(v) for k, v in timer.secs.items()}
+    secs["sqrtm_each"] = timer.secs.get("sqrtm", [])
+    secs["wall"] = wall_s
+    res = {"final": finals, "seconds": secs,
+           "generation_images_per_sec": S3_GEN_SAMPLES / secs["generation"],
+           "launches": counts}
+    log(f"stage 3 (run_final_metrics on the trained VQ-VAE-2 and "
+        f"hierarchical prior; {S3_FID_SAMPLES} recon / {S3_GEN_SAMPLES} "
+        f"generated images at {V2_SIZE} px): {json.dumps(res)}")
+    expected = {"psnr", "ssim", "lpips", "rfid", "gfid", "kid",
+                "inception_score_mean", "inception_score_std", "precision",
+                "recall"}
+    check(set(finals) == expected, f"final metrics keys {sorted(finals)}")
+    for key in expected - {"precision", "recall"}:
+        v = finals[key]
+        check(v == v and abs(v) != float("inf"), f"final/{key} is {v}")
+    for key in ("precision", "recall"):
+        check(finals[key] != finals[key], f"final/{key} is {finals[key]}, "
+              f"expected nan (the reference keeps it off)")
+    for key in ("rfid", "gfid", "kid"):
+        check(finals[key] >= 0, f"final/{key} = {finals[key]} < 0")
+    # IS >= 1 (each split's KL >= 0), up to float32 rounding of the class
+    # probabilities where the samples' predictions are nearly alike
+    check(finals["inception_score_mean"] >= 1.0 - IS_ROUNDING,
+          f"final/inception_score_mean = {finals['inception_score_mean']}")
+    check(counts["nearest_code"] == 2 * n_batches,
+          f"nearest_code launched {counts['nearest_code']} times in "
+          f"{n_batches} recon batches of 2 quantizers")
+    flash = {k: v for k, v in counts.items() if k.startswith("flash")}
+    check(not any(flash.values()), f"flash kernels launched in stage 3 "
+          f"(no attention on this path): {flash}")
+    # the pixel metrics and LPIPS run in batches of fm.METRIC_BATCH
+    runs = {k: len(v) for k, v in timer.secs.items()}
+    metric_batches = -(-S3_FID_SAMPLES // fm.METRIC_BATCH)
+    check(runs.get("generation") == 1 and runs.get("sqrtm", 0) >= 2
+          and runs.get("inception") == 4
+          and runs.get("lpips") == metric_batches
+          and runs.get("pixel") == 2 * metric_batches,
+          f"stage 3 parts ran {runs} times")
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -1274,6 +1552,15 @@ def main() -> int:
         print(f"chip_smoke: the movae_tpu_torch package must sit beside "
               f"this script: {e}", file=sys.stderr)
         return 1
+
+    # a tower weights file that is named but absent fails the run before
+    # any phase (stage 3 would raise on it after the others)
+    for var in ("MOVAE_INCEPTION_WEIGHTS", "MOVAE_VGG16_WEIGHTS"):
+        path = os.environ.get(var)
+        if path and not os.path.exists(path):
+            print(f"chip_smoke: {var} points at a missing file: {path}",
+                  file=sys.stderr)
+            return 1
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1377,12 +1664,20 @@ def main() -> int:
                                      args.profile)
         phase_sampling(torch, dev, hprior, vq2, snail, args.profile)
         phase_sampler_checks(torch, dev, hprior, snail)
-        del hprior, vq2, snail
+        del snail
         torch.cuda.empty_cache()
         small2 = dict(arch="vq_vae2", hidden_dims=(16, 32), embedding_dim=8,
                       num_embeddings=32, recons_activation="none")
         for agg in ("sum", "upgrad"):
             phase_lockstep(torch, dev, small2, 32, agg)
+
+        # stage 3: the towers, then run_final_metrics on the VQ-VAE-2 path's
+        # trained model and prior (its nearest_code launches join the row)
+        phase_towers(torch, dev, args.profile)
+        stage3 = phase_stage3(torch, dev, vq2, hprior)
+        row["launches"] += stage3["launches"]["nearest_code"]
+        del hprior, vq2
+        torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

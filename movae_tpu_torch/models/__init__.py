@@ -72,10 +72,12 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
                             "laplacian": "l1"}.get(
             _get(args, "recons_dist", "gaussian"), "mse")
     recons_objective = recons_objective.lower()
+    perceptual_fn = None
     if recons_objective == "perceptual":
-        raise NotImplementedError(
-            "recons_objective 'perceptual' needs the VGG tower: ROADMAP.md "
-            "Queue 1 item 10 (metrics)")
+        # the VGG16 conv3_3 feature MSE, the tower frozen and kept out of
+        # the model's parameters (MOVAE_VGG16_WEIGHTS or the random init)
+        from movae_tpu_torch.metrics.vgg import make_perceptual_fn
+        perceptual_fn = make_perceptual_fn()
     recons_activation = _get(args, "recons_activation", None)
     if recons_activation is None:
         recons_activation = "sigmoid" if recons_objective == "bce" else "tanh"
@@ -105,7 +107,7 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
         hidden_dims=tuple(_get(args, "hidden_dims", (32, 64, 128, 256, 512))),
         num_residual_layers=_get(args, "num_residual_layers", 2),
         input_size=input_size, recons_activation=recons_activation,
-        recons_objective=recons_objective,
+        recons_objective=recons_objective, perceptual_fn=perceptual_fn,
         lambda_weights=_weights(lambda_weights, names, defaults),
         vq_ema=vq_ema, vq_ema_decay=float(_get(args, "vq_ema_decay", 0.99)))
 

@@ -8,13 +8,15 @@ Every model follows the same contract as the JAX zoo:
   * ``feature_names``: names of the forward outputs at which the shared
     trunk ends, or ``None`` to force full-parameter Jacobians.
   * ``trunk(x, train)`` -> (features tuple, aux).
-  * ``heads(features, aux, x, train, generator)`` -> outputs dict,
-    differentiable w.r.t. both the features and the head parameters.
+  * ``heads(features, aux, x, train, generator, restart_rows)`` -> outputs
+    dict, differentiable w.r.t. both the features and the head parameters.
   * ``forward(x, train)`` = heads(trunk(x)).
 
 Images are NHWC at this interface. ``train`` is an explicit argument as in
 the JAX package (not ``nn.Module.train()``), and randomness comes from an
-explicit ``torch.Generator``.
+explicit ``torch.Generator``. ``restart_rows`` maps an EMA codebook's module
+name to the (K,) latent rows its dead-code restart reads, in place of a draw
+from ``generator`` (so a test can give both frameworks the same rows).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 Tensor = torch.Tensor
+RestartRows = Optional[Mapping[str, Tensor]]
 LambdaWeights = Tuple[Tuple[str, float], ...]
 
 
@@ -94,14 +97,16 @@ class MOVAEModel(nn.Module):
         raise NotImplementedError
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+              generator: Optional[torch.Generator] = None,
+              restart_rows: RestartRows = None) -> Dict[str, Any]:
         raise NotImplementedError
 
     def forward(self, x: Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                restart_rows: RestartRows = None) -> Dict[str, Any]:
         features, aux = self.trunk(x, train=train)
-        return self.heads(features, aux, x, train=train, generator=generator)
+        return self.heads(features, aux, x, train=train, generator=generator,
+                          restart_rows=restart_rows)
 
     def loss_terms(self, x: Tensor, outputs: Dict[str, Any]
                    ) -> Dict[str, Tensor]:
@@ -114,17 +119,21 @@ class MOVAEModel(nn.Module):
         return loss_vec, loss_dict, outputs
 
     def forward_with_losses(self, x: Tensor, train: bool = False,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            restart_rows: RestartRows = None):
         """One-shot forward + weighted component losses: returns
         ``(loss_vec, loss_dict, outputs)``; ``loss_dict`` carries
         ``total_loss`` (the sum of ``loss_vec``) as well."""
-        return self._with_total(x, self(x, train=train, generator=generator))
+        return self._with_total(x, self(x, train=train, generator=generator,
+                                         restart_rows=restart_rows))
 
     def heads_with_losses(self, features, aux, x: Tensor, train: bool = False,
-                          generator: Optional[torch.Generator] = None):
+                          generator: Optional[torch.Generator] = None,
+                          restart_rows: RestartRows = None):
         """Heads + losses, differentiable w.r.t. ``features``."""
         return self._with_total(
-            x, self.heads(features, aux, x, train=train, generator=generator))
+            x, self.heads(features, aux, x, train=train, generator=generator,
+                          restart_rows=restart_rows))
 
     def sample(self, num_samples: int,
                generator: Optional[torch.Generator] = None) -> Tensor:

@@ -27,7 +27,7 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
-                                         resolve_activation)
+                                         RestartRows, resolve_activation)
 from movae_tpu_torch.ops import vq as vq_ops
 
 Tensor = torch.Tensor
@@ -93,17 +93,33 @@ class Codebook(nn.Module):
 
     @torch.no_grad()
     def ema_update(self, z_flat: Tensor, inds: Tensor,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   restart_rows: Optional[Tensor] = None
                    ) -> Dict[str, Tensor]:
         """EMA decay update from this batch's assignments plus dead-code
-        restart; returns the new state, keyed like ``state_dict()``."""
+        restart; returns the new state, keyed like ``state_dict()``.
+
+        A dead code restarts from the latent row ``rows[k]``: ``rows`` is
+        ``restart_rows`` when given ((K,) indices into ``z_flat``), else a
+        draw from ``generator`` (the JAX package draws it from its
+        ``sample`` stream, which torch cannot reproduce)."""
         z_flat = z_flat.detach().float()
         new_cb, new_cluster, new_sum = vq_ops.ema_codebook_update(
             self.embedding.weight, self.cluster_size, self.ema_embed, z_flat,
             inds, decay=self.ema_decay)
         if self.ema_restart_threshold > 0:
-            rows = torch.randint(0, z_flat.shape[0], (self.num_embeddings,),
-                                 generator=generator, device=z_flat.device)
+            if restart_rows is None:
+                rows = torch.randint(0, z_flat.shape[0],
+                                     (self.num_embeddings,),
+                                     generator=generator,
+                                     device=z_flat.device)
+            else:
+                rows = torch.as_tensor(restart_rows, device=z_flat.device)
+                if tuple(rows.shape) != (self.num_embeddings,):
+                    raise ValueError(
+                        f"restart_rows must be ({self.num_embeddings},), got "
+                        f"{tuple(rows.shape)}")
+                rows = rows.long()
             seeds = z_flat[rows]
             dead = new_cluster < self.ema_restart_threshold
             new_cb = torch.where(dead[:, None], seeds, new_cb)
@@ -224,7 +240,8 @@ class VQVAE(MOVAEModel):
         return (self.encode(x, train=train),), None
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+              generator: Optional[torch.Generator] = None,
+              restart_rows: RestartRows = None) -> Dict[str, Any]:
         (encoding,) = features
         vq_out = vq_ops.vector_quantize(encoding, self.vq_layer())
         out = {
@@ -238,7 +255,8 @@ class VQVAE(MOVAEModel):
         if self.vq_ema and train:
             upd = self.vq_layer.ema_update(
                 encoding.reshape(-1, self.embedding_dim),
-                vq_out["encoding_inds"], generator)
+                vq_out["encoding_inds"], generator,
+                (restart_rows or {}).get("vq_layer"))
             out["batch_stats"] = {f"vq_layer.{k}": v for k, v in upd.items()}
         return out
 

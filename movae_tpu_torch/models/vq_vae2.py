@@ -33,7 +33,7 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
-                                         resolve_activation)
+                                         RestartRows, resolve_activation)
 from movae_tpu_torch.models.vq_vae import Codebook, reset_conv_parameters
 from movae_tpu_torch.ops import vq as vq_ops
 
@@ -190,7 +190,8 @@ class VQVAE2(MOVAEModel):
                                                     dim=1)))
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+              generator: Optional[torch.Generator] = None,
+              restart_rows: RestartRows = None) -> Dict[str, Any]:
         enc_t, enc_b = features
         qt_in = _nhwc(self.quantize_conv_t(_nchw(enc_t)))
         vq_t = vq_ops.vector_quantize(qt_in, self.quantize_t())
@@ -214,7 +215,8 @@ class VQVAE2(MOVAEModel):
                     ("quantize_t", self.quantize_t, qt_in, vq_t),
                     ("quantize_b", self.quantize_b, qb_in, vq_b)):
                 upd = book.ema_update(z.reshape(-1, self.embedding_dim),
-                                      vq_out["encoding_inds"], generator)
+                                      vq_out["encoding_inds"], generator,
+                                      (restart_rows or {}).get(name))
                 stats.update((f"{name}.{k}", v) for k, v in upd.items())
             out["batch_stats"] = stats
         return out

@@ -1,8 +1,10 @@
 """The train step — port of ``movae_tpu/train/step.py``.
 
 ``make_train_step(model, agg_cfg, ...)`` returns ``train_step(state, batch,
-generator) -> (state, metrics)``: forward, the multi-objective Jacobian,
-Gramian and aggregator solve, gradient combination and the optimizer update.
+generator, restart_rows) -> (state, metrics)``: forward, the multi-objective
+Jacobian, Gramian and aggregator solve, gradient combination and the
+optimizer update. ``restart_rows`` reaches the EMA codebooks' dead-code
+restart (``movae_tpu_torch/models/base.py``).
 The aggregation mode follows the reference dispatch:
 
   * aggregator ``sum``     -> plain backward of ``total_loss``;
@@ -20,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from movae_tpu_torch.models.base import RestartRows
 from movae_tpu_torch.moo import aggregators as agg_lib
 from movae_tpu_torch.moo import engine
 from movae_tpu_torch.ops.vq import used_codes_mask
@@ -87,7 +90,8 @@ def make_train_step(
     num_embeddings = getattr(model, "num_embeddings", 0)
 
     def train_step(state: TrainState, batch: Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   restart_rows: RestartRows = None):
         params = state.params
         device = params[0].device
         x = preprocess_batch(batch.to(device, non_blocking=True),
@@ -95,7 +99,8 @@ def make_train_step(
 
         if mode == "sum":
             _, loss_dict, outputs = state.model.forward_with_losses(
-                x, train=True, generator=generator)
+                x, train=True, generator=generator,
+                restart_rows=restart_rows)
             grads = engine.grads_or_zeros(loss_dict["total_loss"], params)
             alpha = torch.ones(m, dtype=torch.float32, device=device)
             similarity = torch.ones((), dtype=torch.float32, device=device)
@@ -106,7 +111,8 @@ def make_train_step(
             if mode == "full":
                 def loss_tuple_fn():
                     _, ld, out = state.model.forward_with_losses(
-                        x, train=True, generator=generator)
+                        x, train=True, generator=generator,
+                        restart_rows=restart_rows)
                     return tuple(ld[k] for k in names), (ld, out)
 
                 loss_vec, (loss_dict, outputs), J, G = engine.full_jacobian(
@@ -120,7 +126,8 @@ def make_train_step(
 
                 def heads_fn(features, t_aux):
                     _, ld, out = state.model.heads_with_losses(
-                        features, t_aux, x, train=True, generator=generator)
+                        features, t_aux, x, train=True, generator=generator,
+                        restart_rows=restart_rows)
                     return tuple(ld[k] for k in names), (ld, out)
 
                 fj = engine.FeatureJacobian(trunk_fn, heads_fn, params, m)

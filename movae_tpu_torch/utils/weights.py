@@ -6,11 +6,15 @@ are mapped onto the reference-torch ``state_dict`` layout — the layout of
 a self-contained copy for ``vq_vae``, ``vq_vae2``, ``pixelcnn``,
 ``pixelsnail`` and the hierarchical priors — and loaded strictly. No JAX
 needed.
+
+The metric towers' converted ``.npz`` files (the layout of
+``movae_tpu/metrics/{inception,vgg}.py:convert_torch_weights``) load through
+:func:`load_tower_npz`, the inverse of those converters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -265,4 +269,62 @@ def load_jax_params(model: MOVAEModel, params: Mapping,
     else:
         state = vqvae_state_dict(params, batch_stats)
     _load_strict(model, state)
+    return model
+
+
+def _tower_path(model: torch.nn.Module, key: str
+                ) -> Optional[Tuple[str, str]]:
+    """A tower ``state_dict`` key -> (flax path in the ``.npz``, kind of
+    array: "conv" (OIHW <- HWIO), "dense" (out, in <- in, out) or "same"),
+    or None for an entry the file does not carry (``num_batches_tracked``)."""
+    from movae_tpu_torch.metrics.vgg import VGG16Features, conv_names
+
+    parts = key.split(".")
+    if isinstance(model, VGG16Features):
+        name = conv_names()[int(parts[1])]
+        if parts[2] == "weight":
+            return f"params/{name}/kernel", "conv"
+        return f"params/{name}/bias", "same"
+    scope = "/".join(parts[:-1])
+    if parts[0] == "fc":
+        if parts[1] == "weight":
+            return "params/fc/kernel", "dense"
+        return "params/fc/bias", "same"
+    if parts[-2] == "conv":
+        return f"params/{scope}/kernel", "conv"
+    leaf = {"weight": "params/{}/scale", "bias": "params/{}/bias",
+            "running_mean": "batch_stats/{}/mean",
+            "running_var": "batch_stats/{}/var"}.get(parts[-1])
+    return (leaf.format(scope), "same") if leaf else None
+
+
+def load_tower_npz(model: torch.nn.Module,
+                   path_or_dict: Union[str, Mapping[str, np.ndarray]]
+                   ) -> torch.nn.Module:
+    """Load a converted tower ``.npz`` (a path, or its entries as a dict)
+    into the port's ``InceptionV3`` or ``VGG16Features`` in place, strictly
+    (``metrics/pretrained.py:merge_pretrained``); returns the model."""
+    from movae_tpu_torch.metrics.pretrained import merge_pretrained
+
+    if isinstance(path_or_dict, Mapping):
+        flat, source = dict(path_or_dict), f"{type(model).__name__} weights"
+    else:
+        with np.load(path_or_dict) as npz:
+            flat = {k: npz[k] for k in npz.files}
+        source = f"{type(model).__name__} weights {path_or_dict}"
+    state = model.state_dict()
+    paths = {k: _tower_path(model, k) for k in state}
+    paths = {k: v for k, v in paths.items() if v is not None}
+    to_flax = {"conv": lambda s: (s[2], s[3], s[1], s[0]),
+               "dense": lambda s: (s[1], s[0]), "same": lambda s: s}
+    expected = {p: to_flax[kind](tuple(state[k].shape))
+                for k, (p, kind) in paths.items()}
+    arrays = merge_pretrained(expected, flat, source)
+    from_flax = {"conv": lambda a: np.transpose(a, (3, 2, 0, 1)),
+                 "dense": np.transpose, "same": lambda a: a}
+    new = dict(state)
+    for k, (p, kind) in paths.items():
+        new[k] = torch.from_numpy(np.ascontiguousarray(
+            from_flax[kind](arrays[p]))).to(state[k].dtype)
+    model.load_state_dict(new, strict=True)
     return model
