@@ -51,7 +51,8 @@ Phases, each of which fails the run:
      15 layers, 128 channels, batch 32) on the extracted codes, then 3
      steps of HierarchicalPixelSNAIL, whose top attention at L=1024 is
      dense (no flash launch);
-  9. sample: sample_hierarchical from the trained prior (batch 16) decoded
+  9. sample: sample_hierarchical from the trained prior (batch 16; through
+     sample_prior's dispatch, the wavefront sampler at both levels) decoded
      to 256-px images by VQVAE2.decode_code, and sample_fast_snail from
      phase 5's PixelSNAIL at 64x64 with the int8 and the float32 caches;
      at small grids, the cached samplers against sample_naive on the same
@@ -69,7 +70,30 @@ Phases, each of which fails the run:
      images in 2 chunks of 128), counts set to 0 just before and read just
      after (two nearest-code launches a recon batch), with the wall time of
      each part; every final/* value finite (precision and recall nan, as in
-     the JAX package), FID and KID >= 0, IS >= 1.
+     the JAX package), FID and KID >= 0, IS >= 1;
+  12. (after phase 4) the aggregators on the stage-1 path: mgda, mgda_ln,
+     mgda_gn, mgda_lgn, aligned_mtl and aligned_mtl_median each 3 untimed
+     and 10 timed steps, with the overhead over sum and the host
+     synchronisations a step; every other aggregator name 3 steps (finite
+     losses and weights); the A/B of where the Frank–Wolfe and eigh solves
+     run (on the host, the default; on the card; Frank–Wolfe as one CUDA
+     graph), the step and the solve alone, the card's weights held against
+     the host's; card vs CPU lockstep of mgda_ln and aligned_mtl;
+  13. (after phase 12) the gradient-guided VQ models: gg_vq_vae_v3 at the
+     width of configs/cifar100/gg_vq_vae_v3/mgda_ln/mse/config_1.yaml and
+     gg_vq_vae2 at that of configs/celeba-hq/gg_vq_vae2/mgda_ln/mse/
+     config_1.yaml, each with mgda_ln and upgrad, nearest-code launches
+     counted; card vs CPU lockstep of each at a small width;
+  14. (after phase 9, before 10 and 11) the wavefront sampler: under one
+     Gumbel draw at batch 16, sample_wavefront against sample_fast on the
+     trained hierarchical prior's top (32x32) and conditioned bottom
+     (64x64) and at small grids (near ties excepted); a front's forced
+     logits on the card against float64 on the CPU; the A/B of both
+     samplers at 32x32 and 64x64, batch 16 and 128 (pixels/s; with
+     --profile, launches and busy share per front and per raster pixel,
+     at both batches).
+     Phase 11's generation then runs through sample_prior's dispatch, its
+     time printed beside the raster sampler's for the same pixels.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
@@ -184,6 +208,33 @@ S3_CHECK, S3_CHECK_SIZE, S3_TIMED = 4, 32, 10
 # float32 CPU tower's own distance from float64, whichever is larger
 TOWER_TOL, TOWER_PLAIN_FACTOR = 1e-4, 2.0
 IS_ROUNDING = 1e-6
+# phase 12: the aggregators that configs/ names beyond sum and upgrad, on
+# the stage-1 path (3 untimed + 10 timed steps each), and every other name
+# of the JAX package's AGGREGATOR_NAMES for 3 steps
+CONFIG_AGGS = ("mgda", "mgda_ln", "mgda_gn", "mgda_lgn", "aligned_mtl",
+               "aligned_mtl_median")
+AGG_TIMED, AGG_OTHER_STEPS = 10, 3
+# phase 13: gg_vq_vae_v3 as configs/cifar100/gg_vq_vae_v3/mgda_ln/mse/
+# config_1.yaml builds it (32 px, hidden (128, 256), D=64, K=512, no output
+# activation, its loss weights, adam 1e-3 cosine over 200 epochs, batch 256,
+# normalized uint8) and gg_vq_vae2 as configs/celeba-hq/gg_vq_vae2/mgda_ln/
+# mse/config_1.yaml does (256 px, batch 128, adam 1e-4 cosine over 1000
+# epochs); not cut
+GG_WEIGHTS = {"reconstruction_loss": 1.0, "embedding_loss": 1.0,
+              "commitment_loss": 0.25, "gradient_guided_loss": 1.0,
+              "edge_matching_loss": 1.0}
+GG_V3 = dict(width=dict(FULL_WIDTH, arch="gg_vq_vae_v3",
+                        recons_activation="none", loss_weights=GG_WEIGHTS),
+             size=SIZE, batch=BATCH, warmup=WARMUP, timed=AGG_TIMED,
+             lr=(1e-3, "cosine", 200, WARMUP + AGG_TIMED), uint8=True, vq=1)
+GG_V2 = dict(width=dict(V2_WIDTH, arch="gg_vq_vae2",
+                        loss_weights=GG_WEIGHTS),
+             size=V2_SIZE, batch=V2_BATCH, warmup=V2_WARMUP, timed=V2_TIMED,
+             lr=(1e-4, "cosine", 1000, V2_WARMUP + V2_TIMED), uint8=True,
+             vq=2)
+# phase 14: the wavefront A/B batches, and the small grids of the checks
+WAVE_BATCHES = (SAMPLE_BATCH, S3_BATCH)
+WAVE_CHECK_TOP = (8, 8)
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -774,6 +825,212 @@ def phase_lockstep(torch, dev, small: dict, size: int, agg: str) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the aggregators on the stage-1 path
+# ---------------------------------------------------------------------------
+
+def count_syncs(torch, fn) -> tuple:
+    """Host synchronisations while ``fn()`` runs, as CUDA's sync debug mode
+    reports them (copies between host and card, ``.item()``,
+    ``synchronize``): their count and the Python lines that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    return len(sites), sorted(set(sites))
+
+
+class GraphedSolve:
+    """A stand-in for ``aggregators._on_host`` that captures the solve on
+    the card as one CUDA graph at its first call and replays it on the
+    step's own Gramian after (the CUDA-graph arm of the A/B)."""
+
+    def __init__(self, torch):
+        self.torch, self.graph = torch, None
+
+    def __call__(self, fn, G, *rest):
+        torch = self.torch
+        if self.graph is None:
+            self.inputs = [G.clone(), *(r.clone() for r in rest)]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = fn(*self.inputs)
+        for dst, src in zip(self.inputs, (G, *rest)):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out.clone()
+
+
+def solve_modes(torch, name: str):
+    """Where ``name``'s solve runs in the A/B: on the host (the port's
+    ``_on_host``), on the card (the masked Frank–Wolfe loop, cuSOLVER's
+    eigh) and, for the Frank–Wolfe names, as one CUDA graph."""
+    from movae_tpu_torch.moo import aggregators as agg_lib
+
+    modes = {"host": agg_lib._on_host,
+             "card": lambda fn, G, *rest: fn(G, *rest)}
+    if "mgda" in name:
+        modes["graph"] = GraphedSolve(torch)
+    return modes
+
+
+def phase_aggregators(torch, dev, profile: bool) -> dict:
+    """Stage-1 training with the aggregators, beside sum and upgrad in the
+    same phase; returns the results and the nearest-code launches of the
+    runs (counts set to 0 just before)."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.moo import aggregators as agg_lib
+
+    path = dict(STAGE1, timed=AGG_TIMED)
+    others = [n for n in agg_lib.AGGREGATOR_NAMES
+              if n not in CONFIG_AGGS + ("sum", "upgrad")]
+    sum_ms = None
+    reset_launch_counts()
+    out, forwards = {}, 0
+    count_syncs(torch, lambda: None)  # the debug mode's own first switch
+    for agg in ("sum", "upgrad") + CONFIG_AGGS:
+        res, (step, state, batches, gen) = train_mode(torch, agg, dev, path)
+        if agg == "sum":
+            sum_ms = res["median_step_ms"]
+        syncs, sites = count_syncs(torch, lambda: step(state, batches[0],
+                                                       gen))
+        forwards += res["steps"] + 1
+        if profile and agg in ("mgda_ln", "aligned_mtl"):
+            profile_device(torch, f"agg={agg}", lambda: [
+                step(state, batches[i % len(batches)], gen)
+                for i in range(5)], 5, res["median_step_ms"])
+            forwards += 5
+        out[agg] = {"median_step_ms": res["median_step_ms"],
+                    "images_per_sec": res["images_per_sec"],
+                    "overhead_over_sum": res["median_step_ms"] / sum_ms,
+                    "host_syncs_per_step": syncs, "sync_sites": sites,
+                    "weights_last": [res["last"][f"task_{i}_weight"]
+                                     for i in range(3)]}
+    short = dict(path, warmup=1, timed=AGG_OTHER_STEPS - 1)
+    for agg in others:
+        res, _ = train_mode(torch, agg, dev, short)
+        forwards += res["steps"]
+        out[agg] = {"median_step_ms": res["median_step_ms"],
+                    "weights_last": [res["last"][f"task_{i}_weight"]
+                                     for i in range(3)]}
+    launches = LAUNCH_COUNTS["nearest_code"]
+    check(launches == forwards, f"nearest_code launched {launches} times in "
+          f"{forwards} aggregator-phase forwards")
+    log(f"aggregators on stage 1 (batch {BATCH}; {WARMUP} untimed + "
+        f"{AGG_TIMED} timed steps, {AGG_OTHER_STEPS} for the others; sum "
+        f"{sum_ms:.3f} ms): {json.dumps(out)}")
+    out["ab"] = phase_solve_ab(torch, dev, path)
+    return {"results": out, "nearest_code_launches": launches}
+
+
+def phase_solve_ab(torch, dev, path: dict) -> dict:
+    """Where the Frank–Wolfe (mgda_ln) and eigh (aligned_mtl) solves run:
+    each mode's step time (median of the timed steps, modes in turns: host,
+    card, graph, host) and the solve alone on the step's own Gramian (host
+    clock around compute_weights and a synchronize, median of 20); each
+    mode's weights against the host's on that Gramian. These runs are not
+    counted in the kernel row (the A/B repeats phase 12's path)."""
+    from movae_tpu_torch.moo import aggregators as agg_lib
+
+    res = {}
+    for agg in ("mgda_ln", "aligned_mtl"):
+        modes = solve_modes(torch, agg)
+        order = list(modes) + ["host"]
+        steps, grams, solve = {}, [], {}
+        spied = agg_lib.compute_weights
+
+        def spy(cfg, G, *a, **kw):
+            grams.append((G.detach().clone(), a[0].detach().clone()))
+            return spied(cfg, G, *a, **kw)
+
+        for i, mode in enumerate(order):
+            agg_lib._on_host, saved = modes[mode], agg_lib._on_host
+            agg_lib.compute_weights = spy if i == 0 else spied
+            try:
+                r, _ = train_mode(torch, agg, dev, path)
+            finally:
+                agg_lib._on_host, agg_lib.compute_weights = saved, spied
+            steps.setdefault(mode, []).append(r["median_step_ms"])
+        G, losses = grams[-1]
+        cfg = agg_lib.AggregatorConfig(name=agg, num_objectives=G.shape[0])
+        ref = None
+        for mode, where in modes.items():
+            agg_lib._on_host, saved = where, agg_lib._on_host
+            try:
+                times = []
+                for _ in range(23):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    alpha, _ = agg_lib.compute_weights(cfg, G, losses, {})
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            finally:
+                agg_lib._on_host = saved
+            ref = alpha if ref is None else ref
+            err = float((alpha - ref).abs().max())
+            solve[mode] = {"solve_ms": statistics.median(times[3:]) * 1e3,
+                           "max_abs_err_vs_host": err}
+            check(err <= 1e-4 * max(1.0, float(ref.abs().max())),
+                  f"{agg} weights with the solve on {mode} are off the "
+                  f"host's: {err:.3e}")
+        res[agg] = {"step_ms": steps, "solve": solve}
+    log(f"solve A/B (stage 1, batch {BATCH}): {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the gradient-guided VQ models
+# ---------------------------------------------------------------------------
+
+def phase_gg(torch, dev, profile: bool) -> dict:
+    """gg_vq_vae_v3 and gg_vq_vae2 at their configs' widths with mgda_ln
+    and upgrad; nearest-code launches counted (set to 0 just before);
+    card vs CPU locksteps at a small width."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    reset_launch_counts()
+    out, expected = {}, 0
+    for path in (GG_V3, GG_V2):
+        arch = path["width"]["arch"]
+        for agg in ("mgda_ln", "upgrad"):
+            res, (step, state, batches, gen) = train_mode(torch, agg, dev,
+                                                          path)
+            expected += path["vq"] * res["steps"]
+            out[f"{arch} {agg}"] = res
+            if profile:
+                n = len(batches)
+                profile_device(torch, f"{arch} agg={agg}", lambda: [
+                    step(state, batches[i % n], gen) for i in range(3)], 3,
+                    res["median_step_ms"])
+                expected += path["vq"] * 3
+            del state, batches
+            torch.cuda.empty_cache()
+    launches = LAUNCH_COUNTS["nearest_code"]
+    check(launches == expected, f"nearest_code launched {launches} times in "
+          f"the GG-VQ runs, expected {expected}")
+    phase_lockstep(torch, dev, dict(arch="gg_vq_vae_v3", hidden_dims=(8, 16),
+                                    embedding_dim=8, num_embeddings=32,
+                                    recons_activation="none"), 16, "mgda_ln")
+    phase_lockstep(torch, dev, dict(arch="gg_vq_vae2", hidden_dims=(16, 32),
+                                    embedding_dim=8, num_embeddings=32,
+                                    recons_activation="none"), 32,
+                   "aligned_mtl")
+    return {"results": out, "nearest_code_launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the stage-2 path, code extraction + full-width PixelSNAIL training
 # ---------------------------------------------------------------------------
 
@@ -1131,14 +1388,6 @@ def phase_sampling(torch, dev, hprior, vq, snail, profile: bool) -> dict:
            "distinct_top": int(zt.unique().numel()),
            "distinct_bottom": int(zb.unique().numel()),
            "images_range": [float(images.min()), float(images.max())]}
-    if profile:
-        rows = 2
-        cond = hprior.condition_from_top(zt)[:, :rows]
-        profile_device(torch, f"sampler hierarchical bottom (sample_fast, "
-                       f"first {rows} rows; per pixel)",
-                       lambda: pc.sample_fast(hprior.prior_bottom, gen, b,
-                                              rows, sb, condition=cond),
-                       rows * sb, bottom_s / (sb * sb) * 1e3)
 
     flat = PRIOR_SIZE // 4
     noise = pc.gumbel_noise(gen, flat * flat, b, SLICE_K, dev)
@@ -1274,6 +1523,142 @@ def phase_sampler_checks(torch, dev, hprior, snail) -> dict:
           f"forced logits on the card are off the float64 CPU call: {res} "
           f"(limit {limit:.3e})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the wavefront sampler
+# ---------------------------------------------------------------------------
+
+def timed_sample(torch, fn) -> tuple:
+    """(codes, wall seconds) of one sampler call, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = fn()
+    torch.cuda.synchronize()
+    return z, time.perf_counter() - t0
+
+
+def phase_wavefront(torch, dev, hprior, profile: bool) -> dict:
+    """sample_wavefront against sample_fast on the trained hierarchical
+    PixelCNN under one Gumbel draw: its top at 32x32 and its bottom at
+    64x64 on the condition of the sampled top, at batch 16 and 128 (the
+    A/B, pixels/s), and at small grids; codes must agree but for near ties
+    (SAMPLE_TIE, judged at each row's first difference); then a front's
+    forced logits on the card against float64 on the CPU. Returns the
+    results and the raster sampler's seconds for one generation chunk
+    (batch 128, both levels)."""
+    import copy
+
+    from movae_tpu_torch.models import pixelcnn as pc
+
+    st, sb = V2_SIZE // 8, V2_SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res, chunk_raster_s = {}, 0.0
+    for b in WAVE_BATCHES:
+        cond = None
+        for level, model, side in (("top", hprior.prior_top, st),
+                                   ("bottom", hprior.prior_bottom, sb)):
+            g = pc.gumbel_noise(gen, side * side, b, SLICE_K, dev)
+            args = (model, None, b, side, side)
+            wave, wave_s = timed_sample(torch, lambda: pc.sample_wavefront(
+                *args, condition=cond, gumbel=g))
+            fast, fast_s = timed_sample(torch, lambda: pc.sample_fast(
+                *args, condition=cond, gumbel=g))
+            fronts = pc.wavefront_steps(model.kernel_size, side, side)
+            r = first_mismatches(torch, model, wave, fast, g, cond)
+            check(r["bad"] == 0, f"sample_wavefront drew other codes than "
+                  f"sample_fast away from a near tie ({level}, batch {b}): "
+                  f"{r}")
+            res[f"{level} {side}x{side} batch {b}"] = {
+                "fronts": fronts, "wavefront_s": wave_s, "raster_s": fast_s,
+                "wavefront_px_per_sec": b * side * side / wave_s,
+                "raster_px_per_sec": b * side * side / fast_s,
+                "speedup": fast_s / wave_s,
+                "ms_per_front": wave_s / fronts * 1e3,
+                "ms_per_raster_step": fast_s / (side * side) * 1e3,
+                "rows_equal": r["rows_equal"], "near_tie": r["near_tie"]}
+            if b == S3_BATCH:
+                chunk_raster_s += fast_s
+            if profile:
+                profile_device(torch, f"wavefront {level} {side}x{side} "
+                               f"batch {b} (per front)",
+                               lambda: pc.sample_wavefront(
+                                   *args, condition=cond, gumbel=g),
+                               fronts, wave_s / fronts * 1e3)
+                rows = 2
+                part = None if cond is None else cond[:, :rows]
+                profile_device(torch, f"raster {level} batch {b} (first "
+                               f"{rows} rows; per pixel)",
+                               lambda: pc.sample_fast(
+                                   model, None, b, rows, side,
+                                   condition=part, gumbel=g[:rows * side]),
+                               rows * side, fast_s / (side * side) * 1e3)
+            if level == "top":
+                with torch.no_grad():
+                    cond = hprior.condition_from_top(fast)
+    log(f"wavefront vs raster (hierarchical PixelCNN; one Gumbel draw per "
+        f"level and batch): {json.dumps(res)}")
+
+    # small grids: the top at 8x8 and the bottom at 16x16 on its condition,
+    # and a grid narrower than s (the raster sampler's case)
+    b, small = CHECK_BATCH, {}
+    cond = None
+    for level, model, shape in (
+            ("top", hprior.prior_top, WAVE_CHECK_TOP),
+            ("bottom", hprior.prior_bottom, tuple(2 * x for x in
+                                                   WAVE_CHECK_TOP)),
+            ("top narrow", hprior.prior_top, (6, 3))):
+        g = pc.gumbel_noise(gen, shape[0] * shape[1], b, SLICE_K, dev)
+        c = cond if level == "bottom" else None
+        wave = pc.sample_wavefront(model, None, b, *shape, condition=c,
+                                   gumbel=g)
+        naive = pc.sample_naive(model, None, b, *shape, condition=c,
+                                gumbel=g)
+        small[level] = r = first_mismatches(torch, model, wave, naive, g, c)
+        check(r["bad"] == 0, f"sample_wavefront ({level}, {shape}) drew other "
+              f"codes than sample_naive away from a near tie: {r}")
+        if level == "top":
+            with torch.no_grad():
+                cond = hprior.condition_from_top(naive)
+
+    # a front's logits on forced codes: card float32 against the CPU in
+    # float64, within 1e-4 of the largest logit or twice the CPU float32
+    # call's own error (as phase 9 holds sample_fast_snail's)
+    shape = tuple(2 * x for x in WAVE_CHECK_TOP)
+    forced = torch.randint(0, SLICE_K, (b, *shape), generator=gen,
+                           device=dev)
+    runs = {}
+    for where, dtype in (("card", torch.float32), ("cpu32", torch.float32),
+                         ("cpu64", torch.float64)):
+        model = hprior.prior_bottom
+        c, z = cond, forced
+        if where != "card":
+            model = copy.deepcopy(model).cpu().to(dtype)
+            c, z = cond.cpu().to(dtype), forced.cpu()
+        logits = torch.zeros((b, shape[0] * shape[1], SLICE_K), dtype=dtype,
+                             device=z.device)
+
+        def read(lg, t, logits=logits, z=z):
+            logits[:, t] = lg
+            return z.reshape(b, -1)[:, t]
+
+        with torch.no_grad():
+            pc._sample_fronts(model, b, *shape, c, 1.0, read)
+        runs[where] = logits.cpu().double()
+    exact = runs["cpu64"]
+    scale = float(exact.abs().max())
+    forced_res = {"max_abs_err": float((runs["card"] - exact).abs().max()),
+                  "plain_err": float((runs["cpu32"] - exact).abs().max()),
+                  "max_abs": scale}
+    limit = max(1e-4 * scale, FLASH_PLAIN_FACTOR * forced_res["plain_err"])
+    log(f"wavefront checks (batch {b}; top {WAVE_CHECK_TOP}, bottom "
+        f"{shape}, narrow (6, 3)): {json.dumps(small)}; forced front "
+        f"logits on the card vs float64: {json.dumps(forced_res)}")
+    check(forced_res["max_abs_err"] <= limit,
+          f"forced front logits on the card are off the float64 CPU call: "
+          f"{forced_res} (limit {limit:.3e})")
+    return {"ab": res, "small": small, "forced_logits": forced_res,
+            "chunk_raster_s": chunk_raster_s}
 
 
 # ---------------------------------------------------------------------------
@@ -1445,9 +1830,13 @@ class PartTimer:
             setattr(mod, attr, fn)
 
 
-def phase_stage3(torch, dev, vq, hprior) -> dict:
+def phase_stage3(torch, dev, vq, hprior, raster_chunk_s: float) -> dict:
     """``run_final_metrics`` on the trained VQ-VAE-2 and hierarchical prior,
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after. Its generation runs
+    through sample_prior's dispatch (the wavefront sampler at both
+    levels); ``raster_chunk_s``, phase 14's raster sampler time for one
+    chunk of both levels at the same batch, gives the raster sampler's
+    time for the same pixels beside it."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1490,8 +1879,10 @@ def phase_stage3(torch, dev, vq, hprior) -> dict:
     secs = {k: sum(v) for k, v in timer.secs.items()}
     secs["sqrtm_each"] = timer.secs.get("sqrtm", [])
     secs["wall"] = wall_s
+    chunks = -(-S3_GEN_SAMPLES // S3_BATCH)
     res = {"final": finals, "seconds": secs,
            "generation_images_per_sec": S3_GEN_SAMPLES / secs["generation"],
+           "generation_raster_sampler_s": chunks * raster_chunk_s,
            "launches": counts}
     log(f"stage 3 (run_final_metrics on the trained VQ-VAE-2 and "
         f"hierarchical prior; {S3_FID_SAMPLES} recon / {S3_GEN_SAMPLES} "
@@ -1628,6 +2019,19 @@ def main() -> int:
         phase_lockstep(torch, dev, dict(hidden_dims=(8, 16), embedding_dim=8,
                                         num_embeddings=32), 16, "upgrad")
 
+        # the aggregators and the gradient-guided models on their paths;
+        # their nearest_code launches join the row
+        del runs, state, batches
+        aggs = phase_aggregators(torch, dev, args.profile)
+        row["launches"] += aggs["nearest_code_launches"]
+        for agg in ("mgda_ln", "aligned_mtl"):
+            phase_lockstep(torch, dev, dict(hidden_dims=(8, 16),
+                                            embedding_dim=8,
+                                            num_embeddings=32), 16, agg)
+        gg = phase_gg(torch, dev, args.profile)
+        row["launches"] += gg["nearest_code_launches"]
+        torch.cuda.empty_cache()
+
         prior, snail, codes = phase_prior(torch, dev, args.profile)
         row["launches"] += prior["launches"]["nearest_code"]
         trained = phase_prior_kernels(torch, fa, snail, codes)
@@ -1666,6 +2070,8 @@ def main() -> int:
         phase_sampler_checks(torch, dev, hprior, snail)
         del snail
         torch.cuda.empty_cache()
+        wave = phase_wavefront(torch, dev, hprior, args.profile)
+        torch.cuda.empty_cache()
         small2 = dict(arch="vq_vae2", hidden_dims=(16, 32), embedding_dim=8,
                       num_embeddings=32, recons_activation="none")
         for agg in ("sum", "upgrad"):
@@ -1674,7 +2080,8 @@ def main() -> int:
         # stage 3: the towers, then run_final_metrics on the VQ-VAE-2 path's
         # trained model and prior (its nearest_code launches join the row)
         phase_towers(torch, dev, args.profile)
-        stage3 = phase_stage3(torch, dev, vq2, hprior)
+        stage3 = phase_stage3(torch, dev, vq2, hprior,
+                              wave["chunk_raster_s"])
         row["launches"] += stage3["launches"]["nearest_code"]
         del hprior, vq2
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
-"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``
-and ``vq_vae2``.
+"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``,
+``vq_vae2``, ``gg_vq_vae`` / ``gg_vq_vae_v1..v8`` and ``gg_vq_vae2``.
 
 The priors (flat and hierarchical) are not in this registry:
 ``movae_tpu_torch/train/prior.py:build_prior`` builds them, as in the JAX
@@ -17,10 +17,13 @@ import torch
 
 from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.models.base import MOVAEModel, resolve_lambda_weights
+from movae_tpu_torch.models.gg_vq_vae import GGVQVAE
+from movae_tpu_torch.models.gg_vq_vae2 import GGVQVAE2
 from movae_tpu_torch.models.vq_vae import VQVAE
 from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
-__all__ = ["VQVAE", "VQVAE2", "MOVAEModel", "get_network", "init_model"]
+__all__ = ["GGVQVAE", "GGVQVAE2", "VQVAE", "VQVAE2", "MOVAEModel",
+           "get_network", "init_model"]
 
 _NOT_PORTED = {
     "pixelcnn": "Queue 1 item 8 (the flat priors are built by "
@@ -55,7 +58,7 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     """Build a model from an args namespace/dict. The module's weights are
     not initialized yet: call :func:`init_model`."""
     arch = (_get(args, "arch", "vae") or "vae").lower()
-    if arch not in ("vq_vae", "vq_vae2"):
+    if arch not in ("vq_vae", "vq_vae2") and not arch.startswith("gg_vq_vae"):
         item = _NOT_PORTED.get(arch, "Queue 1 item 11 (rest of the model zoo)")
         raise NotImplementedError(
             f"arch {arch!r} is not ported to movae_tpu_torch yet: "
@@ -88,18 +91,40 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     # the objective vector
     emb = () if vq_ema else ("embedding_loss",)
 
+    kw = {}
     if arch == "vq_vae":
         cls = VQVAE
         names = ("reconstruction_loss", *emb, "commitment_loss")
         defaults = {"reconstruction_loss": 1.0, "commitment_loss": 0.25,
                     "embedding_loss": 1.0}
-    else:
+    elif arch == "vq_vae2":
         # vq_vae2 keeps the embedding loss last, and the registry's defaults
         # (commitment 1.0, embedding 0.25) win over the class's all-ones
         cls = VQVAE2
         names = ("reconstruction_loss", "commitment_loss", *emb)
         defaults = {"reconstruction_loss": 1.0, "commitment_loss": 1.0,
                     "embedding_loss": 0.25}
+    elif arch.startswith("gg_vq_vae2"):
+        cls = GGVQVAE2
+        names = ("reconstruction_loss", "commitment_loss", *emb,
+                 "gradient_guided_loss", "edge_matching_loss")
+        defaults = {"reconstruction_loss": 1.0, "commitment_loss": 1.0,
+                    "gradient_guided_loss": 1.0, "edge_matching_loss": 1.0,
+                    "embedding_loss": 0.25}
+    else:
+        # the reference's objective-dict order: recon, embedding,
+        # commitment, gradient-guided[, edge matching from v2 on]
+        cls = GGVQVAE
+        version = ("v1" if arch in ("gg_vq_vae", "gg_vq_vae_v1")
+                   else arch.replace("gg_vq_vae_", ""))
+        kw["version"] = version
+        names = ("reconstruction_loss", *emb, "commitment_loss",
+                 "gradient_guided_loss")
+        defaults = {"reconstruction_loss": 1.0, "gradient_guided_loss": 1.0,
+                    "commitment_loss": 0.25, "embedding_loss": 1.0}
+        if version != "v1":
+            names = names + ("edge_matching_loss",)
+            defaults["edge_matching_loss"] = 1.0
     return cls(
         in_channels=num_channels,
         embedding_dim=_get(args, "embedding_dim", 64) or 64,
@@ -109,7 +134,8 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
         input_size=input_size, recons_activation=recons_activation,
         recons_objective=recons_objective, perceptual_fn=perceptual_fn,
         lambda_weights=_weights(lambda_weights, names, defaults),
-        vq_ema=vq_ema, vq_ema_decay=float(_get(args, "vq_ema_decay", 0.99)))
+        vq_ema=vq_ema, vq_ema_decay=float(_get(args, "vq_ema_decay", 0.99)),
+        **kw)
 
 
 def init_model(model: MOVAEModel, seed: int = 0,

@@ -16,14 +16,14 @@ projections as 1x1 convolutions), ``conv_out.{1,3}``; ``prior_top.*``,
 
 Samplers (after the models): ``sample_naive`` (the oracle: one full forward
 per pixel), ``sample_fast`` (PixelCNN with per-layer padded activation
-caches), ``sample_fast_snail`` (PixelSNAIL, plus a key/value cache per
-attention block in float32, bfloat16 or int8), the ``sample_prior`` dispatch
-and ``sample_hierarchical``. Each draws pixel t as the argmax of its logits
+caches), ``sample_wavefront`` (PixelCNN over the same caches, one
+skew-diagonal front of pixels a step), ``sample_fast_snail`` (PixelSNAIL,
+plus a key/value cache per attention block in float32, bfloat16 or int8),
+the ``sample_prior`` dispatch and ``sample_hierarchical``. Each draws pixel t as the argmax of its logits
 over the temperature plus Gumbel noise ``gumbel[t]`` — the Gumbel-max form of
 the JAX package's ``jax.random.categorical`` — where ``gumbel`` (L, B, K) is
 drawn up front from a ``torch.Generator`` or given by the caller, so every
-sampler draws the same codes from the same noise. Not ported:
-``sample_wavefront`` (``ROADMAP.md`` Queue 1 item 9).
+sampler draws the same codes from the same noise.
 
 Dropout draws come from an explicit ``torch.Generator``; the JAX package's
 draws differ, so tests compare at dropout 0 or by statistics.
@@ -545,9 +545,24 @@ class _CachedGatedRes:
         b = x.shape[0]
         self.cache[:, i + 1, j + 1] = F.relu(torch.addmm(self.b1, x, self.w1))
         nb = self.cache[:, i:i + 3, j:j + 3].reshape(b, -1)
+        return self._gate(x, nb)
+
+    def _gate(self, x: Tensor, nb: Tensor) -> Tensor:
         c2 = F.relu(torch.addmm(self.b2, nb, self.w2))
         gf = torch.addmm(self.bgf, c2, self.wgf)
         return x + torch.sigmoid(gf[:, :self.hc]) * torch.tanh(gf[:, self.hc:])
+
+    def front(self, x: Tensor, front: "_Front") -> Tensor:
+        """The block at one front's C cells: x (B * C, hc), rows batch-major.
+        conv1's outputs are written at the cells' cache positions first, then
+        each cell reads its 3x3 neighbourhood (the same reduction as
+        ``__call__``)."""
+        b, c = self.cache.shape[0], front.c1_at.numel()
+        flat = self.cache.view(b, -1, self.cache.shape[-1])
+        flat.index_copy_(1, front.c1_at, F.relu(torch.addmm(
+            self.b1, x, self.w1)).view(b, c, -1))
+        nb = flat.index_select(1, front.c1_win).view(b * c, -1)
+        return self._gate(x, nb)
 
 
 class _CachedInput:
@@ -574,6 +589,20 @@ class _CachedInput:
 
     def write(self, code: Tensor, i: int, j: int) -> None:
         self.cache[:, i + self.pad, j + self.pad, :self.e] = self.table[code]
+
+    def _flat(self) -> Tensor:
+        return self.cache.view(self.cache.shape[0], -1, self.cache.shape[-1])
+
+    def front(self, front: "_Front") -> Tensor:
+        """The input conv at one front's C cells -> (B * C, hc)."""
+        b = self.cache.shape[0]
+        nb = self._flat().index_select(1, front.in_win)
+        return torch.addmm(self.b, nb.view(b * front.in_at.numel(), -1),
+                           self.w)
+
+    def write_front(self, code: Tensor, front: "_Front") -> None:
+        """Write the embeddings of one front's codes (B, C)."""
+        self._flat()[:, front.in_at, :self.e] = self.table[code]
 
 
 def _fixed_channels(model: _Prior, batch_size: int, height: int, width: int,
@@ -623,6 +652,101 @@ def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
         samples[:, i, j] = code.to(torch.int32)
         inp.write(code, i, j)
     return samples
+
+
+class _Front:
+    """One skew-diagonal front's cells as index tensors: their raster
+    positions ``t``, their positions in the padded input cache (``in_at``)
+    and conv1 caches (``c1_at``), and their k x k and 3 x 3 windows there
+    (``in_win``, ``c1_win``: C * k * k and C * 9 positions, cell by cell,
+    row by row)."""
+
+    def __init__(self, t, in_at, in_win, c1_at, c1_win):
+        self.t, self.in_at, self.in_win = t, in_at, in_win
+        self.c1_at, self.c1_win = c1_at, c1_win
+
+
+def _wavefronts(height: int, width: int, k: int, device) -> list:
+    """The fronts d = s * i + j, s = k // 2 + 1 (at least 2), in order:
+    every pixel that a pixel's masked convolutions see lies on an earlier
+    front (the mask-A input conv's last tap (i - 1, j + k // 2) on front
+    d - 1, the mask-B 3x3 taps on d - 1 and earlier), so a front's cells
+    are drawn in one step. All fronts' indices are built on the host and
+    copied to ``device`` once; each front holds views of them."""
+    pad, s = k // 2, max(k // 2 + 1, 2)
+    ii, jj = np.divmod(np.arange(height * width), width)
+    order = np.lexsort((ii, s * ii + jj))          # by front, then row
+    ii, jj = ii[order], jj[order]
+    wp, w1 = width + 2 * pad, width + 2
+    ak, a3 = np.arange(k), np.arange(3)
+    in_win = ((ii[:, None, None] + ak[None, :, None]) * wp
+              + jj[:, None, None] + ak[None, None, :])
+    c1_win = ((ii[:, None, None] + a3[None, :, None]) * w1
+              + jj[:, None, None] + a3[None, None, :])
+    cols = {"t": ii * width + jj, "in_at": (ii + pad) * wp + jj + pad,
+            "in_win": in_win.reshape(-1), "c1_at": (ii + 1) * w1 + jj + 1,
+            "c1_win": c1_win.reshape(-1)}
+    on_dev = {n: torch.from_numpy(v.astype(np.int64)).to(device)
+              for n, v in cols.items()}
+    ends = np.cumsum(np.bincount(s * ii + jj))
+    fronts, lo = [], 0
+    for hi in ends.tolist():
+        if hi == lo:  # no cell on this front (a grid narrower than s)
+            continue
+        fronts.append(_Front(
+            on_dev["t"][lo:hi], on_dev["in_at"][lo:hi],
+            on_dev["in_win"][lo * k * k:hi * k * k], on_dev["c1_at"][lo:hi],
+            on_dev["c1_win"][lo * 9:hi * 9]))
+        lo = hi
+    return fronts
+
+
+def _sample_fronts(model: PixelCNN, batch_size: int, height: int,
+                   width: int, condition: Optional[Tensor],
+                   temperature: float, draw) -> Tensor:
+    """The wavefront loop: ``draw(logits (B, C, K), t (C,)) -> codes (B,
+    C)`` picks each front's codes from its logits over the temperature."""
+    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
+                                              width, condition),
+                       batch_size, height, width)
+    layers = [_CachedGatedRes(blk, batch_size, height, width)
+              for blk in model.res_blocks]
+    samples = torch.zeros((batch_size, height * width), dtype=torch.int32,
+                          device=inp.w.device)
+    for front in _wavefronts(height, width, inp.k, inp.w.device):
+        x = inp.front(front)
+        for layer in layers:
+            x = layer.front(x, front)
+        logits = _head(model, x, temperature).view(batch_size,
+                                                   front.t.numel(), -1)
+        code = draw(logits, front.t)
+        samples.index_copy_(1, front.t, code.to(torch.int32))
+        inp.write_front(code, front)
+    return samples.view(batch_size, height, width)
+
+
+@torch.no_grad()
+def sample_wavefront(model: PixelCNN, generator: Optional[torch.Generator],
+                     batch_size: int, height: int, width: int,
+                     condition: Optional[Tensor] = None,
+                     temperature: float = 1.0,
+                     gumbel: Optional[Tensor] = None) -> Tensor:
+    """Skew-diagonal (wavefront) cached sampler for PixelCNN: the H * W
+    raster steps of :func:`sample_fast` become ``s * (H - 1) + W`` fronts
+    (s = kernel_size // 2 + 1; 316 instead of 4,096 at 64x64 with k = 7),
+    each drawing up to ceil(W / s) cells at once over ``sample_fast``'s own
+    padded caches: each cell reads the same k x k and 3 x 3 windows, which
+    hold the same values (every tap a pixel's mask lets through lies on an
+    earlier front, every masked tap on a later one), through a product of
+    B * C rows instead of B. Pixel t draws with ``gumbel[t]``, so this draws
+    the codes of :func:`sample_fast` and :func:`sample_naive` from the same
+    noise. Attention rules it out for PixelSNAIL: a raster-earlier key can
+    lie on a later front."""
+    g = _noise(gumbel, generator, model, batch_size, height * width)
+    return _sample_fronts(
+        model, batch_size, height, width, condition, temperature,
+        lambda logits, t: (logits + g.index_select(0, t).transpose(0, 1)
+                           ).argmax(-1))
 
 
 class _CachedAttention:
@@ -753,6 +877,11 @@ def sample_fast_snail(model: PixelSNAIL, generator: Optional[torch.Generator],
     return samples
 
 
+def wavefront_steps(kernel_size: int, height: int, width: int) -> int:
+    """The number of fronts :func:`sample_wavefront` takes for a grid."""
+    return max(kernel_size // 2 + 1, 2) * (height - 1) + width
+
+
 def sample_prior(model: _Prior, generator: Optional[torch.Generator],
                  batch_size: int, height: int, width: int,
                  condition: Optional[Tensor] = None,
@@ -762,17 +891,28 @@ def sample_prior(model: _Prior, generator: Optional[torch.Generator],
     """Dispatch: the cached sampler for PixelSNAIL and PixelCNN with
     ``fast``, :func:`sample_naive` otherwise. ``cache_dtype`` only affects
     the PixelSNAIL key/value cache (float32 for the naive sampler's codes;
-    int8, the default, reads a quarter of the bytes). PixelCNN goes to
-    :func:`sample_fast` at every grid size: the JAX package's wavefront
-    sampler, which it takes for 256 <= H*W <= 1024 and which draws the same
-    codes, is not ported (``ROADMAP.md`` Queue 1 item 9)."""
+    int8, the default, reads a quarter of the bytes).
+
+    PixelCNN takes :func:`sample_wavefront` wherever it has fewer fronts
+    than the grid has pixels (more than one row, wider than s =
+    k // 2 + 1), else
+    :func:`sample_fast`; both draw the same codes. On one H100 80GB HBM3
+    at 700 W a step of either is mostly host time whatever its width:
+    2.2-5.4 ms a front against 1.9-4.8 ms a raster step, so the wavefront
+    drew 5.1-7.5x the raster sampler's pixels/s at 32x32 and 7.5-17.2x at
+    64x64, batch 16 and 128 (``chip_smoke.py`` phase 14; PERF.md).
+    The JAX package's rule, 256 <= H * W <= 1024, comes from TPU timings
+    where a 64x64 raster step was compute-bound."""
     if fast and isinstance(model, PixelSNAIL):
         return sample_fast_snail(model, generator, batch_size, height, width,
                                  condition, temperature,
                                  cache_dtype=cache_dtype, gumbel=gumbel)
     if fast and isinstance(model, PixelCNN):
-        return sample_fast(model, generator, batch_size, height, width,
-                           condition, temperature, gumbel=gumbel)
+        sampler = (sample_wavefront if wavefront_steps(
+            model.kernel_size, height, width) < height * width
+            else sample_fast)
+        return sampler(model, generator, batch_size, height, width,
+                       condition, temperature, gumbel=gumbel)
     return sample_naive(model, generator, batch_size, height, width,
                         condition, temperature, gumbel=gumbel)
 

@@ -243,10 +243,16 @@ class VQVAE2(MOVAEModel):
         for key in self.objective_names:
             if key == "reconstruction_loss":
                 v = self._recon_fn()(x, outputs["recons"])
-            else:
+            elif key in ("commitment_loss", "embedding_loss"):
                 v = outputs[key]
+            else:
+                v = self._extra_loss(key, x, outputs)
             out[key] = lw[key] * v
         return out
+
+    def _extra_loss(self, key: str, x: Tensor, outputs: Dict[str, Any]
+                    ) -> Tensor:  # the gradient-guided variants' losses
+        raise KeyError(key)
 
     # --- code extraction & generation ----------------------------------------
     def get_code_indices_pair(self, x: Tensor) -> Tuple[Tensor, Tensor]:

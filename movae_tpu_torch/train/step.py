@@ -1,10 +1,13 @@
 """The train step — port of ``movae_tpu/train/step.py``.
 
 ``make_train_step(model, agg_cfg, ...)`` returns ``train_step(state, batch,
-generator, restart_rows) -> (state, metrics)``: forward, the multi-objective
-Jacobian, Gramian and aggregator solve, gradient combination and the
-optimizer update. ``restart_rows`` reaches the EMA codebooks' dead-code
-restart (``movae_tpu_torch/models/base.py``).
+generator, restart_rows, agg_draws) -> (state, metrics)``: forward, the
+multi-objective Jacobian, Gramian and aggregator solve, gradient combination
+and the optimizer update. ``generator`` draws the EMA codebooks' dead-code
+restarts and the aggregator's random choices; ``restart_rows``
+(``movae_tpu_torch/models/base.py``) and ``agg_draws`` (``use_pairwise``,
+``perms``: ``movae_tpu_torch/moo/aggregators.py:compute_weights``) give
+them instead.
 The aggregation mode follows the reference dispatch:
 
   * aggregator ``sum``     -> plain backward of ``total_loss``;
@@ -91,7 +94,8 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Tensor,
                    generator: Optional[torch.Generator] = None,
-                   restart_rows: RestartRows = None):
+                   restart_rows: RestartRows = None,
+                   agg_draws: Optional[Dict[str, Tensor]] = None):
         params = state.params
         device = params[0].device
         x = preprocess_batch(batch.to(device, non_blocking=True),
@@ -118,7 +122,8 @@ def make_train_step(
                 loss_vec, (loss_dict, outputs), J, G = engine.full_jacobian(
                     loss_tuple_fn, params, m)
                 alpha, new_agg_state = agg_lib.compute_weights(
-                    agg_cfg, G, loss_vec, state.agg_state, beta)
+                    agg_cfg, G, loss_vec, state.agg_state, beta,
+                    generator=generator, **(agg_draws or {}))
                 grads = engine.combine(J, alpha)
             else:  # feature mode
                 def trunk_fn():
@@ -134,7 +139,8 @@ def make_train_step(
                 loss_dict, outputs = fj.heads_aux
                 G = fj.G
                 alpha, new_agg_state = agg_lib.compute_weights(
-                    agg_cfg, G, fj.losses, state.agg_state, beta)
+                    agg_cfg, G, fj.losses, state.agg_state, beta,
+                    generator=generator, **(agg_draws or {}))
                 grads = fj.grads(alpha)
             similarity = agg_lib.gradient_similarity(G, alpha)
 
@@ -152,8 +158,7 @@ def make_train_step(
             finite = torch.stack([torch.isfinite(metrics["total_loss"])]
                                  + [torch.isfinite(g).all() for g in grads])
             ok = bool(finite.all())
-            metrics["skipped_nonfinite"] = torch.tensor(
-                0.0 if ok else 1.0, device=device)
+            metrics["skipped_nonfinite"] = 1.0 - finite.all().float()
         if ok:
             state.apply_gradients(grads)
             if outputs.get("batch_stats"):

@@ -157,8 +157,18 @@ def test_similarity_and_comfort_beta_match_jax():
 
 
 def test_unported_aggregator_names_roadmap_item():
-    cfg = tagg.AggregatorConfig(name="mgda", num_objectives=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+    """No aggregator is left unported: every name of the JAX package's
+    AGGREGATOR_NAMES gives finite weights, and an unknown name raises
+    ValueError, as in the JAX package."""
+    assert tagg.AGGREGATOR_NAMES == jagg.AGGREGATOR_NAMES
+    G = torch.tensor(_gramians(3, seed=2)[0])
+    for name in jagg.AGGREGATOR_NAMES:
+        cfg = tagg.AggregatorConfig(name=name, num_objectives=3)
+        alpha, _ = tagg.compute_weights(cfg, G, torch.ones(3),
+                                        tagg.init_state(cfg))
+        assert alpha.shape == (3,) and torch.isfinite(alpha).all(), name
+    cfg = tagg.AggregatorConfig(name="no_such_aggregator", num_objectives=2)
+    with pytest.raises(ValueError, match="not supported"):
         tagg.compute_weights(cfg, torch.eye(2), torch.ones(2), {})
 
 

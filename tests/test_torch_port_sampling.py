@@ -234,21 +234,25 @@ def test_hierarchical_matches_naive_oracle(kind):
 
 def test_sample_prior_dispatch(monkeypatch):
     """PixelSNAIL -> sample_fast_snail (int8 cache by default); PixelCNN ->
-    sample_fast at every grid size, 256 <= H*W <= 1024 included (the
-    wavefront sampler is not ported); fast=False -> sample_naive."""
+    sample_wavefront wherever it takes fewer fronts than the grid has pixels
+    (wider than s = k // 2 + 1 = 4 at k = 7: 8x8, 16x16, 32x32, 64x64 and
+    3x5 here), else sample_fast (4x4, 64x4 and one row); fast=False ->
+    sample_naive."""
     calls = []
-    for name in ("sample_naive", "sample_fast", "sample_fast_snail"):
+    for name in ("sample_naive", "sample_fast", "sample_fast_snail",
+                 "sample_wavefront"):
         monkeypatch.setattr(tpc, name, lambda *a, _n=name, **kw: calls.append(
             (_n, kw.get("cache_dtype"))))
     cnn, snail = pair("pixelcnn")[2], pair("pixelsnail")[2]
     tpc.sample_prior(snail, None, 1, 4, 4)
-    tpc.sample_prior(cnn, None, 1, 16, 16)
-    tpc.sample_prior(cnn, None, 1, 32, 32)
-    tpc.sample_prior(cnn, None, 1, 4, 4, fast=False)
+    for grid in ((8, 8), (16, 16), (32, 32), (64, 64), (3, 5), (4, 4),
+                 (64, 4), (1, 9)):
+        tpc.sample_prior(cnn, None, 1, *grid)
+    tpc.sample_prior(cnn, None, 1, 32, 32, fast=False)
     tpc.sample_prior(snail, None, 1, 4, 4, fast=False)
-    assert calls == [("sample_fast_snail", torch.int8), ("sample_fast", None),
-                     ("sample_fast", None), ("sample_naive", None),
-                     ("sample_naive", None)]
+    assert calls == [("sample_fast_snail", torch.int8)] + [
+        ("sample_wavefront", None)] * 5 + [("sample_fast", None)] * 3 + [
+        ("sample_naive", None)] * 2
 
 
 def test_generator_noise_depends_on_seed_only():
