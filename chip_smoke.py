@@ -94,6 +94,22 @@ Phases, each of which fails the run:
      at both batches).
      Phase 11's generation then runs through sample_prior's dispatch, its
      time printed beside the raster sampler's for the same pixels.
+  15. (last) the CLI: 15a runs configs/celeba-hq/vq_vae2/sum/mse/
+     config_1.yaml (full width; cut to a synthetic 256-px set, 2 epochs,
+     1 prior epoch, 256-image final metrics: CLI_15A_CUTS) through
+     ``movae_tpu_torch.runner.yaml_to_args`` and ``movae_tpu_torch.main``
+     in-process, counts set to 0 just before and read just after (the
+     nearest-code kernel launched, its plain version never called), with
+     the wall time of each part; the JAX package's run tree, finite
+     final/* values (precision and recall nan); then a resume from
+     last_checkpoint.pth through ``python -m movae_tpu_torch.runner`` (it
+     must start at epoch 2, step 8), the host loader against the
+     device-resident set in alternating epochs with the host
+     synchronisations a step, and ``python -m movae_tpu_torch.bench`` at
+     stage 1 beside phase 3's step; 15b runs configs/imagenet/vq_vae/sum/
+     mse/config_1.yaml with ``prior_type: pixelsnail`` (L = 4096, batch 16:
+     CLI_15B_CUTS), counts set to 0 just before and read just after: every
+     flash kernel 8 blocks x 8 prior steps, and the nearest-code kernel.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
@@ -235,6 +251,30 @@ GG_V2 = dict(width=dict(V2_WIDTH, arch="gg_vq_vae2",
 # phase 14: the wavefront A/B batches, and the small grids of the checks
 WAVE_BATCHES = (SAMPLE_BATCH, S3_BATCH)
 WAVE_CHECK_TOP = (8, 8)
+# phase 15: two configs of configs/ through the port's CLI. Every key
+# changed from the file is a cut: 15a runs the celeba-hq VQ-VAE-2 at full
+# width (hidden 128/256, K 512, D 64, batch 128, adam 1e-4 cosine) on a
+# synthetic 256-px set (celeba-hq cannot be fetched) for 2 epochs of 8
+# steps, 1 prior epoch and 256-image final metrics, then resumes; 15b runs
+# the imagenet VQ-VAE with a PixelSNAIL prior at L = 4096 at batch 16 (the
+# stage-2 prior's cut; its final sample grid through the f32 KV cache, the
+# faster one on the card in the KV-cache A/B of PERF.md)
+CLI_15A = "configs/celeba-hq/vq_vae2/sum/mse/config_1.yaml"
+CLI_15A_CUTS = dict(dataset="synthetic-256-1024", epochs=2, save_freq=1,
+                    eval_freq=1, use_wandb=False, pixelcnn_epochs=1,
+                    max_fid_samples=256, max_gen_metrics_samples=256)
+CLI_15A_RESUME = dict(epochs=3, skip_pixelcnn=True, skip_final_metrics=True)
+CLI_15B = "configs/imagenet/vq_vae/sum/mse/config_1.yaml"
+CLI_15B_CUTS = dict(prior_type="pixelsnail", dataset="synthetic-256-128",
+                    batch_size=16, epochs=1, pixelcnn_epochs=1,
+                    skip_final_metrics=True, use_wandb=False,
+                    kv_cache_dtype="f32")
+# latent rows of one 15b batch (16 images of 64 x 64 codes): the
+# nearest-code shape of its training, eval and extraction
+CLI_15B_N = 16 * 64 * 64
+# the loader A/B: epochs of each arm, alternating (host, card, card, host)
+CLI_AB_ORDER = ("host", "device", "device", "host")
+CLI_BENCH_STEPS = 20
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -475,7 +515,8 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(SLICE_N, SLICE_K, SLICE_D), (1000, SLICE_K, SLICE_D),
              (4096, 64, 8), (777, 1000, 128), (EXTRACT_N, SLICE_K, SLICE_D),
-             (V2_TOP_N, SLICE_K, SLICE_D), (V2_BOTTOM_N, SLICE_K, SLICE_D)]
+             (V2_TOP_N, SLICE_K, SLICE_D), (V2_BOTTOM_N, SLICE_K, SLICE_D),
+             (CLI_15B_N, SLICE_K, SLICE_D)]
     worst = 0.0
     for n, k, d in cases:
         z = torch.randn(n, d, generator=gen, device=dev)
@@ -488,10 +529,10 @@ def phase_kernels(torch, nc, dev, peaks) -> dict:
         worst = max(worst, res["max_abs_err"])
     worst = max(worst, check_nearest_ties(torch, nc, dev, gen))
 
-    # stage 1's shape (the row's numbers), then stage 2's extraction shape
-    # and the VQ-VAE-2's top and bottom levels
+    # stage 1's shape (the row's numbers), then stage 2's extraction shape,
+    # the VQ-VAE-2's top and bottom levels and phase 15b's batch
     t = time_nearest(torch, nc, dev, gen, SLICE_N, peaks)
-    for n in (EXTRACT_N, V2_TOP_N, V2_BOTTOM_N):
+    for n in (EXTRACT_N, V2_TOP_N, V2_BOTTOM_N, CLI_15B_N):
         time_nearest(torch, nc, dev, gen, n, peaks)
     return {
         "name": "nearest_code", "route": "cuda",
@@ -1920,6 +1961,298 @@ def phase_stage3(torch, dev, vq, hprior, raster_chunk_s: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the CLI, configs of configs/ from images to final/*
+# ---------------------------------------------------------------------------
+
+def cli_config(path: str, cuts: dict, save_path: str, out: str) -> dict:
+    """Write a copy of a config with ``cuts`` applied to ``out`` (a
+    temporary file; ``configs/`` is never written) and return it."""
+    import yaml
+
+    from movae_tpu_torch import runner
+
+    cfg = runner.load_yaml_config(path)
+    cfg.update(cuts, save_path=save_path)
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return cfg
+
+
+def synthetic_count(dataset: str) -> int:
+    """Train images of a ``synthetic-<size>-<n>`` dataset."""
+    return int(dataset.split("-")[2])
+
+
+def run_tree(save_path: str) -> list:
+    """The run roots under ``save_path`` (one per run), oldest first."""
+    roots = []
+    for dirpath, dirnames, _ in os.walk(save_path):
+        if "checkpoints" in dirnames and "figures" in dirnames:
+            roots.append(dirpath)
+    return sorted(roots)
+
+
+def history(root: str) -> list:
+    with open(os.path.join(root, "wandb_local", "history.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_run_tree(root: str, epochs, prior: bool, finals: bool) -> dict:
+    """The JAX package's run tree under ``root``; returns the final/* values
+    the run logged."""
+    def need(*rel):
+        check(os.path.exists(os.path.join(root, *rel)),
+              f"{root}: missing {os.path.join(*rel)}")
+
+    for e in epochs:
+        for ext in ("pdf", "png"):
+            need("figures", "generated", f"epoch_{e:04d}_random_samples.{ext}")
+            for split in ("test", "train"):
+                need("figures", "reconstructed",
+                     f"epoch_{e:04d}_{split}_samples.{ext}")
+    need("checkpoints", "final_checkpoint.pth")
+    need("checkpoints", "last_checkpoint.pth")
+    keys = set().union(*[set(r) for r in history(root)])
+    check(any(k.startswith("train/") for k in keys)
+          and any(k.startswith("eval/") for k in keys),
+          f"{root}: history.jsonl lacks train/* or eval/*: {sorted(keys)}")
+    if prior:
+        for name in ("best_prior", "final_prior"):
+            need("pixelcnn_prior", "checkpoints", f"{name}.pth")
+        need("figures", "generated", "final_random_samples_with_prior.pdf")
+        cache = os.path.join(root, "codes_cache")
+        check(os.path.isdir(cache) and any(
+            os.path.exists(os.path.join(cache, d, "meta.json"))
+            for d in os.listdir(cache)), f"{root}: no codes_cache")
+        check("prior/loss" in keys, f"{root}: no prior/loss logged")
+    if not finals:
+        return {}
+    final = {k[len("final/"):]: v for r in history(root) for k, v in r.items()
+             if k.startswith("final/")}
+    expected = {"psnr", "ssim", "lpips", "rfid", "gfid", "kid",
+                "inception_score_mean", "inception_score_std", "precision",
+                "recall"}
+    check(expected <= set(final), f"{root}: final/* keys {sorted(final)}")
+    for k, v in final.items():
+        if k in ("precision", "recall"):
+            check(v != v, f"final/{k} is {v}, expected nan")
+        else:
+            check(v == v and abs(v) != float("inf"), f"final/{k} is {v}")
+    return final
+
+
+def loader_ab(torch, dev, results, args) -> dict:
+    """The host ``Loader`` against ``DeviceData`` on the trained model, one
+    epoch per turn in ``CLI_AB_ORDER``, and the host synchronisations a
+    step of each (CUDA's sync debug mode)."""
+    from movae_tpu_torch.data import Loader
+    from movae_tpu_torch.data.device import DeviceData
+    from movae_tpu_torch.moo import AggregatorConfig
+    from movae_tpu_torch.train import loop
+    from movae_tpu_torch.train.step import make_train_step
+    from movae_tpu_torch.utils.logging import StepTimer
+
+    model, state = results["model"], results["state"]
+    train_ds = results["train_loader"].dataset
+    loader = Loader(train_ds, args.batch_size, shuffle=True, seed=1, raw=True)
+    dd = DeviceData(train_ds, args.batch_size, dev, seed=1)
+    step = make_train_step(model, AggregatorConfig(
+        name="sum", num_objectives=len(model.objective_names)),
+        normalize_inputs=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    names = model.objective_names
+
+    def epoch(arm, e, timer=None):
+        if arm == "host":
+            return loop.train_epoch(step, state, loader, dev, gen, 0, None,
+                                    names, timer=timer)
+        return loop.train_epoch_device(dd, step, state, dev, gen, 0, None,
+                                       names, epoch_index=e, timer=timer)
+
+    rates = {"host": [], "device": []}
+    for e, arm in enumerate(CLI_AB_ORDER, 1):
+        timer = StepTimer()
+        epoch(arm, e, timer)
+        rates[arm].append(timer.images_per_sec)
+    steps = len(loader)
+    syncs = {}
+    for arm in ("host", "device"):
+        n, sites = count_syncs(torch, lambda: epoch(arm, 9))
+        syncs[arm] = {"per_step": n / steps, "sites": sites}
+    res = {"images_per_sec": rates, "syncs": syncs, "steps_per_epoch": steps,
+           "device_over_host": statistics.mean(rates["device"])
+           / statistics.mean(rates["host"])}
+    del dd
+    return res
+
+
+def phase_cli(torch, dev, bare: dict) -> dict:
+    """Phase 15: 15a runs CLI_15A through ``runner.yaml_to_args`` and
+    ``main`` in-process (the wall time of each part, launch counts set to 0
+    just before and read just after), checks the run tree and the final/*
+    values, resumes from ``last_checkpoint.pth`` through ``python -m
+    movae_tpu_torch.runner``, then the loader A/B and the port bench; 15b
+    runs CLI_15B with the PixelSNAIL prior. ``bare`` carries this run's
+    bare-step numbers (phases 3 and 7)."""
+    import shutil
+    import tempfile
+
+    from scipy import linalg
+
+    from movae_tpu_torch import main as main_mod
+    from movae_tpu_torch import runner
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.kernels import nearest_code as nc
+    from movae_tpu_torch.train import checkpoint as ckpt_lib
+    from movae_tpu_torch.train import final_metrics as fm
+    from movae_tpu_torch.train import loop
+    from movae_tpu_torch.train import prior as prior_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="movae_cli_")
+    plain_calls = []
+    plain = nc.nearest_code_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return plain(*a, **kw)
+
+    res = {}
+    try:
+        nc.nearest_code_plain = counted_plain
+        # 15a: the VQ-VAE-2 config in-process
+        save_a = os.path.join(tmp, "a")
+        cfg = cli_config(os.path.join(here, CLI_15A), CLI_15A_CUTS, save_a,
+                         os.path.join(tmp, "15a.yaml"))
+        args = main_mod.parse_args(runner.yaml_to_args(cfg))
+        parts = [("dataset", loop, "get_dataset", False),
+                 ("train_epochs", loop, "train_epoch", False),
+                 ("train_epochs", loop, "train_epoch_device", False),
+                 ("eval", loop, "evaluate", False),
+                 ("figures", loop, "_write_figures", False),
+                 ("checkpoint_writes", ckpt_lib, "save_checkpoint", False),
+                 ("extraction", prior_mod, "get_or_extract_codes", False),
+                 ("prior", prior_mod, "train_prior_on_levels", False),
+                 ("final_metrics", fm, "run_final_metrics", False),
+                 ("final_metrics_sqrtm", linalg, "sqrtm", False)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with PartTimer(torch, parts) as timer:
+            results = main_mod.main(args)
+        wall = time.perf_counter() - t0
+        counts_a = dict(LAUNCH_COUNTS)
+        check(counts_a["nearest_code"] > 0 and not plain_calls,
+              f"15a: nearest_code launched {counts_a['nearest_code']} times "
+              f"on the card, its plain version {len(plain_calls)} times")
+        roots = run_tree(save_a)
+        check(len(roots) == 1, f"15a: run roots {roots}")
+        final = check_run_tree(roots[0], (1, 2), prior=True, finals=True)
+        secs = {k: sum(v) for k, v in timer.secs.items()}
+        secs["wall"] = wall
+        # images/s of each epoch (the first pays the process's first steps
+        # at these shapes) and of the loop's own timer over both
+        per_epoch = [synthetic_count(cfg["dataset"]) / t
+                     for t in timer.secs["train_epochs"]]
+        res["15a"] = {
+            "seconds": secs, "final": final, "launches": counts_a,
+            "cli_train_images_per_sec": results["images_per_sec"],
+            "epoch_images_per_sec": per_epoch,
+            "bare_step_images_per_sec": bare["v2_sum_images_per_sec"],
+            "last_epoch_over_bare": per_epoch[-1]
+            / bare["v2_sum_images_per_sec"]}
+        log(f"phase 15a (CLI, {CLI_15A} cut to {json.dumps(CLI_15A_CUTS)}): "
+            f"{json.dumps(res['15a'])}")
+
+        # the resume, through the runner in a subprocess
+        last = ckpt_lib.last_checkpoint_path(roots[0])
+        path_r = os.path.join(tmp, "15a_resume.yaml")
+        cli_config(os.path.join(here, CLI_15A),
+                   dict(CLI_15A_CUTS, **CLI_15A_RESUME, resume=last), save_a,
+                   path_r)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "movae_tpu_torch.runner", "--f", path_r],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        resume_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"15a resume exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        check("at epoch 2" in proc.stdout,
+              f"15a resume did not start at epoch 2: {proc.stdout[-2000:]}")
+        roots_r = [r for r in run_tree(save_a) if r != roots[0]]
+        check(len(roots_r) == 1, f"15a resume: run roots {roots_r}")
+        check_run_tree(roots_r[0], (2, 3), prior=False, finals=False)
+        first = min(r["_step"] for r in history(roots_r[0])
+                    if any(k.startswith("train/") for k in r))
+        steps_a = -(-synthetic_count(cfg["dataset"]) // cfg["batch_size"])
+        check(first == steps_a + 1, f"15a resume: first step logged {first}, "
+              f"expected {steps_a + 1} (the step counter at {steps_a})")
+        res["15a_resume"] = {"seconds": resume_s, "first_step": first,
+                             "stdout_tail": [line for line in
+                                             proc.stdout.splitlines()
+                                             if "images/sec" in line
+                                             or "Resumed" in line]}
+        log(f"phase 15a resume: {json.dumps(res['15a_resume'])}")
+
+        res["loader_ab"] = loader_ab(torch, dev, results, args)
+        log(f"phase 15 loader A/B at 256 px, batch {args.batch_size}: "
+            f"{json.dumps(res['loader_ab'])}")
+        del results
+        torch.cuda.empty_cache()
+
+        proc = subprocess.run(
+            [sys.executable, "-m", "movae_tpu_torch.bench", "--steps",
+             str(CLI_BENCH_STEPS)], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0, f"bench exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(set(line) >= {"metric", "value", "unit", "vs_baseline"},
+              f"bench line {line}")
+        res["bench"] = {"line": line,
+                        "bare_step_images_per_sec":
+                            bare["stage1_sum_images_per_sec"],
+                        "bench_over_bare": line["value"]
+                        / bare["stage1_sum_images_per_sec"]}
+        log(f"phase 15 bench: {json.dumps(res['bench'])}")
+
+        # 15b: PixelSNAIL at L = 4096 through the CLI
+        save_b = os.path.join(tmp, "b")
+        cfg_b = cli_config(os.path.join(here, CLI_15B), CLI_15B_CUTS, save_b,
+                           os.path.join(tmp, "15b.yaml"))
+        args_b = main_mod.parse_args(runner.yaml_to_args(cfg_b))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        main_mod.main(args_b)
+        wall_b = time.perf_counter() - t0
+        counts_b = dict(LAUNCH_COUNTS)
+        steps_b = -(-synthetic_count(cfg_b["dataset"])
+                    // cfg_b["batch_size"])
+        blocks = args_b.pixelsnail_num_blocks
+        check(counts_b["nearest_code"] > 0 and not plain_calls,
+              f"15b: nearest_code {counts_b['nearest_code']} launches, plain "
+              f"version {len(plain_calls)} calls")
+        for k in FLASH_KERNELS:
+            check(counts_b[k] == blocks * steps_b,
+                  f"15b: {k} launched {counts_b[k]} times, expected "
+                  f"{blocks} blocks x {steps_b} prior steps")
+        roots_b = run_tree(save_b)
+        check(len(roots_b) == 1, f"15b: run roots {roots_b}")
+        need = os.path.join(roots_b[0], "pixelsnail_prior", "checkpoints",
+                            "final_prior.pth")
+        check(os.path.exists(need), f"15b: missing {need}")
+        res["15b"] = {"seconds": wall_b, "launches": counts_b}
+        log(f"phase 15b (CLI, {CLI_15B} cut to {json.dumps(CLI_15B_CUTS)}):"
+            f" {json.dumps(res['15b'])}")
+    finally:
+        nc.nearest_code_plain = plain
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -2021,6 +2354,7 @@ def main() -> int:
 
         # the aggregators and the gradient-guided models on their paths;
         # their nearest_code launches join the row
+        bare = {"stage1_sum_images_per_sec": runs[0][0]["images_per_sec"]}
         del runs, state, batches
         aggs = phase_aggregators(torch, dev, args.profile)
         row["launches"] += aggs["nearest_code_launches"]
@@ -2055,6 +2389,7 @@ def main() -> int:
               f"path, expected 2 x ({forwards} forwards + "
               f"{V2_EXTRACT_BATCHES} extraction batches)")
         row["launches"] += v2_launches
+        bare["v2_sum_images_per_sec"] = v2_runs[0][0]["images_per_sec"]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  check_vqvae2_latents(torch, nc, vq2))
         if args.profile:
@@ -2085,6 +2420,12 @@ def main() -> int:
         row["launches"] += stage3["launches"]["nearest_code"]
         del hprior, vq2
         torch.cuda.empty_cache()
+
+        # this slice's path: configs through the port's CLI
+        cli = phase_cli(torch, dev, bare)
+        row["launches"] += cli["launches"]["nearest_code"]
+        for r in flash_rows:
+            r["launches"] += cli["launches"][r["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

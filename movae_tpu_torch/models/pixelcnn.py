@@ -465,6 +465,25 @@ class HierarchicalPixelSNAIL(HierarchicalPrior):
 # Sampling
 # ===========================================================================
 
+def warn_long_seq_dropout(model, h: int, w: int) -> None:
+    """The JAX package's construction-site notice for a PixelSNAIL-family
+    prior with dropout > 0 in "weights" mode on a grid past the dense
+    threshold: there dropout falls on the attention output (the flash
+    path), not on the attention weights as in the reference
+    (pixelcnn_prior.py:126-127)."""
+    L = h * w
+    dropout = float(getattr(model, "dropout", 0.0) or 0.0)
+    if (isinstance(model, (PixelSNAIL, HierarchicalPixelSNAIL))
+            and dropout > 0.0
+            and getattr(model, "attn_dropout_mode", "output") == "weights"
+            and L > DENSE_ATTENTION_MAX_L):
+        print(f"Note: attention grid {h}x{w} (L={L}) exceeds the dense "
+              f"threshold ({DENSE_ATTENTION_MAX_L}); dropout={dropout} is "
+              "applied to the attention output (flash-compatible), not the "
+              "attention weights as in the reference (pixelcnn_prior.py:"
+              "126-127).")
+
+
 def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 

@@ -3,19 +3,24 @@ of ``movae_tpu/train/prior.py``, for the flat priors over a VQ-VAE's codes
 and the hierarchical priors over a VQ-VAE-2's (top, bottom) codes.
 
 Freeze the VQ model, extract its code grids (:func:`extract_codes`, the
-nearest-code CUDA kernel on the card), and train the prior with Adam
-(``pixelcnn_lr``), a cosine over epochs to 1e-6 that steps once per epoch,
-global-norm clipping at 1.0, and the best-epoch-loss rule
-(:func:`train_prior`).
+nearest-code CUDA kernel on the card; cached by ``utils/codes_cache.py``),
+and train the prior with Adam (``pixelcnn_lr``), a cosine over epochs to
+1e-6 that steps once per epoch, global-norm clipping at 1.0, and the
+best-epoch-loss rule. Under a ``save_root`` it writes the reference's
+``<pixelcnn|pixelsnail>_prior/checkpoints/{best,final}_prior.pth`` and a
+resumable ``last_prior.pth`` every epoch, exits 143 on SIGTERM, resumes,
+logs ``prior/loss`` and draws ``prior_sample_every`` sample grids.
 
 Not ported yet, each raising with its ``ROADMAP.md`` item:
 ``grad_accum > 1`` and bf16 compute (Queue 1 item 6), context / pipeline
-parallelism and fsdp (item 13), checkpoints, preemption and resume under a
-``save_root`` and periodic sample figures (item 12).
+parallelism and fsdp (item 13).
 """
 
 from __future__ import annotations
 
+import os
+import sys
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -24,10 +29,16 @@ import torch
 from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
                                              HierarchicalPixelSNAIL,
-                                             PixelCNN, PixelSNAIL)
+                                             PixelCNN, PixelSNAIL,
+                                             warn_long_seq_dropout)
+from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
 from movae_tpu_torch.train.step import preprocess_batch
 from movae_tpu_torch.utils.codes import CodeLoader
+from movae_tpu_torch.utils.codes_cache import get_or_extract_codes
+from movae_tpu_torch.utils.preemption import PreemptionGuard
+
+HIERARCHICAL_ARCHS = ("vq_vae2", "gg_vq_vae2")
 
 
 def _get(args, name: str, default=None):
@@ -98,7 +109,94 @@ def extract_codes(model, normalize_inputs: bool = False,
     return extract
 
 
-def _check_supported(args, save_root: Optional[str]) -> None:
+
+
+def prior_args_echo(args, embedding_dim: Optional[int] = None
+                    ) -> Dict[str, Any]:
+    """Prior hyperparameters echoed into prior checkpoints (``prior_args``),
+    so a loader rebuilds the module without the flags; the JAX package's
+    keys, layout stamp included."""
+    keys = ("prior_type", "pixelcnn_hidden_channels", "pixelcnn_num_layers",
+            "pixelsnail_num_blocks", "pixelsnail_num_res_blocks",
+            "pixelsnail_num_heads", "pixelsnail_dropout", "attention_dropout")
+    echo = {k: _get(args, k) for k in keys if _get(args, k) is not None}
+    # the attention output flattens dim-major, as the reference's does
+    echo["attn_out_layout"] = "dim_major"
+    if embedding_dim is not None:
+        echo["prior_embedding_dim"] = int(embedding_dim)
+    return echo
+
+
+def _count(state: Mapping[str, Any], pattern: str) -> int:
+    i = 0
+    while pattern.format(i) in state:
+        i += 1
+    return i
+
+
+def prior_args_from_state(state: Mapping[str, Any], hierarchical: bool
+                          ) -> Dict[str, Any]:
+    """The shape-inferable prior hyperparameters of a reference prior
+    ``state_dict`` (which carries no args echo); ``num_heads`` is not
+    inferable and comes from the VQ run's args."""
+    p = "prior_top." if hierarchical else ""
+    emb = state["embedding_top.weight" if hierarchical else "embedding.weight"]
+    conv_in = state[("prior_bottom." if hierarchical else "") +
+                    "conv_in.weight"]
+    out = {"prior_embedding_dim": int(emb.shape[1]),
+           "pixelcnn_hidden_channels": int(conv_in.shape[0])}
+    if f"{p}blocks.0.out_conv.weight" in state:
+        out["prior_type"] = "pixelsnail"
+        out["pixelsnail_num_blocks"] = _count(state,
+                                              p + "blocks.{}.out_conv.weight")
+        out["pixelsnail_num_res_blocks"] = _count(
+            state, p + "blocks.0.res_blocks.{}.conv1.weight")
+    else:
+        out["prior_type"] = "pixelcnn"
+    bottom = "prior_bottom." if hierarchical else ""
+    if hierarchical or out["prior_type"] == "pixelcnn":
+        out["pixelcnn_num_layers"] = _count(
+            state, bottom + "res_blocks.{}.conv1.weight")
+    return out
+
+
+def find_prior(model_path: str, model, vq_args) -> Optional[Dict[str, Any]]:
+    """The trained prior beside a model checkpoint
+    (``<save_root>/<pixelcnn|pixelsnail>_prior/checkpoints/{best,final}_
+    prior.pth``, the port's or the reference's), built on the model's
+    device; ``None`` (uniform-code sampling) when there is none."""
+    if not hasattr(model, "num_embeddings"):
+        return None
+    arch = (_get(vq_args, "arch", "") or "").lower()
+    hier = arch in HIERARCHICAL_ARCHS
+    save_root = os.path.dirname(os.path.dirname(os.path.abspath(model_path)))
+    device = next(model.parameters()).device
+    for prior_dir in ("pixelcnn_prior", "pixelsnail_prior"):
+        for name in ("best_prior", "final_prior"):
+            path = os.path.join(save_root, prior_dir, "checkpoints",
+                                f"{name}.pth")
+            if not os.path.isfile(path):
+                continue
+            try:
+                payload = ckpt_lib.load_checkpoint(path)
+                state = payload.get("model_state_dict", payload)
+                p_args = (payload.get("prior_args")
+                          or prior_args_from_state(state, hier))
+                merged = SimpleNamespace(**{**vars(vq_args), **p_args})
+                if "pixelsnail" in prior_dir:
+                    merged.prior_type = "pixelsnail"
+                prior = build_prior(merged, model.num_embeddings, hier,
+                                    getattr(model, "embedding_dim", None))
+                prior.load_state_dict(state, strict=True)
+                print(f"Using prior checkpoint {path} for generation")
+                return {"model": prior.to(device), "params": state,
+                        "hierarchical": hier}
+            except Exception as e:  # the JAX package's rule: report, go on
+                print(f"prior load failed ({path}): {e!r}")
+    return None
+
+
+def _check_supported(args) -> None:
     if int(_get(args, "grad_accum", 1) or 1) > 1:
         raise _not_ported("grad_accum > 1", "Queue 1 item 6")
     if (int(_get(args, "context_parallel", 1) or 1) > 1
@@ -106,21 +204,23 @@ def _check_supported(args, save_root: Optional[str]) -> None:
             or _get(args, "fsdp", False)):
         raise _not_ported("context / pipeline parallelism and fsdp",
                           "Queue 1 item 13")
-    if save_root is not None or _get(args, "prior_resume"):
-        raise _not_ported("prior checkpoints, preemption and resume",
-                          "Queue 1 item 12")
-    if _get(args, "prior_sample_every", 0):
-        raise _not_ported("periodic prior sample figures (train/figures.py)",
-                          "Queue 1 item 12")
 
 
-def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
-                device: DeviceLike = None,
-                step_trace: Optional[List[float]] = None,
-                prior: Optional[torch.nn.Module] = None,
-                save_root: Optional[str] = None) -> Dict[str, Any]:
-    """Train a prior on frozen code grids; returns ``{"model", "params" (the
-    best epoch's state_dict), "hierarchical"}``.
+def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone()
+            for k, v in module.state_dict().items()}
+
+
+def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
+                          device: DeviceLike = None,
+                          step_trace: Optional[List[float]] = None,
+                          prior: Optional[torch.nn.Module] = None,
+                          save_root: Optional[str] = None,
+                          logger=None, resume: Optional[str] = None,
+                          vq_model=None) -> Dict[str, Any]:
+    """Train a prior on frozen code grids; returns ``{"model" (the last
+    epoch's weights), "params" (the best epoch's state_dict on the CPU),
+    "hierarchical"}``.
 
     ``levels``: ``{"codes": (N, H, W) int array}`` for a flat prior, or
     ``{"top": (N, h, w), "bottom": (N, 2h, 2w)}`` for a hierarchical one
@@ -134,11 +234,20 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
     step's CE (the loop syncs with the device once every 8 steps to fetch
     them). Runs on ``cuda`` unless ``device`` says otherwise.
 
+    With ``save_root``: ``best_prior.pth`` on each new best epoch loss,
+    ``last_prior.pth`` (with the optimizer and generator states) after
+    every epoch, ``final_prior.pth`` at the end, SIGTERM -> ``last_prior``
+    and exit 143, ``prior/loss`` to ``logger``, and every
+    ``prior_sample_every`` epochs a sample grid decoded by ``vq_model``.
+    ``resume`` (else ``args.prior_resume``) names a ``last_prior.pth`` to
+    continue from; a path that does not exist is ignored, as in the JAX
+    package.
+
     ``steps_per_dispatch`` is accepted and changes nothing: in JAX it fuses
     k steps into one dispatch with the same numbers, and eager PyTorch has
     no counterpart.
     """
-    _check_supported(args, save_root)
+    _check_supported(args)
     hierarchical = "codes" not in levels
     names = ("top", "bottom") if hierarchical else ("codes",)
     dev = resolve_device(device)
@@ -147,6 +256,8 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
     lr = float(_get(args, "pixelcnn_lr", 3e-4))
     wd = float(_get(args, "pixelcnn_weight_decay", 0.0) or 0.0)
     eps = float(_get(args, "pixelcnn_adam_eps", 1e-8) or 1e-8)
+    prior_type = _get(args, "prior_type", "pixelcnn")
+    sample_every = int(_get(args, "prior_sample_every", 0) or 0)
     loader = CodeLoader({k: np.asarray(levels[k]) for k in names},
                         int(_get(args, "batch_size")), shuffle=True,
                         seed=seed)
@@ -156,6 +267,8 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
                             getattr(model_meta, "embedding_dim", None))
         prior.reset_parameters(torch.Generator().manual_seed(seed))
     prior = prior.to(dev)
+    grid = levels[names[0]]
+    warn_long_seq_dropout(prior, grid.shape[1], grid.shape[2])
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     # the per-epoch cosine: the LR is constant within an epoch
@@ -165,13 +278,37 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
         lr_schedule(lr, "cosine", epochs, spe, lr_min=1e-6),
         weight_decay=wd, max_grad_norm=1.0, eps=eps)
     opt = recipe.init(list(prior.parameters()))
+    echo = prior_args_echo(args, prior.embedding_dim)
 
-    def snapshot() -> Dict[str, torch.Tensor]:
-        return {k: v.detach().clone() for k, v in prior.state_dict().items()}
+    start_epoch, step, best_loss = 1, 0, float("inf")
+    resume = resume or _get(args, "prior_resume")
+    if resume and os.path.exists(resume):
+        payload = ckpt_lib.load_checkpoint(resume)
+        prior.load_state_dict(payload["model_state_dict"])
+        opt.load_state_dict(payload["optimizer_state_dict"])
+        gen.set_state(payload["generator_state"])
+        start_epoch = int(payload.get("epoch") or 0) + 1
+        step = int(payload.get("step") or 0)
+        best_loss = float(payload.get("best_loss", float("inf")))
+        loader.epoch = start_epoch - 1
+        print(f"Resumed prior from {resume} at epoch {start_epoch}")
+    best_params = _cpu_state(prior)
 
-    best_loss, best_params = float("inf"), snapshot()
-    step = 0
-    for epoch in range(1, epochs + 1):
+    guard = PreemptionGuard() if save_root is not None else None
+
+    def save(path: str, epoch_done: int, params, loss: float, **extra):
+        ckpt_lib.save_checkpoint(path, {
+            "epoch": epoch_done, "model_state_dict": params, "loss": loss,
+            "prior_args": echo, **extra})
+
+    def save_last(epoch_done: int, loss: float) -> None:
+        save(ckpt_lib.last_prior_path(save_root, prior_type), epoch_done,
+             _cpu_state(prior), loss, step=step, best_loss=best_loss,
+             optimizer_state_dict=opt.state_dict(),
+             generator_state=gen.get_state())
+
+    avg = float("nan")
+    for epoch in range(start_epoch, epochs + 1):
         total, count = 0.0, 0
         pending = []  # losses fetched in groups, not one sync per step
 
@@ -197,12 +334,112 @@ def train_prior(levels: Mapping[str, np.ndarray], model_meta, args,
             pending.append((loss.detach(), n_valid))
             if len(pending) >= 8:
                 flush()
+            if guard is not None and guard.triggered:
+                break
         flush()
         avg = total / max(count, 1)
+        if guard is not None and guard.triggered:
+            save_last(epoch - 1, avg)
+            guard.uninstall()
+            path = ckpt_lib.last_prior_path(save_root, prior_type)
+            print(f"[movae_tpu_torch] preempted during prior epoch {epoch}: "
+                  f"wrote resumable checkpoint ({path}); exiting 143. "
+                  f"Continue with --resume (main) or --prior_resume {path}",
+                  flush=True)
+            sys.exit(143)
+        if logger is not None and logger.active:
+            logger.log({"prior/loss": avg, "prior/epoch": epoch})
         if avg < best_loss:
-            best_loss, best_params = avg, snapshot()
+            best_loss, best_params = avg, _cpu_state(prior)
+            if save_root is not None:
+                save(ckpt_lib.best_prior_path(save_root, prior_type), epoch,
+                     best_params, best_loss)
+        if save_root is not None:
+            save_last(epoch, avg)
         if epoch % 10 == 0 or epoch == epochs:
             print(f"prior epoch {epoch}/{epochs}: CE={avg:.4f} "
                   f"(best {best_loss:.4f})")
+        if (sample_every and save_root is not None and vq_model is not None
+                and (epoch % sample_every == 0 or epoch == epochs)):
+            _sample_figure(vq_model, args, prior, hierarchical, save_root,
+                           epoch, seed)
+
+    if guard is not None:
+        guard.uninstall()
+        save(ckpt_lib.final_prior_path(save_root, prior_type), epochs,
+             _cpu_state(prior), avg)
     return {"model": prior, "params": best_params,
             "hierarchical": hierarchical}
+
+
+def _sample_figure(vq_model, args, prior, hierarchical: bool, save_root: str,
+                   epoch: int, seed: int) -> None:
+    """A sample grid through the current prior (reference
+    train_prior_vqvae.py ``--sample_every``), from its own generator so the
+    training draws stay those of a run without figures."""
+    from movae_tpu_torch.train import figures as fig_lib
+    from movae_tpu_torch.train.final_metrics import (GEN_SEED_OFFSET,
+                                                     generate_samples)
+
+    try:
+        n = min(int(_get(args, "num_samples", 16) or 16), 16)
+        gen = torch.Generator(device=next(prior.parameters()).device)
+        gen.manual_seed(seed + GEN_SEED_OFFSET)
+        imgs = generate_samples(vq_model, args, {
+            "model": prior, "hierarchical": hierarchical}, gen, n, batch=n)
+        fig_lib.save_sample_grid(imgs, os.path.join(
+            save_root, "figures", "generated", f"prior_epoch_{epoch:04d}.pdf"),
+            bool(_get(args, "normalize_inputs", False)))
+    except Exception as e:  # the JAX package's rule: report, go on
+        print(f"prior sample figure failed: {e!r}")
+
+
+def _train_prior_from_results(results: Mapping[str, Any], args
+                              ) -> Dict[str, Any]:
+    model = results["model"]
+    save_root = results["save_root"]
+    hierarchical = args.arch.lower() in HIERARCHICAL_ARCHS
+    if results.get("prior_levels") is not None:
+        # given code levels: no extraction sweep
+        levels = results["prior_levels"]
+    else:
+        extract = extract_codes(model, results.get("normalize", False),
+                                hierarchical)
+        # a resumed run reads the interrupted run's cache: a new sweep
+        # would draw other flips from the augmenting train loader
+        cache_root = results.get("prior_cache_root") or save_root
+        levels, _ = get_or_extract_codes(
+            extract, results["train_loader"], cache_root, args.arch,
+            args.dataset, model.num_embeddings, model.input_size,
+            hierarchical,
+            force_extract=getattr(args, "prior_force_extract_codes", False),
+            use_cache=getattr(args, "prior_use_lmdb_codes", True))
+    device = results.get("device")
+    if device is None:
+        device = next(model.parameters()).device
+    out = train_prior_on_levels(
+        levels, model, args, device=device,
+        step_trace=results.get("prior_step_trace"), save_root=save_root,
+        logger=results.get("logger"), resume=results.get("prior_resume"),
+        vq_model=model if isinstance(model, torch.nn.Module) else None)
+    # generation uses the best epoch's weights, as in the JAX package
+    out["model"].load_state_dict(out["params"])
+    return out
+
+
+def train_prior(source: Mapping[str, Any], *args, **kwargs
+                ) -> Dict[str, Any]:
+    """The prior stage, in two forms:
+
+    * ``train_prior(results, args)`` — the JAX package's form, after
+      ``run_training``: extract (or read the cached) codes of
+      ``results["model"]`` over ``results["train_loader"]`` (or take
+      ``results["prior_levels"]``), then :func:`train_prior_on_levels`
+      under ``results["save_root"]``; the returned module holds the best
+      epoch's weights.
+    * ``train_prior(levels, model_meta, args, device=..., ...)`` —
+      :func:`train_prior_on_levels` itself.
+    """
+    if "save_root" in source:
+        return _train_prior_from_results(source, *args, **kwargs)
+    return train_prior_on_levels(source, *args, **kwargs)

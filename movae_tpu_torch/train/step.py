@@ -16,7 +16,8 @@ The aggregation mode follows the reference dispatch:
   * ``feature_names`` None -> torchjd ``backward`` (full-parameter Jacobian).
 
 The step updates ``state`` in place and returns it. Metrics are 0-dim
-tensors on the model's device.
+tensors on the model's device. ``make_eval_step`` gives the eval losses
+and the codebook used-masks without gradients.
 """
 
 from __future__ import annotations
@@ -167,3 +168,37 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model, normalize_inputs: bool = False):
+    """Eval step (the JAX package's ``make_eval_step``): ``eval_step(batch,
+    generator=None) -> (metrics, extras, outputs)`` on the model's current
+    weights, without gradients. ``metrics`` holds the weighted objectives
+    and ``total_loss``; ``extras`` the codebook used-masks (``used_mask``,
+    or ``used_mask_top``/``used_mask_bottom``) for exact usage across
+    batches. Every value stays on the model's device."""
+    names = tuple(model.objective_names)
+    num_embeddings = getattr(model, "num_embeddings", 0)
+
+    @torch.no_grad()
+    def eval_step(batch, generator: Optional[torch.Generator] = None):
+        device = next(model.parameters()).device
+        x = preprocess_batch(torch.as_tensor(batch).to(device,
+                                                       non_blocking=True),
+                             normalize_inputs)
+        _, loss_dict, outputs = model.forward_with_losses(
+            x, train=False, generator=generator)
+        metrics = {k: loss_dict[k] for k in names}
+        metrics["total_loss"] = loss_dict["total_loss"]
+        extras = {}
+        if outputs.get("encoding_inds") is not None:
+            extras["used_mask"] = used_codes_mask(outputs["encoding_inds"],
+                                                  num_embeddings)
+        if (outputs.get("encoding_inds_top") is not None
+                and outputs.get("encoding_inds_bottom") is not None):
+            for side in ("top", "bottom"):
+                extras[f"used_mask_{side}"] = used_codes_mask(
+                    outputs[f"encoding_inds_{side}"], num_embeddings)
+        return metrics, extras, outputs
+
+    return eval_step

@@ -5,8 +5,8 @@ Same order as the JAX package's loader: the permutation of epoch e is
 ``np.random.default_rng((seed, e)).permutation(n)``, the last batch wraps
 around the epoch's order to keep a static batch shape, and each batch
 reports how many of its rows are new (``n_valid``). The gather is plain
-numpy indexing. Not ported: the LMDB/npz code cache and the multi-host
-``epoch_len`` (``ROADMAP.md`` Queue 1 items 12 and 13).
+numpy indexing; the code cache is ``utils/codes_cache.py``. Not ported: the
+multi-host ``epoch_len`` (``ROADMAP.md`` Queue 1 item 13).
 """
 
 from __future__ import annotations

@@ -109,8 +109,6 @@ def test_train_prior_locksteps_with_jax(kind, ce_tol, tmp_path):
     (dict(context_parallel=2), "Queue 1 item 13"),
     (dict(pipeline_parallel=2), "Queue 1 item 13"),
     (dict(fsdp=True), "Queue 1 item 13"),
-    (dict(prior_resume="/nonexistent"), "Queue 1 item 12"),
-    (dict(prior_sample_every=1), "Queue 1 item 12"),
     (dict(compute_dtype="bfloat16"), "Queue 1 item 6")])
 def test_unported_options_name_roadmap_item(kw, item):
     from movae_tpu_torch.train.prior import train_prior
@@ -121,9 +119,9 @@ def test_unported_options_name_roadmap_item(kw, item):
                     device="cpu")
 
 
-def test_hierarchical_prior_and_save_root_name_roadmap_items():
+def test_hierarchical_prior_and_save_root_name_roadmap_items(tmp_path):
     """build_prior(hierarchical=True) builds the two-level prior of the
-    prior type; a save_root still names its ROADMAP item."""
+    prior type; a save_root gets the reference's prior checkpoints."""
     from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
                                                  HierarchicalPixelSNAIL)
     from movae_tpu_torch.train.prior import build_prior, train_prior
@@ -138,9 +136,12 @@ def test_hierarchical_prior_and_save_root_name_roadmap_items():
     assert isinstance(cnn, HierarchicalPixelCNN)
     assert cnn.prior_bottom.conditional_channels == D
     meta = types.SimpleNamespace(num_embeddings=K, embedding_dim=D)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        train_prior(make_codes(), meta, prior_args("pixelcnn"), device="cpu",
-                    save_root="/tmp/prior")
+    out = train_prior(make_codes(), meta, prior_args("pixelcnn"),
+                      device="cpu", save_root=str(tmp_path))
+    ckpts = tmp_path / "pixelcnn_prior" / "checkpoints"
+    for name in ("best_prior", "final_prior", "last_prior"):
+        payload = torch.load(ckpts / f"{name}.pth", weights_only=False)
+        assert set(payload["model_state_dict"]) == set(out["params"])
 
 
 def test_build_prior_follows_jax_defaults():
