@@ -110,6 +110,21 @@ Phases, each of which fails the run:
      mse/config_1.yaml with ``prior_type: pixelsnail`` (L = 4096, batch 16:
      CLI_15B_CUTS), counts set to 0 just before and read just after: every
      flash kernel 8 blocks x 8 prior steps, and the nearest-code kernel.
+  16. (after 15) the VAE family, which reaches no kernel of the port:
+     16a the vae of configs/imagenet/gg_vae/mgda/mse/config_1.yaml (the
+     file's arch) and the gg_vae of configs/animal-face/gg_vae/mgda_ln/
+     mse/config_1.yaml at that width (256 px, latent 4096, batch 128),
+     16b configs/cifar100/vae/mgda/mse/config_1.yaml (batch 256), 16c
+     BASELINE.json config 2's betatc_vae (32 px, batch 128), each under
+     sum and its config's aggregator (16c aligned_mtl), not cut: step ms,
+     images/s, host synchronisations a step, peak memory (--profile: busy
+     share, top kernels); 16d card vs CPU locksteps of vae/mgda (3 steps)
+     and cycle_vae, recursive_kl_vae, recursive_cyclic_vae (2 steps), the
+     noise given to both, within 1e-4 (weights, running statistics,
+     counters, losses); 16e configs/celeba-hq/vae/sum/mse/config_1.yaml
+     through ``runner.yaml_to_args`` and ``main`` with 15a's cuts to
+     final/* (generation by model.sample, no prior stage). Launch counts
+     set to 0 just before the phase and read just after: all must be 0.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
@@ -275,6 +290,37 @@ CLI_15B_N = 16 * 64 * 64
 # the loader A/B: epochs of each arm, alternating (host, card, card, host)
 CLI_AB_ORDER = ("host", "device", "device", "host")
 CLI_BENCH_STEPS = 20
+# phase 16: the VAE family. 16a: the model of configs/imagenet/gg_vae/mgda/
+# mse/config_1.yaml (its arch is vae: 2 objectives) and, for the four
+# objectives of a gg_vae at that width, configs/animal-face/gg_vae/mgda_ln/
+# mse/config_1.yaml; both 256 px, hidden 32-512, latent 4096, batch 128,
+# normalized uint8, adam 1e-4 cosine; 16b: configs/cifar100/vae/mgda/mse/
+# config_1.yaml (32 px, hidden 32-128, latent 128, batch 256); 16c: the
+# Beta-TC-VAE of BASELINE.json's config 2 (32 px, the registry's defaults:
+# hidden 32-512, latent 128), batch 128. Each path is driven under sum and
+# under its config's aggregator (16c: aligned_mtl), not cut
+VAE_16A = "configs/imagenet/gg_vae/mgda/mse/config_1.yaml"
+GG_VAE_16A = "configs/animal-face/gg_vae/mgda_ln/mse/config_1.yaml"
+VAE_16B = "configs/cifar100/vae/mgda/mse/config_1.yaml"
+VAE_WARMUP, VAE_TIMED = 3, 10
+BETATC_16C = dict(width=dict(arch="betatc_vae", recons_objective="mse",
+                             batch_size=128, dataset_size=50000),
+                  size=32, batch=128, warmup=VAE_WARMUP, timed=VAE_TIMED,
+                  lr=(1e-3, None, 1, 1), uint8=True, vq=0)
+# 16d: card-vs-CPU locksteps at a small width (16 px, hidden 8/16, latent
+# 8, batch 4) with the N(0, I) draws of each step made once on the host;
+# the anneal counters run over 4 steps
+VAE_DRAWS = {"cycle_vae": ("eps", "z_prior"),
+             "recursive_cyclic_vae": ("eps", "z_prior")}
+VAE_LOCKSTEPS = (("vae", "mgda", 3), ("cycle_vae", "mgda", 2),
+                 ("recursive_kl_vae", "upgrad", 2),
+                 ("recursive_cyclic_vae", "mgda", 2))
+# 16e: configs/celeba-hq/vae/sum/mse/config_1.yaml through the CLI with 15a's
+# cuts (every key changed from the file is a cut)
+CLI_16E = "configs/celeba-hq/vae/sum/mse/config_1.yaml"
+CLI_16E_CUTS = dict(dataset="synthetic-256-1024", epochs=2, save_freq=1,
+                    eval_freq=1, use_wandb=False, max_fid_samples=256,
+                    max_gen_metrics_samples=256)
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -715,7 +761,9 @@ VQVAE2 = dict(width=V2_WIDTH, size=V2_SIZE, batch=V2_BATCH, warmup=V2_WARMUP,
               uint8=True, vq=2)
 
 
-def train_mode(torch, agg: str, dev, path: dict):
+def train_mode(torch, agg: str, dev, path: dict, model=None):
+    """``path``'s model (a fresh one from seed 0, or ``model`` as given)
+    trained under ``agg``: warmup then timed steps, each synchronized."""
     from movae_tpu_torch.kernels import LAUNCH_COUNTS
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.moo import AggregatorConfig, init_state
@@ -724,8 +772,9 @@ def train_mode(torch, agg: str, dev, path: dict):
     from movae_tpu_torch.train.step import make_train_step
 
     size, batch = path["size"], path["batch"]
-    model = init_model(get_network(size, 3, path["width"]), seed=0,
-                       device=dev)
+    if model is None:
+        model = init_model(get_network(size, 3, path["width"]), seed=0,
+                           device=dev)
     cfg = AggregatorConfig(name=agg, num_objectives=len(model.objective_names))
     lr, sched, epochs, spe = path["lr"]
     state = TrainState.create(
@@ -760,8 +809,9 @@ def train_mode(torch, agg: str, dev, path: dict):
               f"{arch} {agg} step {i}: non-finite metric {met}")
         check(met["skipped_nonfinite"] == 0.0,
               f"{arch} {agg} step {i}: non-finite loss or gradient")
-        check("codebook_usage_percentage" in met,
-              f"{arch} {agg} step {i}: codebook_usage_percentage missing")
+        check(("codebook_usage_percentage" in met) == (path["vq"] > 0),
+              f"{arch} {agg} step {i}: codebook_usage_percentage "
+              f"{'missing' if path['vq'] else 'present'}")
     check(launches == path["vq"] * forwards,
           f"{arch} {agg}: nearest_code launched {launches} times in "
           f"{forwards} forwards of {path['vq']} quantizers")
@@ -2253,6 +2303,270 @@ def phase_cli(torch, dev, bare: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the VAE family
+# ---------------------------------------------------------------------------
+
+def vae_path(config: str, warmup: int = VAE_WARMUP,
+             timed: int = VAE_TIMED) -> dict:
+    """A train path with the model, batch, image size and learning rate of
+    a VAE-family YAML of configs/. The registry sets a loss-weight dict's KL
+    weight to batch_size / dataset_size; dataset_size is the train-set size
+    that the file's KL weight implies, so the file's weight is the one
+    used."""
+    from movae_tpu_torch import runner
+    from movae_tpu_torch.data import dataset_input_size
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = runner.load_yaml_config(os.path.join(here, config))
+    lw = dict(cfg["loss_weights"])
+    kld = lw["kld_loss"]
+    width = dict(arch=cfg["arch"], latent_dim=cfg["latent_dim"],
+                 hidden_dims=tuple(cfg["hidden_dims"]), loss_weights=lw,
+                 recons_objective=cfg["recons_objective"],
+                 recons_activation=cfg["recons_activation"],
+                 batch_size=cfg["batch_size"],
+                 dataset_size=cfg["batch_size"] / kld)
+    return dict(width=width, size=dataset_input_size(cfg["dataset"]),
+                batch=cfg["batch_size"], warmup=warmup, timed=timed,
+                lr=(float(cfg["lr"]), cfg.get("scheduler"), cfg["epochs"],
+                    warmup + timed),
+                uint8=bool(cfg.get("normalize_inputs")), vq=0,
+                agg=cfg["aggregator"], config=config)
+
+
+def vae_runs(torch, dev, path: dict, aggs, profile: bool, card: str,
+             init=None) -> tuple:
+    """``path`` under each of ``aggs`` from one init (its weights kept on
+    the card and reloaded before each run): step ms (median), images/s,
+    host synchronisations a step, peak device memory; with ``profile``
+    the busy share and the top kernels. The init is ``init_model``'s from
+    seed 0 (its wall time reported: on the host), or ``init``, a state
+    dict of the same layout. Returns the results and the init."""
+    from movae_tpu_torch.models import get_network, init_model
+
+    t0 = time.perf_counter()
+    if init is None:
+        model = init_model(get_network(path["size"], 3, path["width"]),
+                           seed=0, device=dev)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+    else:
+        with torch.device(dev):
+            model = get_network(path["size"], 3, path["width"])
+        model.load_state_dict(init)
+    torch.cuda.synchronize()
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "init_s": time.perf_counter() - t0, "card": card}
+    for agg in aggs:
+        model.load_state_dict(init)
+        res, (step, state, batches, gen) = train_mode(torch, agg, dev, path,
+                                                      model=model)
+        syncs, sites = count_syncs(torch, lambda: step(state, batches[0],
+                                                       gen))
+        out[agg] = {k: res[k] for k in ("median_step_ms", "min_step_ms",
+                                        "images_per_sec", "peak_mem_gib")}
+        out[agg].update(host_syncs_per_step=syncs, sync_sites=sites,
+                        objectives=len(model.objective_names),
+                        last={k: v for k, v in res["last"].items()
+                              if k.endswith("loss") or "weight" in k})
+        if profile:
+            n = len(batches)
+            profile_device(torch, f"{path['width']['arch']} "
+                           f"{path['size']}px agg={agg}", lambda: [
+                               step(state, batches[i % n], gen)
+                               for i in range(3)], 3, res["median_step_ms"])
+        del state, batches, step
+        torch.cuda.empty_cache()
+    sum_ms = out["sum"]["median_step_ms"]
+    for agg in aggs:
+        out[agg]["over_sum"] = out[agg]["median_step_ms"] / sum_ms
+    del model
+    torch.cuda.empty_cache()
+    return out, init
+
+
+def phase_vae_lockstep(torch, dev, arch: str, agg: str, steps: int) -> dict:
+    """``steps`` steps of ``agg`` from one init on the CPU and on the card
+    at a small width, each step's N(0, I) draws made once on the host and
+    given to both: parameters, BatchNorm running statistics and anneal
+    counters (the whole state_dict) and the losses within 1e-4."""
+    import numpy as np
+
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.train.optim import build_optimizer
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import make_train_step
+
+    width = dict(arch=arch, hidden_dims=(8, 16), latent_dim=8,
+                 layer_norm="batch", anneal_steps=4,
+                 recursive_kld_anneal_steps=4)
+    rng = np.random.default_rng(0)
+    batches = [torch.tensor(rng.uniform(-1, 1, (4, 16, 16, 3)).astype(
+        np.float32)) for _ in range(steps)]
+    noises = [{n: torch.tensor(rng.standard_normal((4, 8)).astype(
+        np.float32)) for n in VAE_DRAWS.get(arch, ("eps",))}
+        for _ in range(steps)]
+    runs = {}
+    for where in ("cpu", dev):
+        model = init_model(get_network(16, 3, width), seed=3, device=where)
+        cfg = AggregatorConfig(name=agg,
+                               num_objectives=len(model.objective_names))
+        state = TrainState.create(model, build_optimizer("adam", 1e-3,
+                                                         eps=1e-4),
+                                  init_state(cfg))
+        step = make_train_step(model, cfg)
+        losses = []
+        for xb, noise in zip(batches, noises):
+            state, met = step(state, xb, noise=noise)
+            losses.append([float(met[k]) for k in
+                           (*model.objective_names, "total_loss")])
+        runs[str(where)] = ({k: v.cpu() for k, v in
+                             model.state_dict().items()}, losses)
+    (cpu_sd, cpu_l), (dev_sd, dev_l) = runs["cpu"], runs[str(dev)]
+    delta = max(float((cpu_sd[k].double() - dev_sd[k].double()).abs().max())
+                for k in cpu_sd)
+    loss_delta = max(abs(a - b) / max(abs(a), 1.0)
+                     for ra, rb in zip(cpu_l, dev_l) for a, b in zip(ra, rb))
+    res = {"arch": arch, "agg": agg, "steps": steps,
+           "max_state_delta": delta, "max_loss_delta": loss_delta,
+           "num_iter": (float(dev_sd["num_iter"]) if "num_iter" in dev_sd
+                        else None),
+           "running_var_moved": float((dev_sd["encoder.0.1.running_var"]
+                                       - 1).abs().max())}
+    log(f"lockstep card vs cpu, {arch} {steps} {agg} steps: "
+        f"{json.dumps(res)}")
+    check(delta < 1e-4 and loss_delta < 1e-4,
+          f"{arch} {agg}: card and CPU differ by {delta:.3e} (state) and "
+          f"{loss_delta:.3e} (losses)")
+    check(res["num_iter"] in (None, float(steps)),
+          f"{arch}: anneal counter {res['num_iter']} after {steps} steps")
+    check(res["running_var_moved"] > 0,
+          f"{arch}: the running statistics did not move")
+    return res
+
+
+def phase_vae_cli(torch, dev) -> dict:
+    """16e: CLI_16E through ``runner.yaml_to_args`` and ``main`` in-process,
+    the wall time of each part; the run tree, finite final/* values
+    (precision and recall nan), no prior stage, and the generated images
+    from ``model.sample``."""
+    import shutil
+    import tempfile
+
+    from scipy import linalg
+
+    from movae_tpu_torch import main as main_mod
+    from movae_tpu_torch import runner
+    from movae_tpu_torch.models import vae as vae_mod
+    from movae_tpu_torch.train import checkpoint as ckpt_lib
+    from movae_tpu_torch.train import final_metrics as fm
+    from movae_tpu_torch.train import loop
+    from movae_tpu_torch.train import prior as prior_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="movae_vae_cli_")
+    sampled = []
+    sample = vae_mod.VAE.sample
+
+    def counted_sample(self, n, generator=None):
+        sampled.append(n)
+        return sample(self, n, generator=generator)
+
+    prior_calls = []
+    train_prior = prior_mod.train_prior
+
+    def counted_prior(*a, **kw):
+        prior_calls.append(1)
+        return train_prior(*a, **kw)
+
+    try:
+        vae_mod.VAE.sample = counted_sample
+        prior_mod.train_prior = counted_prior
+        cfg = cli_config(os.path.join(here, CLI_16E), CLI_16E_CUTS, tmp,
+                         os.path.join(tmp, "16e.yaml"))
+        args = main_mod.parse_args(runner.yaml_to_args(cfg))
+        parts = [("dataset", loop, "get_dataset", False),
+                 ("train_epochs", loop, "train_epoch", False),
+                 ("train_epochs", loop, "train_epoch_device", False),
+                 ("eval", loop, "evaluate", False),
+                 ("figures", loop, "_write_figures", False),
+                 ("checkpoint_writes", ckpt_lib, "save_checkpoint", False),
+                 ("final_metrics", fm, "run_final_metrics", False),
+                 ("final_metrics_generation", fm, "generate_samples", False),
+                 ("final_metrics_sqrtm", linalg, "sqrtm", False)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PartTimer(torch, parts) as timer:
+            results = main_mod.main(args)
+        wall = time.perf_counter() - t0
+        roots = run_tree(tmp)
+        check(len(roots) == 1, f"16e: run roots {roots}")
+        final = check_run_tree(roots[0], (1, 2), prior=False, finals=True)
+        leftovers = [d for d in os.listdir(roots[0])
+                     if d.endswith("_prior") or d == "codes_cache"]
+        check(not prior_calls and not leftovers,
+              f"16e: a prior stage ran ({len(prior_calls)} calls, "
+              f"{leftovers})")
+        gen_n = CLI_16E_CUTS["max_gen_metrics_samples"]
+        check(sum(sampled) >= gen_n,
+              f"16e: model.sample gave {sum(sampled)} images, the "
+              f"generative metrics need {gen_n}")
+        secs = {k: sum(v) for k, v in timer.secs.items()}
+        secs["wall"] = wall
+        res = {"seconds": secs, "final": final,
+               "images_per_sec": results["images_per_sec"],
+               "sampled_images": sum(sampled),
+               "params": sum(p.numel() for p in
+                             results["model"].parameters())}
+        del results
+    finally:
+        vae_mod.VAE.sample = sample
+        prior_mod.train_prior = train_prior
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"phase 16e (CLI, {CLI_16E} cut to {json.dumps(CLI_16E_CUTS)}): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def phase_vae(torch, dev, profile: bool, card: str) -> dict:
+    """Phase 16: 16a-16c train the VAE family's paths, 16d locks card and
+    CPU, 16e runs a config through the CLI. Launch counts are set to 0
+    just before and read just after: this path reaches no kernel of the
+    port, so every count must stay 0."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    t0 = time.perf_counter()
+    count_syncs(torch, lambda: None)  # the debug mode's own first switch
+    reset_launch_counts()
+    res = {}
+    init = None
+    for label, path in (("16a", vae_path(VAE_16A)),
+                        ("16a_gg", vae_path(GG_VAE_16A)),
+                        ("16b", vae_path(VAE_16B)),
+                        ("16c", BETATC_16C)):
+        aggs = ("sum", path.get("agg", "aligned_mtl"))
+        # the gg_vae of 16a has the vae's layout: it starts from its init
+        res[label], init = vae_runs(torch, dev, path, aggs, profile, card,
+                                    init if label == "16a_gg" else None)
+        res[label]["config"] = path.get("config", "BASELINE.json config 2")
+        log(f"phase {label} ({res[label]['config']}, "
+            f"{path['width']['arch']} {path['size']}px batch "
+            f"{path['batch']}): {json.dumps(res[label])}")
+    res["16d"] = [phase_vae_lockstep(torch, dev, arch, agg, steps)
+                  for arch, agg, steps in VAE_LOCKSTEPS]
+    res["16e"] = phase_vae_cli(torch, dev)
+    launches = dict(LAUNCH_COUNTS)
+    check(not any(launches.values()),
+          f"phase 16 launched a kernel of the port: {launches}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 (the VAE family; {card}): {res['seconds']:.1f} s, "
+        f"launches {json.dumps(launches)}")
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -2426,6 +2740,9 @@ def main() -> int:
         row["launches"] += cli["launches"]["nearest_code"]
         for r in flash_rows:
             r["launches"] += cli["launches"][r["name"]]
+
+        # the VAE family: no kernel of the port on its path (every count 0)
+        phase_vae(torch, dev, args.profile, smi[0] if smi else name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

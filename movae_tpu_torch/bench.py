@@ -79,6 +79,15 @@ def bench_sampling(args, device: torch.device) -> dict:
             "vs_baseline": round(px_per_sec / REFERENCE_PX_PER_SEC, 2)}
 
 
+def model_args(args) -> dict:
+    """The registry arguments of ``bench.py``'s model, for any ``--arch``
+    (the VAE family's KL weight is batch_size / 50,000, as there)."""
+    return dict(arch=args.arch, embedding_dim=64, num_embeddings=512,
+                hidden_dims=(128, 256), num_residual_layers=2,
+                batch_size=args.batch_size, dataset_size=50000,
+                recons_objective="mse")
+
+
 def bench_train(args, device: torch.device) -> dict:
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.moo import AggregatorConfig, init_state
@@ -86,10 +95,8 @@ def bench_train(args, device: torch.device) -> dict:
     from movae_tpu_torch.train.state import TrainState
     from movae_tpu_torch.train.step import make_train_step
 
-    model = init_model(get_network(args.input_size, 3, dict(
-        arch=args.arch, embedding_dim=64, num_embeddings=512,
-        hidden_dims=(128, 256), num_residual_layers=2,
-        recons_objective="mse")), seed=0, device=device)
+    model = init_model(get_network(args.input_size, 3, model_args(args)),
+                       seed=0, device=device)
     cfg = AggregatorConfig(name=args.agg,
                            num_objectives=len(model.objective_names))
     state = TrainState.create(

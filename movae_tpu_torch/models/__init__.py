@@ -1,12 +1,17 @@
-"""Model registry — port of ``movae_tpu/models/__init__.py`` for ``vq_vae``,
-``vq_vae2``, ``gg_vq_vae`` / ``gg_vq_vae_v1..v8`` and ``gg_vq_vae2``.
+"""Model registry — port of ``movae_tpu/models/__init__.py``: the VAE
+family (``vae``, ``gg_vae`` / ``gg_vae_v2``, ``_v3``, ``_v5``, ``_v6``,
+``betatc_vae`` / ``btc_vae``, ``cycle_vae``, ``recursive_kl_vae``,
+``recursive_cyclic_vae`` / ``rc_vae``) and the VQ family (``vq_vae``,
+``vq_vae2``, ``gg_vq_vae`` / ``gg_vq_vae_v1..v8``, ``gg_vq_vae2``), with the
+JAX registry's lambda-weight rules, including its KL weight of
+``batch_size / dataset_size``.
 
 The priors (flat and hierarchical) are not in this registry:
 ``movae_tpu_torch/train/prior.py:build_prior`` builds them, as in the JAX
-package.
-
-Other architectures raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports them.
+package. The sphere encoders raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them; any other name raises the JAX
+registry's ``ValueError`` (``gg_vae_v4`` among them: the JAX package builds
+no such model).
 """
 
 from __future__ import annotations
@@ -17,20 +22,30 @@ import torch
 
 from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.models.base import MOVAEModel, resolve_lambda_weights
+from movae_tpu_torch.models.betatc_vae import BetaTCVAE
+from movae_tpu_torch.models.cycle_vae import CycleVAE
+from movae_tpu_torch.models.gg_vae import GGVAE
 from movae_tpu_torch.models.gg_vq_vae import GGVQVAE
 from movae_tpu_torch.models.gg_vq_vae2 import GGVQVAE2
+from movae_tpu_torch.models.recursive_cyclic_vae import RecursiveCyclicVAE
+from movae_tpu_torch.models.recursive_kl_vae import RecursiveKLVAE
+from movae_tpu_torch.models.vae import VAE
 from movae_tpu_torch.models.vq_vae import VQVAE
 from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
-__all__ = ["GGVQVAE", "GGVQVAE2", "VQVAE", "VQVAE2", "MOVAEModel",
-           "get_network", "init_model"]
+__all__ = ["BetaTCVAE", "CycleVAE", "GGVAE", "GGVQVAE", "GGVQVAE2",
+           "RecursiveCyclicVAE", "RecursiveKLVAE", "VAE", "VQVAE", "VQVAE2",
+           "MOVAEModel", "get_network", "init_model"]
 
 _NOT_PORTED = {
     "pixelcnn": "Queue 1 item 8 (the flat priors are built by "
                 "movae_tpu_torch/train/prior.py:build_prior)",
     "pixelsnail": "Queue 1 item 8 (the flat priors are built by "
                   "movae_tpu_torch/train/prior.py:build_prior)",
+    "sphere_encoder": "Queue 1 item 11 (the sphere encoders)",
+    "sphere_encoder_vit": "Queue 1 item 11 (the sphere encoders)",
 }
+GG_VAE_ARCHS = ("gg_vae", "gg_vae_v2", "gg_vae_v3", "gg_vae_v5", "gg_vae_v6")
 
 
 def _get(args, name, default=None):
@@ -41,16 +56,99 @@ def _get(args, name, default=None):
     return getattr(args, name, default)
 
 
-def _weights(lambda_weights, names, defaults):
-    """Normalize user weights (dict or positional list, validated strictly)."""
-    if lambda_weights is None or isinstance(lambda_weights, Mapping):
-        return resolve_lambda_weights(names, lambda_weights, defaults)
+def _weights(lambda_weights, names, defaults, kld_key=None, kld_value=None,
+             kld_force=True, kld_list_override=None):
+    """Normalize user weights (dict or positional list, validated
+    strictly). ``kld_key`` names the KL-type weight, which becomes
+    ``kld_value`` (batch_size / dataset_size): always in a dict with
+    ``kld_force``, only when missing from it without (the reference's
+    setdefault for recursive_cyclic_vae); in a positional list only with
+    ``kld_list_override`` (default ``kld_force``: vae and betatc override
+    the list's KL slot, gg_vae and recursive_kl_vae pass lists through)."""
+    if kld_list_override is None:
+        kld_list_override = kld_force
+    if isinstance(lambda_weights, Mapping):
+        lw = dict(lambda_weights)
+        if kld_key is not None:
+            if kld_force:
+                lw[kld_key] = kld_value
+            else:
+                lw.setdefault(kld_key, kld_value)
+        return resolve_lambda_weights(names, lw, defaults)
+    if lambda_weights is None:
+        d = dict(defaults)
+        if kld_key is not None:
+            d[kld_key] = kld_value
+        return resolve_lambda_weights(names, None, d)
     lw = list(lambda_weights)
     if len(lw) != len(names):
         raise ValueError(
             f"requires {len(names)} lambda_weights {tuple(names)}, "
             f"got {len(lw)}")
-    return resolve_lambda_weights(names, dict(zip(names, lw)), defaults)
+    items = dict(zip(names, lw))
+    if kld_key is not None and kld_list_override:
+        items[kld_key] = kld_value
+    return resolve_lambda_weights(names, items, defaults)
+
+
+def _vae_family(arch: str, input_size: int, num_channels: int, args,
+                lambda_weights, common: dict) -> MOVAEModel:
+    """The VAE-family branches of the JAX registry."""
+    kld_w = _get(args, "batch_size", 128) / _get(args, "dataset_size", 50000)
+    kw = dict(latent_dim=_get(args, "latent_dim", 128),
+              hidden_dims=tuple(_get(args, "hidden_dims",
+                                     (32, 64, 128, 256, 512))),
+              input_size=input_size, in_channels=num_channels, **common)
+    perceptual_fn = kw.pop("perceptual_fn")
+    recursive_steps = _get(args, "recursive_kld_anneal_steps", 25000)
+    if arch == "betatc_vae" or arch == "btc_vae":
+        names = ("reconstruction_loss", "mi_loss", "tc_loss", "kld")
+        lw = _weights(lambda_weights, names,
+                      {"reconstruction_loss": 1.0, "mi_loss": 1.0,
+                       "tc_loss": 1.0, "kld": kld_w}, "kld", kld_w)
+        return BetaTCVAE(anneal_steps=_get(args, "anneal_steps", 200) or 200,
+                         dataset_size=_get(args, "dataset_size", 50000),
+                         lambda_weights=lw, perceptual_fn=perceptual_fn,
+                         **kw)
+    kw["layer_norm"] = _get(args, "layer_norm", "batch")
+    if arch == "vae":
+        names = ("reconstruction_loss", "kld_loss")
+        lw = _weights(lambda_weights, names,
+                      {"reconstruction_loss": 1.0, "kld_loss": kld_w},
+                      "kld_loss", kld_w)
+        return VAE(lambda_weights=lw, perceptual_fn=perceptual_fn, **kw)
+    if arch == "recursive_kl_vae":
+        names = ("reconstruction_loss", "recursive_kld_loss")
+        lw = _weights(lambda_weights, names,
+                      {"reconstruction_loss": 1.0,
+                       "recursive_kld_loss": kld_w},
+                      "recursive_kld_loss", kld_w, kld_list_override=False)
+        return RecursiveKLVAE(lambda_weights=lw,
+                              recursive_kld_anneal_steps=recursive_steps,
+                              **kw)
+    if arch == "cycle_vae":
+        names = ("reconstruction_loss", "cycle_loss")
+        lw = _weights(lambda_weights, names,
+                      {"reconstruction_loss": 1.0, "cycle_loss": kld_w})
+        return CycleVAE(lambda_weights=lw, **kw)
+    if arch in ("recursive_cyclic_vae", "rc_vae"):
+        names = ("reconstruction_loss", "recursive_kld_loss", "cycle_loss")
+        lw = _weights(lambda_weights, names,
+                      {"reconstruction_loss": 1.0,
+                       "recursive_kld_loss": kld_w, "cycle_loss": kld_w},
+                      "recursive_kld_loss", kld_w, kld_force=False)
+        return RecursiveCyclicVAE(lambda_weights=lw,
+                                  recursive_kld_anneal_steps=recursive_steps,
+                                  **kw)
+    # gg_vae, gg_vae_v2/3/5/6
+    names = ("reconstruction_loss", "kld_loss", "gradient_guided_loss",
+             "edge_matching_loss")
+    lw = _weights(lambda_weights, names,
+                  {"reconstruction_loss": 1.0, "kld_loss": kld_w,
+                   "gradient_guided_loss": 1.0, "edge_matching_loss": 1.0},
+                  "kld_loss", kld_w, kld_list_override=False)
+    version = 1 if arch == "gg_vae" else int(arch.rsplit("v", 1)[-1])
+    return GGVAE(lambda_weights=lw, edge_matching_version=version, **kw)
 
 
 def get_network(input_size: int, num_channels: int = 3, args: Any = None
@@ -58,11 +156,16 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     """Build a model from an args namespace/dict. The module's weights are
     not initialized yet: call :func:`init_model`."""
     arch = (_get(args, "arch", "vae") or "vae").lower()
-    if arch not in ("vq_vae", "vq_vae2") and not arch.startswith("gg_vq_vae"):
-        item = _NOT_PORTED.get(arch, "Queue 1 item 11 (rest of the model zoo)")
+    if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to movae_tpu_torch yet: "
-            f"ROADMAP.md {item}")
+            f"ROADMAP.md {_NOT_PORTED[arch]}")
+    vae_family = arch in (*GG_VAE_ARCHS, "vae", "betatc_vae", "btc_vae",
+                          "cycle_vae", "recursive_kl_vae",
+                          "recursive_cyclic_vae", "rc_vae")
+    if not (vae_family or arch in ("vq_vae", "vq_vae2")
+            or arch.startswith("gg_vq_vae")):
+        raise ValueError(f"Network architecture {arch} not supported")
     dtype = _get(args, "compute_dtype", "float32")
     if dtype not in ("float32", torch.float32):
         raise NotImplementedError(
@@ -86,6 +189,12 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
         recons_activation = "sigmoid" if recons_objective == "bce" else "tanh"
     lambda_weights = (_get(args, "loss_weights", None)
                       or _get(args, "lambda_weights", None))
+    if vae_family:
+        return _vae_family(arch, input_size, num_channels, args,
+                           lambda_weights, dict(
+                               recons_objective=recons_objective,
+                               recons_activation=recons_activation,
+                               perceptual_fn=perceptual_fn))
     vq_ema = bool(_get(args, "vq_ema", False))
     # EMA maintains the codebooks; the gradient-free embedding loss leaves
     # the objective vector

@@ -8,15 +8,18 @@ Every model follows the same contract as the JAX zoo:
   * ``feature_names``: names of the forward outputs at which the shared
     trunk ends, or ``None`` to force full-parameter Jacobians.
   * ``trunk(x, train)`` -> (features tuple, aux).
-  * ``heads(features, aux, x, train, generator, restart_rows)`` -> outputs
-    dict, differentiable w.r.t. both the features and the head parameters.
+  * ``heads(features, aux, x, train, generator, restart_rows, noise)`` ->
+    outputs dict, differentiable w.r.t. both the features and the head
+    parameters.
   * ``forward(x, train)`` = heads(trunk(x)).
 
 Images are NHWC at this interface. ``train`` is an explicit argument as in
 the JAX package (not ``nn.Module.train()``), and randomness comes from an
 explicit ``torch.Generator``. ``restart_rows`` maps an EMA codebook's module
 name to the (K,) latent rows its dead-code restart reads, in place of a draw
-from ``generator`` (so a test can give both frameworks the same rows).
+from ``generator`` (so a test can give both frameworks the same rows);
+``noise`` does the same for the VAE family's N(0, I) draws, by name
+(``eps``, ``z_prior``: ``models/vae.py:draw_normal``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 
 Tensor = torch.Tensor
 RestartRows = Optional[Mapping[str, Tensor]]
+Noise = Optional[Mapping[str, Tensor]]
 LambdaWeights = Tuple[Tuple[str, float], ...]
 
 
@@ -98,15 +102,17 @@ class MOVAEModel(nn.Module):
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,
-              restart_rows: RestartRows = None) -> Dict[str, Any]:
+              restart_rows: RestartRows = None,
+              noise: Noise = None) -> Dict[str, Any]:
         raise NotImplementedError
 
     def forward(self, x: Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                restart_rows: RestartRows = None) -> Dict[str, Any]:
+                restart_rows: RestartRows = None,
+                noise: Noise = None) -> Dict[str, Any]:
         features, aux = self.trunk(x, train=train)
         return self.heads(features, aux, x, train=train, generator=generator,
-                          restart_rows=restart_rows)
+                          restart_rows=restart_rows, noise=noise)
 
     def loss_terms(self, x: Tensor, outputs: Dict[str, Any]
                    ) -> Dict[str, Tensor]:
@@ -120,20 +126,23 @@ class MOVAEModel(nn.Module):
 
     def forward_with_losses(self, x: Tensor, train: bool = False,
                             generator: Optional[torch.Generator] = None,
-                            restart_rows: RestartRows = None):
+                            restart_rows: RestartRows = None,
+                            noise: Noise = None):
         """One-shot forward + weighted component losses: returns
         ``(loss_vec, loss_dict, outputs)``; ``loss_dict`` carries
         ``total_loss`` (the sum of ``loss_vec``) as well."""
         return self._with_total(x, self(x, train=train, generator=generator,
-                                         restart_rows=restart_rows))
+                                         restart_rows=restart_rows,
+                                         noise=noise))
 
     def heads_with_losses(self, features, aux, x: Tensor, train: bool = False,
                           generator: Optional[torch.Generator] = None,
-                          restart_rows: RestartRows = None):
+                          restart_rows: RestartRows = None,
+                          noise: Noise = None):
         """Heads + losses, differentiable w.r.t. ``features``."""
         return self._with_total(
             x, self.heads(features, aux, x, train=train, generator=generator,
-                          restart_rows=restart_rows))
+                          restart_rows=restart_rows, noise=noise))
 
     def sample(self, num_samples: int,
                generator: Optional[torch.Generator] = None) -> Tensor:

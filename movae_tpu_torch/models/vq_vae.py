@@ -27,7 +27,8 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
-                                         RestartRows, resolve_activation)
+                                         Noise, RestartRows,
+                                         resolve_activation)
 from movae_tpu_torch.ops import vq as vq_ops
 
 Tensor = torch.Tensor
@@ -241,7 +242,8 @@ class VQVAE(MOVAEModel):
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,
-              restart_rows: RestartRows = None) -> Dict[str, Any]:
+              restart_rows: RestartRows = None,
+              noise: Noise = None) -> Dict[str, Any]:
         (encoding,) = features
         vq_out = vq_ops.vector_quantize(encoding, self.vq_layer())
         out = {

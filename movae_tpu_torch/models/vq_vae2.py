@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
-from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
+from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
                                          RestartRows, resolve_activation)
 from movae_tpu_torch.models.vq_vae import Codebook, reset_conv_parameters
 from movae_tpu_torch.ops import vq as vq_ops
@@ -191,7 +191,8 @@ class VQVAE2(MOVAEModel):
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,
-              restart_rows: RestartRows = None) -> Dict[str, Any]:
+              restart_rows: RestartRows = None,
+              noise: Noise = None) -> Dict[str, Any]:
         enc_t, enc_b = features
         qt_in = _nhwc(self.quantize_conv_t(_nchw(enc_t)))
         vq_t = vq_ops.vector_quantize(qt_in, self.quantize_t())

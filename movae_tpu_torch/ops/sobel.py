@@ -1,6 +1,6 @@
-"""Sobel edge losses of the gradient-guided VQ models — port of
-``movae_tpu/ops/sobel.py`` (its GG-VQ-VAE table; the GG-VAE table goes with
-that model family).
+"""Sobel edge losses of the gradient-guided models — port of
+``movae_tpu/ops/sobel.py`` with both of its version tables (GG-VAE and
+GG-VQ-VAE).
 
 Images are NHWC at the public functions, as in the JAX package; the
 depthwise 3x3 Sobel convolutions run NCHW inside (zero padding 1, the JAX
@@ -122,6 +122,16 @@ def edge_matching_binary(inputs: Tensor, recons: Tensor) -> Tensor:
     pe = (_mag(rgx, rgy) > 0.5).float()
     return ((pe - te) ** 2).mean()
 
+
+# GG-VAE arch version -> edge-matching loss; the registry builds no v4, and
+# GGVAE falls back to the magnitude loss for a version missing here
+GG_VAE_EDGE_FNS = {
+    1: edge_matching_magnitude,
+    2: edge_matching_normalized,
+    3: edge_matching_angle,
+    5: edge_matching_cosine,
+    6: edge_matching_binary,
+}
 
 # GG-VQ-VAE arch version -> edge-matching loss (v1 has none)
 GG_VQVAE_EDGE_FNS = {

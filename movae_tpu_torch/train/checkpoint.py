@@ -6,12 +6,15 @@ paths: ``<save_root>/checkpoints/final_checkpoint.pth`` holds ``{epoch,
 model_state_dict, args, train_losses, eval_losses, best_eval_loss}``, and
 ``<save_root>/<pixelcnn|pixelsnail>_prior/checkpoints/{best,final}_prior.pth``
 hold ``{epoch, model_state_dict, loss}``. ``model_state_dict`` has exactly
-the reference's keys (the layout of ``utils/weights.py``), so the JAX
-package reads these files unchanged (``movae_tpu/train/checkpoint.py:
-load_checkpoint`` and ``movae_tpu/train/prior.py:find_prior``). Keys the
-reference lacks ride beside it: the EMA codebook statistics under
-``ema_state``, and in the resumable ``last_checkpoint.pth`` /
-``last_prior.pth`` the optimizer, aggregator and generator states.
+the reference's keys (the layout of ``utils/weights.py``; BatchNorm running
+statistics included), so the JAX package reads these files unchanged
+(``movae_tpu/train/checkpoint.py:load_checkpoint``,
+``movae_tpu/utils/torch_import.py:load_reference_checkpoint`` and
+``movae_tpu/train/prior.py:find_prior``). State the reference lacks rides
+beside it under ``ema_state`` (named for its first use): the EMA codebook
+statistics and the anneal counters (``num_iter``), so a resume continues
+them; the resumable ``last_checkpoint.pth`` / ``last_prior.pth`` add the
+optimizer, aggregator and generator states.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 
 # state_dict entries of the port's modules that the reference's layout
-# lacks: the EMA codebook's running statistics
-EMA_SUFFIXES = (".cluster_size", ".ema_embed")
+# lacks: the EMA codebook's running statistics and the anneal counters
+EXTRA_SUFFIXES = (".cluster_size", ".ema_embed", "num_iter")
 _PLAIN = (int, float, str, bool, list, dict, type(None), tuple)
 
 
@@ -31,19 +34,23 @@ def split_state_dict(module: torch.nn.Module
                      ) -> Tuple[Dict[str, torch.Tensor],
                                 Dict[str, torch.Tensor]]:
     """``(reference, extra)``: the module's state on the CPU, split into the
-    reference's keys and the EMA statistics."""
+    reference's keys and the rest (``EXTRA_SUFFIXES``)."""
     ref, extra = {}, {}
     for k, v in module.state_dict().items():
-        (extra if k.endswith(EMA_SUFFIXES) else ref)[k] = (
+        (extra if k.endswith(EXTRA_SUFFIXES) else ref)[k] = (
             v.detach().cpu().clone())
     return ref, extra
 
 
 def load_module_state(module: torch.nn.Module,
                       payload: Mapping[str, Any]) -> None:
-    """Load ``model_state_dict`` plus any ``ema_state`` strictly."""
+    """Load ``model_state_dict`` plus any ``ema_state`` strictly. A file
+    without the model's anneal counter (the reference's or the JAX
+    package's) starts it at 0, as the JAX importer does."""
     state = dict(payload["model_state_dict"])
     state.update(payload.get("ema_state") or {})
+    if "num_iter" in module.state_dict():
+        state.setdefault("num_iter", torch.zeros(()))
     module.load_state_dict(state, strict=True)
 
 

@@ -1,10 +1,11 @@
 """The train step — port of ``movae_tpu/train/step.py``.
 
 ``make_train_step(model, agg_cfg, ...)`` returns ``train_step(state, batch,
-generator, restart_rows, agg_draws) -> (state, metrics)``: forward, the
-multi-objective Jacobian, Gramian and aggregator solve, gradient combination
-and the optimizer update. ``generator`` draws the EMA codebooks' dead-code
-restarts and the aggregator's random choices; ``restart_rows``
+generator, restart_rows, agg_draws, noise) -> (state, metrics)``: forward,
+the multi-objective Jacobian, Gramian and aggregator solve, gradient
+combination and the optimizer update. ``generator`` draws the EMA
+codebooks' dead-code restarts, the VAE family's N(0, I) noise and the
+aggregator's random choices; ``restart_rows`` and ``noise``
 (``movae_tpu_torch/models/base.py``) and ``agg_draws`` (``use_pairwise``,
 ``perms``: ``movae_tpu_torch/moo/aggregators.py:compute_weights``) give
 them instead.
@@ -26,7 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from movae_tpu_torch.models.base import RestartRows
+from movae_tpu_torch.models.base import Noise, RestartRows
 from movae_tpu_torch.moo import aggregators as agg_lib
 from movae_tpu_torch.moo import engine
 from movae_tpu_torch.ops.vq import used_codes_mask
@@ -75,7 +76,8 @@ def make_train_step(
 
     With ``guard_nonfinite`` a non-finite loss or gradient leaves every part
     of the state untouched — parameters, optimizer moments and step counts,
-    the step counter, batch statistics and aggregator state: finiteness is
+    the step counter, batch statistics (BatchNorm running statistics, EMA
+    codebooks, anneal counters) and aggregator state: finiteness is
     checked (one host synchronisation) before ``optimizer.step()``, which is
     skipped on a bad step.
     """
@@ -96,7 +98,8 @@ def make_train_step(
     def train_step(state: TrainState, batch: Tensor,
                    generator: Optional[torch.Generator] = None,
                    restart_rows: RestartRows = None,
-                   agg_draws: Optional[Dict[str, Tensor]] = None):
+                   agg_draws: Optional[Dict[str, Tensor]] = None,
+                   noise: Noise = None):
         params = state.params
         device = params[0].device
         x = preprocess_batch(batch.to(device, non_blocking=True),
@@ -105,7 +108,7 @@ def make_train_step(
         if mode == "sum":
             _, loss_dict, outputs = state.model.forward_with_losses(
                 x, train=True, generator=generator,
-                restart_rows=restart_rows)
+                restart_rows=restart_rows, noise=noise)
             grads = engine.grads_or_zeros(loss_dict["total_loss"], params)
             alpha = torch.ones(m, dtype=torch.float32, device=device)
             similarity = torch.ones((), dtype=torch.float32, device=device)
@@ -117,7 +120,7 @@ def make_train_step(
                 def loss_tuple_fn():
                     _, ld, out = state.model.forward_with_losses(
                         x, train=True, generator=generator,
-                        restart_rows=restart_rows)
+                        restart_rows=restart_rows, noise=noise)
                     return tuple(ld[k] for k in names), (ld, out)
 
                 loss_vec, (loss_dict, outputs), J, G = engine.full_jacobian(
@@ -133,7 +136,7 @@ def make_train_step(
                 def heads_fn(features, t_aux):
                     _, ld, out = state.model.heads_with_losses(
                         features, t_aux, x, train=True, generator=generator,
-                        restart_rows=restart_rows)
+                        restart_rows=restart_rows, noise=noise)
                     return tuple(ld[k] for k in names), (ld, out)
 
                 fj = engine.FeatureJacobian(trunk_fn, heads_fn, params, m)

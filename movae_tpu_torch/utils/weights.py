@@ -3,9 +3,9 @@
 The JAX package's flax trees come in as nested dicts of numpy arrays; they
 are mapped onto the reference-torch ``state_dict`` layout — the layout of
 ``movae_tpu/utils/torch_export.py:export_torch_state_dict``, of which this is
-a self-contained copy for ``vq_vae``, ``vq_vae2``, ``pixelcnn``,
-``pixelsnail`` and the hierarchical priors — and loaded strictly. No JAX
-needed.
+a self-contained copy for the VAE family, ``betatc_vae``, ``vq_vae``,
+``vq_vae2``, ``pixelcnn``, ``pixelsnail`` and the hierarchical priors — and
+loaded strictly. No JAX needed.
 
 The metric towers' converted ``.npz`` files (the layout of
 ``movae_tpu/metrics/{inception,vgg}.py:convert_torch_weights``) load through
@@ -72,6 +72,47 @@ class _Mapper:
         if bias:
             self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
 
+    def dense(self, tprefix: str, fpath: str) -> None:
+        self.state[tprefix + ".weight"] = np.transpose(
+            self.take(fpath + "/kernel"))
+        self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
+
+    def dense_from_flat(self, tprefix: str, fpath: str, c: int, s: int
+                        ) -> None:
+        """A dense layer reading a flattened (s, s, c) NHWC map -> a torch
+        Linear reading the (c, s, s) NCHW flattening."""
+        k = np.transpose(self.take(fpath + "/kernel"))  # (out, s*s*c)
+        self.state[tprefix + ".weight"] = k.reshape(
+            k.shape[0], s, s, c).transpose(0, 3, 1, 2).reshape(k.shape[0], -1)
+        self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
+
+    def dense_to_flat(self, tprefix: str, fpath: str, c: int, s: int
+                      ) -> None:
+        """A dense layer writing a flattened (s, s, c) map -> a torch
+        Linear writing the (c, s, s) flattening."""
+        k = np.transpose(self.take(fpath + "/kernel"))  # (s*s*c, in)
+        self.state[tprefix + ".weight"] = k.reshape(
+            s, s, c, -1).transpose(2, 0, 1, 3).reshape(-1, k.shape[1])
+        self.state[tprefix + ".bias"] = self.take(fpath + "/bias").reshape(
+            s, s, c).transpose(2, 0, 1).reshape(-1)
+
+    def norm(self, tprefix: str, fpath: str) -> None:
+        """BatchNorm (with its running statistics, ``num_batches_tracked``
+        0) or LayerNorm: scale -> weight, bias -> bias."""
+        self.state[tprefix + ".weight"] = self.take(fpath + "/scale")
+        self.state[tprefix + ".bias"] = self.take(fpath + "/bias")
+        if fpath + "/mean" in self.stats:
+            self.state[tprefix + ".running_mean"] = self.take(fpath + "/mean")
+            self.state[tprefix + ".running_var"] = self.take(fpath + "/var")
+            self.state[tprefix + ".num_batches_tracked"] = np.zeros(
+                (), np.int64)
+
+    def flat_geometry(self, last_conv: str, head: str) -> Tuple[int, int]:
+        """(c, s) of the map a dense ``head`` flattens."""
+        c = int(self.params[last_conv + "/kernel"].shape[3])
+        flat = int(self.params[head + "/kernel"].shape[0])
+        return c, int(round((flat // c) ** 0.5))
+
     def dense_as_1x1(self, tprefix: str, fpath: str) -> None:
         """flax Dense (in, out) -> torch 1x1 Conv2d (out, in, 1, 1)."""
         self.state[tprefix + ".weight"] = np.transpose(
@@ -83,6 +124,58 @@ class _Mapper:
         if left:
             raise KeyError(f"unmapped flax leaves: {left[:10]}")
         return self.state
+
+
+def vae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                   ) -> Dict[str, np.ndarray]:
+    """flax ``vae`` / ``gg_vae*`` / ``cycle_vae`` / ``recursive_kl_vae`` /
+    ``recursive_cyclic_vae`` (params, batch_stats) -> reference-torch
+    state_dict (numpy values), in the key order of ``_export_vae``, at any
+    ``layer_norm``. The anneal counter ``num_iter`` is dropped, as the
+    exporter drops it."""
+    mp = _Mapper(params, batch_stats)
+    H = _count(mp.params, "enc_conv_{}/kernel")
+    norm = "enc_norm_0/scale" in mp.params
+    c, s = mp.flat_geometry(f"enc_conv_{H - 1}", "mu")
+    for i in range(H):
+        mp.conv(f"encoder.{i}.0", f"enc_conv_{i}")
+        if norm:
+            mp.norm(f"encoder.{i}.1", f"enc_norm_{i}")
+    mp.dense_from_flat("mu", "mu", c, s)
+    mp.dense_from_flat("log_var", "log_var", c, s)
+    mp.dense_to_flat("decoder_input", "decoder_input", c, s)
+    for i in range(H - 1):
+        mp.conv(f"decoder.{1 + i}.0", f"dec_deconv_{i}", transpose=True)
+        if norm:
+            mp.norm(f"decoder.{1 + i}.1", f"dec_norm_{i}")
+    mp.conv("final_layer.0", "final_deconv", transpose=True)
+    if norm:
+        mp.norm("final_layer.1", "final_norm_0")
+    mp.conv("final_layer.3", "final_conv")
+    mp.stats.pop("num_iter", None)
+    return mp.finish()
+
+
+def betatc_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                      ) -> Dict[str, np.ndarray]:
+    """flax ``betatc_vae`` (params, batch_stats) -> reference-torch
+    state_dict (numpy values), in the key order of ``_export_betatc``; the
+    anneal counter ``num_iter`` is dropped, as the exporter drops it."""
+    mp = _Mapper(params, batch_stats)
+    H = _count(mp.params, "enc_conv_{}/kernel")
+    c, s = mp.flat_geometry(f"enc_conv_{H - 1}", "fc")
+    for i in range(H):
+        mp.conv(f"encoder.{i}.0", f"enc_conv_{i}")
+    mp.dense_from_flat("fc", "fc", c, s)
+    mp.dense("fc_mu", "fc_mu")
+    mp.dense("fc_var", "fc_var")
+    mp.dense_to_flat("decoder_input", "decoder_input", c, s)
+    for i in range(H - 1):
+        mp.conv(f"decoder.{i}.0", f"dec_deconv_{i}", transpose=True)
+    mp.conv("final_layer.0", "final_deconv", transpose=True)
+    mp.conv("final_layer.2", "final_conv")
+    mp.stats.pop("num_iter", None)
+    return mp.finish()
 
 
 def vqvae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
@@ -260,14 +353,24 @@ def load_jax_prior_params(model: torch.nn.Module, params: Mapping
 def load_jax_params(model: MOVAEModel, params: Mapping,
                     batch_stats: Optional[Mapping] = None) -> MOVAEModel:
     """Copy a flax param tree (nested dicts of numpy arrays) and its
-    batch_stats into ``model`` (``VQVAE`` or ``VQVAE2``) in place, strictly;
-    returns the model."""
+    batch_stats into ``model`` (any model of the registry) in place,
+    strictly; returns the model. An anneal counter ``num_iter`` comes from
+    ``batch_stats`` (0 when absent)."""
+    from movae_tpu_torch.models.betatc_vae import BetaTCVAE
+    from movae_tpu_torch.models.vae import VAE
     from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
     if isinstance(model, VQVAE2):
         state = vqvae2_state_dict(params, batch_stats, ema_stats=model.vq_ema)
+    elif isinstance(model, BetaTCVAE):
+        state = betatc_state_dict(params, batch_stats)
+    elif isinstance(model, VAE):
+        state = vae_state_dict(params, batch_stats)
     else:
         state = vqvae_state_dict(params, batch_stats)
+    if "num_iter" in model.state_dict():
+        state["num_iter"] = np.asarray((batch_stats or {}).get("num_iter", 0),
+                                       np.float32)
     _load_strict(model, state)
     return model
 

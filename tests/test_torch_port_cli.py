@@ -228,6 +228,68 @@ def test_bench_prints_one_json_line():
     assert line["device"] == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["vq_vae", "vae", "gg_vae_v2",
+                                  "betatc_vae", "cycle_vae"])
+def test_bench_builds_the_model_of_bench_py(arch):
+    """``--arch`` through the registry alone: the model of the repo's
+    ``bench.py`` (its ``model_args``, bench.py:141-148, float32), with the
+    same class, objectives, lambda weights and parameter count."""
+    from movae_tpu.models import get_network as jget, init_model as jinit
+    from movae_tpu_torch import bench
+    from movae_tpu_torch.models import get_network
+
+    args = SimpleNamespace(arch=arch, batch_size=256, input_size=32)
+    jm = jget(32, 3, dict(arch=arch, embedding_dim=64, num_embeddings=512,
+                          hidden_dims=(128, 256), num_residual_layers=2,
+                          batch_size=256, dataset_size=50000,
+                          recons_objective="mse", compute_dtype="float32"))
+    tm = get_network(32, 3, bench.model_args(args))
+    assert type(tm).__name__ == type(jm).__name__
+    assert tm.objective_names == jm.objective_names
+    assert tm.lambda_weights == tuple(jm.lambda_weights)
+    params, _ = jinit(jm, jax.random.PRNGKey(0), 32, 3)
+    assert sum(p.numel() for p in tm.parameters() if p.requires_grad) == sum(
+        int(np.size(x)) for x in jax.tree_util.tree_leaves(params))
+
+
+def test_main_cli_runs_a_vae_to_the_jax_run_tree(tmp_path):
+    """``python -m movae_tpu_torch.main --device cpu --arch vae`` at a tiny
+    size: the JAX package's run tree (figures from ``model.sample``, both
+    checkpoints), no prior stage, and a final checkpoint the JAX package
+    reads."""
+    from movae_tpu.utils.torch_import import load_reference_checkpoint
+
+    out = subprocess.run(
+        [sys.executable, "-m", "movae_tpu_torch.main", "--device", "cpu",
+         "--dataset", "synthetic-32-64", "--arch", "vae", "--hidden_dims",
+         "8", "16", "--latent_dim", "8", "--batch_size", "16", "--epochs",
+         "2", "--save_freq", "1", "--aggregator", "mgda",
+         "--normalize_inputs", "--num_vis_samples", "2", "--seed", "1",
+         "--skip_final_metrics", "--save_path", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    roots = [p.parent.parent for p in tmp_path.rglob("final_checkpoint.pth")]
+    assert len(roots) == 1
+    root = roots[0]
+    assert root.relative_to(tmp_path).parts[:4] == (
+        "synthetic-32-64", "vae", "adam", "mgda")
+    for e in (1, 2):
+        for rel in (f"figures/generated/epoch_{e:04d}_random_samples.png",
+                    f"figures/reconstructed/epoch_{e:04d}_test_samples.pdf",
+                    f"figures/reconstructed/epoch_{e:04d}_train_samples.png"):
+            assert (root / rel).exists(), rel
+    assert (root / "checkpoints" / "last_checkpoint.pth").exists()
+    assert not list(root.glob("*_prior")) and not (root / "codes_cache"
+                                                   ).exists()
+    with open(root / "wandb_local" / "history.jsonl") as f:
+        keys = set().union(*(json.loads(line) for line in f))
+    assert {"train/reconstruction_loss", "train/kld_loss",
+            "train/task_1_weight", "eval/total_loss"} <= keys
+    loaded = load_reference_checkpoint(str(root / "checkpoints"
+                                           / "final_checkpoint.pth"))
+    assert "enc_norm_0" in loaded["model_state_dict"]["batch_stats"]
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--model_partitions", "2"], "item 13"),
     (["--context_parallel", "2"], "item 13"),
@@ -237,7 +299,7 @@ def test_bench_prints_one_json_line():
     (["--steps_per_dispatch", "2"], "item 6"),
     (["--remat"], "item 6"),
     (["--compute_dtype", "bfloat16"], "item 6"),
-    (["--arch", "vae"], "item 11")])
+    (["--arch", "sphere_encoder"], "item 11")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
     from movae_tpu_torch.train.loop import run_training
 

@@ -188,7 +188,8 @@ def test_recon_registry_matches_jax(objective, activation):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("vae", "item 11"), ("gg_vae", "item 11"), ("pixelsnail", "item 8")])
+    ("sphere_encoder", "item 11"), ("sphere_encoder_vit", "item 11"),
+    ("pixelsnail", "item 8")])
 def test_unported_arch_names_roadmap_item(arch, item):
     from movae_tpu_torch.models import get_network
 
