@@ -125,11 +125,34 @@ Phases, each of which fails the run:
      through ``runner.yaml_to_args`` and ``main`` with 15a's cuts to
      final/* (generation by model.sample, no prior stage). Launch counts
      set to 0 just before the phase and read just after: all must be 0.
+  17. (after 16) bf16 compute, grad_accum, steps_per_dispatch and remat:
+     17a the bf16 flash kernels (HMMA in each instance's SASS) against the
+     bf16 plain version and float64 on the same bf16 inputs at the prior's
+     shape, L = 4096, 1600, 1025 and every head dim, element by element,
+     in rms and in scale (BF16_ELEM, BF16_RMS, BF16_SCALE), with planted
+     faults that the same gate must refuse, timed by CUDA-graph
+     replay beside their bound, the plain version and
+     scaled_dot_product_attention in bf16; 17b phase 5's path in bf16
+     (extraction and the PixelSNAIL prior at full width, batch 16), counts
+     set to 0 just before and read just after, every flash launch at bf16
+     (none at float32) and 8 of each kernel a step; the kernels on the
+     trained bf16 prior's q/k/v; train_prior with grad_accum 2 and with
+     steps_per_dispatch 8; 17c the JAX bench's default workload through
+     ``movae_tpu_torch.bench`` (bf16, batch 1024, k = 8) against bf16 and
+     float32 at k = 1, nearest-code launches equal to the forwards, at most
+     1/8 host synchronisation a step; the cifar100 vae/mgda path twice;
+     17d the memory levers at 256 px (the celeba-hq
+     VQ-VAE-2 and the 16a vae: plain, remat, grad_accum 2, both): peak
+     memory and step ms; 17e card locksteps: 4 scanned steps against 4
+     single steps bit for bit across a NaN batch, an accumulating step
+     against the microbatch mean, remat against no remat, a bf16 step
+     against the CPU's.
 
 A kernel's bound is the larger of three times: its float32 products over
-the split-TF32 tensor-core rate (a third of the dense TF32 peak), its
-exponentials over the MUFU rate, and its bytes over HBM; the log line keeps
-the older bound with the products on the fp32 CUDA cores beside it.
+the split-TF32 tensor-core rate (a third of the dense TF32 peak; the bf16
+kernels: the dense bf16 rate), its exponentials over the MUFU rate, and
+its bytes over HBM; the log line keeps the older bound with the products
+on the fp32 CUDA cores beside it.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a card,
@@ -141,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -321,6 +345,48 @@ CLI_16E = "configs/celeba-hq/vae/sum/mse/config_1.yaml"
 CLI_16E_CUTS = dict(dataset="synthetic-256-1024", epochs=2, save_freq=1,
                     eval_freq=1, use_wandb=False, max_fid_samples=256,
                     max_gen_metrics_samples=256)
+# phase 17: the bf16 flash kernels at the prior's shape (FLASH_SLICE), at
+# L = 4096, 1600 and 1025 and at every other head dim built
+FLASH_BF16_CASES = ((2, 8, 4096, 16), (2, 2, 1025, 8), (1, 2, 1600, 32),
+                    (1, 2, 777, 64), (1, 2, 333, 128))
+# 17a's gate on the bf16 flash kernels, in units of bf16's unit roundoff
+# u = 2^-8 (a rounding to bf16 moves a value by at most u of it). Against
+# the plain version on the same inputs, with the backward kernels and the
+# plain backward both fed the forward kernel's own o and lse (so that each
+# kernel is compared alone): every element within BF16_ELEM floors, a
+# floor being u of the value plus the root-sum-square of the products
+# summed into it plus 1/16 of the output's rms (``bf16_terms``: one bf16
+# rounding of p or ds moves an element by up to u of its term, and on a
+# trained prior's sharp rows the terms of dq and dk cancel to far less
+# than themselves: one rounding of ds there moved a dq row by 2.3% of its
+# rms); the difference's rms within BF16_RMS u of the output's rms; and
+# the best-fit scale between the two within BF16_SCALE u of 1. Against
+# float64 on the same bf16 inputs, each kernel as the port runs it end to
+# end: the rms within BF16_F64_FACTOR times the plain version's own plus
+# BF16_RMS / 2 u, and the scale within the plain version's plus BF16_SCALE
+# u. The kernels' arithmetic emulated on the CPU
+# (tests/test_torch_port_flash_bf16_gate.py) passes it; a normalisation
+# 0.9% low (2.2 u of scale), q pre-scaled in bf16 at D = 32 (0.75 u rms),
+# ds left unrounded (0.67 u rms) and the last quarter of the rows zeroed
+# (~190 floors) do not, and 17a plants each of them on the card
+BF16_U, BF16_ELEM, BF16_RMS, BF16_SCALE = 2.0 ** -8, 4.0, 0.5, 1 / 16
+BF16_F64_FACTOR = 1.25
+# the shape of 17a's planted controls: D = 32, where 1/sqrt(D) is not a
+# power of two, so that q pre-scaled in bf16 rounds differently
+FLASH_BF16_CONTROL = (1, 2, 1600, 32)
+# 17c: bench steps a run (5 rounds of 16 steps: 2 dispatches of 8 at k = 8)
+# and the cifar100 vae/mgda steps a run
+BENCH_17C_STEPS, VAE_17C_STEPS = 80, 48
+# 17d: untimed and timed steps of each memory-lever run
+LEVER_WARMUP, LEVER_TIMED = 2, 3
+# 17e: the accumulated update against the microbatch mean (float32 sums
+# of two gradients in another order: ~1e-7 of the largest update), remat
+# against no remat after 3 SGD steps at lr 1e-2 (the same kernels in
+# deterministic mode: expected 0; 1e-5 absolute leaves room for float32
+# reassociation), a bf16 step card against CPU (bf16 cotangents summed in
+# other orders on the two devices; the CPU tests hold the port to JAX
+# within 5e-2 the same way)
+ACCUM_TOL, REMAT_TOL, BF16_STEP_TOL = 1e-5, 1e-5, 5e-2
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -329,6 +395,8 @@ PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
 # cores takes three TF32 passes (split TF32), so the bound's products run at
 # a third of it: 165 TFLOP/s on the SXM part
 TF32_SXM = 495e12
+# dense bf16 on the tensor cores of the SXM part (data sheet)
+BF16_SXM = 989e12
 # exp2 on the MUFU units: 16 a clock per SM against 128 fp32 FMA lanes, so
 # 1/8 of the FMA rate (132 SMs x 16 x 1.98 GHz = 4.18e12/s on the SXM part)
 MUFU_PER_FMA = 1 / 8
@@ -353,13 +421,16 @@ def card_peaks(name: str):
     return part, PEAKS[part]
 
 
-def bound(flops: float, exps: float, nbytes: float, peaks) -> dict:
+def bound(flops: float, exps: float, nbytes: float, peaks,
+          tensor_sxm: float = TF32_SXM / 3) -> dict:
     """The least time the card could take: the larger of the products over
-    the split-TF32 rate, the exponentials over the MUFU rate and the bytes
-    over HBM; ``fp32_ms`` is the bound with the products on the fp32 CUDA
-    cores instead, as it was stated before."""
+    the tensor-core rate ``tensor_sxm`` of the SXM part (default split
+    TF32; the bf16 kernels: dense bf16) scaled to the card's part, the
+    exponentials over the MUFU rate and the bytes over HBM; ``fp32_ms`` is
+    the bound with the products on the fp32 CUDA cores instead, as it was
+    stated before."""
     fp32, hbm = peaks
-    ops_ms = flops / (TF32_SXM / 3 * fp32 / PEAKS["sxm"][0]) * 1e3
+    ops_ms = flops / (tensor_sxm * fp32 / PEAKS["sxm"][0]) * 1e3
     exp_ms = exps / (fp32 / 2 * MUFU_PER_FMA) * 1e3
     bytes_ms = nbytes / hbm * 1e3
     ms = max(ops_ms, exp_ms, bytes_ms)
@@ -369,8 +440,9 @@ def bound(flops: float, exps: float, nbytes: float, peaks) -> dict:
 
 
 # a kernel's name in a mangled symbol, with its first int template
-# argument (``nearest_code_kernel<64>``, ``flash_fwd_kernel<16>``)
-KERNEL_NAME = r"([a-z_]+_kernel)(?:ILi(\d+)E)?"
+# argument (``nearest_code_kernel<64>``, ``flash_fwd_kernel<16>``,
+# ``flash_fwd_bf16_kernel<16>``)
+KERNEL_NAME = r"([a-z_]+(?:_bf16)?_kernel)(?:ILi(\d+)E)?"
 
 
 def kernel_name(m) -> str:
@@ -626,17 +698,19 @@ def compare_flash(torch, fa, q, k, v, do, exact: bool = False) -> dict:
     return res
 
 
-def flash_bounds(shape, peaks) -> dict:
+def flash_bounds(shape, peaks, elem_bytes: int = 4,
+                 tensor_sxm: float = TF32_SXM / 3) -> dict:
     """:func:`bound` per kernel: the products of the causal half (2, 4 and
     3 of them: 4, 8 and 6 flops per pair element), one exp2 per causal pair,
-    and each input read and output written once."""
+    and each input read and output written once (``elem_bytes`` an element
+    of a (.., D) tensor; the log-sum-exp and di stay float32)."""
     b, h, L, d = shape
     pairs = b * h * L * (L + 1) / 2
-    mat, row = 4.0 * b * h * L * d, 4.0 * b * h * L  # bytes of (.., D), (..)
+    mat, row = elem_bytes * b * h * L * d, 4.0 * b * h * L
     work = {"flash_attention_fwd": (4, 4 * mat + row),
             "flash_attention_bwd_dkv": (8, 6 * mat + 2 * row),
             "flash_attention_bwd_dq": (6, 5 * mat + 2 * row)}
-    return {name: bound(per * pairs * d, pairs, nbytes, peaks)
+    return {name: bound(per * pairs * d, pairs, nbytes, peaks, tensor_sxm)
             for name, (per, nbytes) in work.items()}
 
 
@@ -1125,24 +1199,24 @@ def phase_gg(torch, dev, profile: bool) -> dict:
 # phase 5: the stage-2 path, code extraction + full-width PixelSNAIL training
 # ---------------------------------------------------------------------------
 
-def phase_prior(torch, dev, profile: bool):
+def phase_prior(torch, dev, profile: bool, compute_dtype: str = "float32"):
     """Returns the path's numbers and the trained prior with a batch of its
-    codes."""
+    codes; the VQ-VAE and the prior compute in ``compute_dtype``."""
     from types import SimpleNamespace
 
     from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.train.prior import extract_codes, train_prior
 
-    vq = init_model(get_network(PRIOR_SIZE, 3, FULL_WIDTH), seed=0,
-                    device=dev)
+    vq = init_model(get_network(PRIOR_SIZE, 3, dict(
+        FULL_WIDTH, compute_dtype=compute_dtype)), seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     steps = PRIOR_WARMUP + PRIOR_TIMED
     n_batches = -(-steps * PRIOR_BATCH // EXTRACT_BATCH)
     images = [torch.randint(0, 256, (EXTRACT_BATCH, PRIOR_SIZE, PRIOR_SIZE,
                                      3), generator=gen, device=dev,
                             dtype=torch.uint8) for _ in range(n_batches)]
-    args = SimpleNamespace(**PRIOR_ARGS)
+    args = SimpleNamespace(**PRIOR_ARGS, compute_dtype=compute_dtype)
     trace = []
     warm = PRIOR_WARMUP * PRIOR_BATCH
 
@@ -1194,8 +1268,8 @@ def phase_prior(torch, dev, profile: bool):
            "codes_per_sec": PRIOR_BATCH * grid * grid / step_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "ce_first": trace[0], "ce_last": trace[-1]}
-    log(f"prior (PixelSNAIL, L={grid * grid}, batch {PRIOR_BATCH}): "
-        f"{json.dumps(res)}")
+    log(f"prior (PixelSNAIL, L={grid * grid}, batch {PRIOR_BATCH}, "
+        f"{compute_dtype}): {json.dumps(res)}")
     if profile:
         few = {"codes": codes[:5 * PRIOR_BATCH]}
         profile_device(torch, "prior", lambda: train_prior(
@@ -2253,8 +2327,9 @@ def phase_cli(torch, dev, bare: dict) -> dict:
 
         proc = subprocess.run(
             [sys.executable, "-m", "movae_tpu_torch.bench", "--steps",
-             str(CLI_BENCH_STEPS)], cwd=here, capture_output=True, text=True,
-            timeout=600)
+             str(CLI_BENCH_STEPS), "--dtype", "float32", "--batch_size",
+             str(BATCH), "--steps_per_dispatch", "1"], cwd=here,
+            capture_output=True, text=True, timeout=600)
         check(proc.returncode == 0, f"bench exited {proc.returncode}: "
               f"{proc.stderr[-2000:]}")
         line = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -2567,6 +2642,690 @@ def phase_vae(torch, dev, profile: bool, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: bf16 compute, grad_accum, steps_per_dispatch and remat
+# ---------------------------------------------------------------------------
+
+def bf16_agreement(torch, got, want, terms) -> dict:
+    """``got`` against ``want`` (one shape): ``elem`` the largest
+    |got - want| in floors (BF16_U of |want| plus ``terms``, the
+    root-sum-square of the products summed into each element, plus 1/16 of
+    want's rms), ``rms`` the rms of got - want over want's and ``scale``
+    sum((got - want) want) / sum(want^2) (the best-fit scale's distance
+    from 1), both in units of BF16_U."""
+    got, want = got.double(), want.double()
+    d = got - want
+    rms = want.square().mean().sqrt().clamp_min(1e-300)
+    floor = BF16_U * (want.abs() + terms.double() + rms / 16)
+    return {"elem": float((d.abs() / floor).max()),
+            "rms": float(d.square().mean().sqrt() / rms) / BF16_U,
+            "scale": float((d * want).sum()
+                           / want.square().sum().clamp_min(1e-300)) / BF16_U}
+
+
+def bf16_terms(torch, fa, q, k, v, do, o, lse, scale) -> dict:
+    """The root-sum-square of the products the plain version sums into each
+    element (its backward from ``o`` and natural ``lse``): o = p v, dv =
+    p^T do, dq = ds k, dk = ds^T q, with p and ds rounded to bf16."""
+    out = {n: torch.empty(q.shape, dtype=torch.float32, device=q.device)
+           for n in ("o", "dq", "dk", "dv")}
+    for i in range(0, q.shape[0], fa._PLAIN_CHUNK):
+        sl = slice(i, i + fa._PLAIN_CHUNK)
+        p = torch.exp(fa._plain_logits(q[sl], k[sl], scale)
+                      - lse[sl][..., None])
+        dof = do[sl].float()
+        di = (o[sl].float() * dof).sum(-1, keepdim=True)
+        ds = fa._bf((dof @ v[sl].float().transpose(-1, -2) - di) * p
+                    * scale).square()
+        p = fa._bf(p).square()
+        out["o"][sl] = (p @ v[sl].float().square()).sqrt()
+        out["dv"][sl] = (p.transpose(-1, -2) @ dof.square()).sqrt()
+        out["dq"][sl] = (ds @ k[sl].float().square()).sqrt()
+        out["dk"][sl] = (ds.transpose(-1, -2) @ q[sl].float().square()).sqrt()
+        del p, ds
+    return out
+
+
+def plain_bf16(fa, q, k, v, do, o, lse, scale, rounding=None):
+    """The plain bf16 forward's o, and the plain backward's (dq, dk, dv)
+    from ``o`` and ``lse``; ``rounding`` stands in for the plain version's
+    bf16 rounding where given."""
+    saved = fa._bf
+    fa._bf = rounding or saved
+    try:
+        return (fa.plain_fwd_bf16(q, k, v, scale)[0],
+                *fa.plain_bwd_bf16(q, k, v, o, lse, do, scale))
+    finally:
+        fa._bf = saved
+
+
+def bf16_agrees(a: dict) -> bool:
+    """17a's gate against the plain version (``bf16_agreement``)."""
+    return (a["elem"] <= BF16_ELEM and a["rms"] <= BF16_RMS
+            and abs(a["scale"]) <= BF16_SCALE)
+
+
+def bf16_as_close(kernel: dict, plain: dict) -> bool:
+    """17a's gate against float64: the kernel's agreement no worse than the
+    plain version's own, within BF16_F64_FACTOR and an additive margin."""
+    return (kernel["rms"] <= BF16_F64_FACTOR * plain["rms"] + BF16_RMS / 2
+            and abs(kernel["scale"]) <= abs(plain["scale"]) + BF16_SCALE)
+
+
+def compare_flash_bf16(torch, fa, q, k, v, do) -> dict:
+    """The bf16 kernels on (q, k, v) and cotangent ``do``: the forward, and
+    the dK/dV and dQ kernels from the forward's o and lse, each against the
+    plain version (its backward fed the same o and lse) and, as the port
+    runs them end to end, against float64 from the same bf16 inputs beside
+    the plain version's own distance from float64 (``bf16_agreement`` for
+    each), and the largest absolute difference from the plain version."""
+    scale = q.shape[-1] ** -0.5
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    fa._check(q=q, k=k, v=v, do=do)
+    o, lse2 = fa.flash_fwd(q, k, v, scale)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse2, di, scale)
+    cuda = {"o": o, "dq": fa.flash_bwd_dq(q, k, v, do, lse2, di, scale),
+            "dk": dk, "dv": dv}
+    o_p, lse = fa.plain_fwd_bf16(q, k, v, scale)
+    keys = ("o", "dq", "dk", "dv")
+    lse_c = lse2 * math.log(2.0)
+    plain = dict(zip(keys, plain_bf16(fa, q, k, v, do, o, lse_c, scale)))
+    terms = bf16_terms(torch, fa, q, k, v, do, o, lse_c, scale)
+    e2e = dict(zip(keys, plain_bf16(fa, q, k, v, do, o_p, lse, scale)))
+    parts = []  # float64, the L x L intermediates two batch rows at a time
+    for i in range(0, q.shape[0], 2):
+        leaves = [t[i:i + 2].double().requires_grad_() for t in (q, k, v)]
+        out = fa.dense_causal_attention(*leaves, scale)
+        parts.append([out.detach(), *torch.autograd.grad(
+            out, leaves, do[i:i + 2].double())])
+        del leaves, out
+        torch.cuda.empty_cache()
+    f64 = dict(zip(keys, (torch.cat(p) for p in zip(*parts))))
+    torch.cuda.synchronize()
+    return {key: {"finite": bool(torch.isfinite(got).all()),
+                  "max_abs_err": float((got.double() - plain[key].double())
+                                       .abs().max()),
+                  "plain": bf16_agreement(torch, got, plain[key],
+                                          terms[key]),
+                  "f64": bf16_agreement(torch, got, f64[key], terms[key]),
+                  "plain_vs_f64": bf16_agreement(torch, e2e[key], f64[key],
+                                                 terms[key])}
+            for key, got in cuda.items()}
+
+
+def check_flash_bf16(torch, fa, label: str, q, k, v, do, worst: dict
+                     ) -> dict:
+    """compare_flash_bf16 within 17a's gate (``bf16_agrees`` against the
+    plain version, ``bf16_as_close`` against float64); the largest absolute
+    errors against the plain version into ``worst``."""
+    res = compare_flash_bf16(torch, fa, q, k, v, do)
+    log(f"flash_attention bf16 {label} (u = 2^-8): {json.dumps(res)}")
+    for key, r in res.items():
+        check(r["finite"] and bf16_agrees(r["plain"])
+              and bf16_as_close(r["f64"], r["plain_vs_f64"]),
+              f"flash_attention bf16 {key} at {label}: {r} (gate: element "
+              f"{BF16_ELEM} u, rms {BF16_RMS} u, scale {BF16_SCALE} u from "
+              f"the plain version; from float64 {BF16_F64_FACTOR}x the "
+              f"plain version's rms + {BF16_RMS / 2} u and its scale + "
+              f"{BF16_SCALE} u)")
+    for name, keys in (("flash_attention_fwd", ("o",)),
+                       ("flash_attention_bwd_dkv", ("dk", "dv")),
+                       ("flash_attention_bwd_dq", ("dq",))):
+        worst[name] = max(worst[name],
+                          *(res[k]["max_abs_err"] for k in keys))
+    return res
+
+
+def flash_bf16_controls(torch, fa, label: str, q, k, v, do) -> dict:
+    """Planted faults that 17a's gate must refuse, each built from the plain
+    version on (q, k, v, do) and held against it as the kernels are: o
+    normalised 0.9% low, q pre-scaled in bf16 (where 1/sqrt(D) is not a
+    power of two), the last quarter of o's rows zeroed, and dq with ds
+    left unrounded; o with p left unrounded is reported, not required to
+    fail (its rounding differs from the plain version's by about as much
+    as the forward kernel's running-maximum rounding does)."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.plain_fwd_bf16(q, k, v, scale)
+    plain = plain_bf16(fa, q, k, v, do, o, lse, scale)
+    terms = bf16_terms(torch, fa, q, k, v, do, o, lse, scale)
+    unrounded = plain_bf16(fa, q, k, v, do, o, lse, scale,
+                           rounding=lambda x: x)  # p and ds left in float32
+    late = o.clone()
+    late[:, :, 3 * q.shape[2] // 4:] = 0
+    faults = {"o_normalised_0.9pct_low": (o.float() * 0.991).to(o.dtype),
+              "o_last_quarter_of_rows_zero": late,
+              "dq_ds_unrounded": unrounded[1]}
+    if scale != 2.0 ** round(math.log2(scale)):
+        faults["o_q_prescaled_in_bf16"] = fa.plain_fwd_bf16(
+            (q.float() * scale).to(q.dtype), k, v, 1.0)[0]
+    res = {name: bf16_agreement(torch, got, *((plain[1], terms["dq"])
+                                              if name[:2] == "dq"
+                                              else (o, terms["o"])))
+           for name, got in faults.items()}
+    res["o_p_unrounded_reported"] = bf16_agreement(torch, unrounded[0], o,
+                                                   terms["o"])
+    log(f"17a planted controls at {label} (u = 2^-8): {json.dumps(res)}")
+    for name in faults:
+        check(not bf16_agrees(res[name]),
+              f"17a control {name} at {label} passed the gate: {res[name]}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
+    """17a: the bf16 flash kernels against the bf16 plain version and
+    float64 at the prior's shape, at L = 4096, 1600 and 1025 and at every
+    head dim built; times at the prior's shape by CUDA-graph replay beside
+    their bound, the plain version and scaled_dot_product_attention in
+    bf16 (the yardstick; the port never calls it). Returns the three bf16
+    kernel rows (launches and the trained prior's q/k/v come from 17b)."""
+    import torch.nn.functional as F
+
+    from movae_tpu_torch.kernels import build
+
+    for d in build.FLASH_HEAD_DIMS:
+        for kern in ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                     "flash_bwd_dq_bf16_kernel"):
+            ops = sass.get(f"flash_attention_d{d}", {}).get(f"{kern}<{d}>")
+            check(not sass or (ops is not None and ops["HMMA"] > 0),
+                  f"no HMMA in {kern}<{d}>: {ops}")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    for shape in FLASH_BF16_CASES:
+        check_flash_bf16(torch, fa, str(shape), *(randn(shape)
+                                                  for _ in range(4)), worst)
+    flash_bf16_controls(torch, fa, str(FLASH_BF16_CONTROL),
+                        *(randn(FLASH_BF16_CONTROL) for _ in range(4)))
+    q, k, v, do = (randn(FLASH_SLICE) for _ in range(4))
+    check_flash_bf16(torch, fa, str(FLASH_SLICE), q, k, v, do, worst)
+    torch.cuda.empty_cache()
+
+    scale = FLASH_SLICE[-1] ** -0.5
+    o, lse2 = fa.flash_fwd(q, k, v, scale)
+    di = (o.float() * do.float()).sum(-1)
+    ms = {
+        "flash_attention_fwd": graph_ms(
+            torch, lambda: fa.flash_fwd(q, k, v, scale), reps=20),
+        "flash_attention_bwd_dkv": graph_ms(
+            torch, lambda: fa.flash_bwd_dkv(q, k, v, do, lse2, di, scale),
+            reps=20),
+        "flash_attention_bwd_dq": graph_ms(
+            torch, lambda: fa.flash_bwd_dq(q, k, v, do, lse2, di, scale),
+            reps=20),
+    }
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def backward_ms(out):
+        return time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps=3, warmup=1)
+
+    with torch.no_grad():
+        plain_fwd = time_ms(torch, lambda: fa.flash_causal_attention_plain(
+            q, k, v, scale), reps=3, warmup=1)
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), reps=20)
+    plain_bwd = backward_ms(fa.flash_causal_attention_plain(*leaves, scale))
+    torch.cuda.empty_cache()
+    sdpa_bwd = backward_ms(F.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale))
+    del leaves, o, lse2, di, q, k, v, do
+    torch.cuda.empty_cache()
+    bounds = flash_bounds(FLASH_SLICE, peaks, elem_bytes=2,
+                          tensor_sxm=BF16_SXM)
+    log(f"flash_attention bf16 timing {FLASH_SLICE} (graph replay): "
+        + ", ".join(f"{n} {ms[n] * 1e3:.1f} us (bound {b['ms'] * 1e3:.1f} "
+                    f"us, {b['by']}: products at bf16 "
+                    f"{b['products_ms'] * 1e3:.1f} us, exp2 "
+                    f"{b['exp2_ms'] * 1e3:.1f} us, bytes "
+                    f"{b['bytes_ms'] * 1e3:.1f} us)"
+                    for n, b in bounds.items())
+        + f"; plain forward {plain_fwd:.3f} ms, plain backward "
+          f"{plain_bwd:.3f} ms; scaled_dot_product_attention bf16 forward "
+          f"{sdpa_fwd * 1e3:.1f} us, backward {sdpa_bwd * 1e3:.1f} us")
+    rows = []
+    for name in FLASH_KERNELS:
+        fwd = name == "flash_attention_fwd"
+        rows.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "movae_tpu_torch/kernels/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": None,
+            "max_abs_err": worst[name], "ms": ms[name],
+            "plain_ms": plain_fwd if fwd else plain_bwd,
+            "bound_ms": bounds[name]["ms"], "bound_by": bounds[name]["by"],
+            "library_ms": sdpa_fwd if fwd else sdpa_bwd,
+        })
+    return rows
+
+
+def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list) -> dict:
+    """17b: the stage-2 PixelSNAIL in bf16 at phase 5's width and cut
+    (256-px VQ-VAE extraction, L = 4096, 8 blocks of 128 channels and 8
+    heads of 16, batch 16), every flash launch recorded with its dtype:
+    8 bf16 launches of each kernel a step and none at float32; the step
+    ms, codes/s and peak memory beside phase 5's float32 numbers; the
+    kernels on the trained bf16 prior's last-layer q, k, v; then
+    train_prior with grad_accum 2 and with steps_per_dispatch 8."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.models.base import compute_region
+    from movae_tpu_torch.train.prior import train_prior
+
+    dtypes = []
+    launch = fa._launch
+
+    def recorded(name, count, dtype, *a):
+        dtypes.append(dtype)
+        return launch(name, count, dtype, *a)
+
+    fa._launch = recorded
+    try:
+        res, snail, codes = phase_prior(torch, dev, False, "bfloat16")
+    finally:
+        fa._launch = launch
+    check(dtypes and all(d == torch.bfloat16 for d in dtypes),
+          f"17b: flash launches at {sorted(set(map(str, dtypes)))}: a bf16 "
+          f"tensor reached another instance")
+    for r in rows:
+        r["launches"] = res["launches"][r["name"][:-len("_bf16")]]
+    res["vs_float32"] = {k: res[k] / f32_prior[k] for k in
+                         ("step_ms", "codes_per_sec", "peak_mem_gib")}
+
+    # the kernels on the trained bf16 prior's own q, k, v
+    attn = snail.blocks[-1].attention
+    seen = []
+    hook = attn.register_forward_pre_hook(lambda mod, a: seen.append(a[0]))
+    with torch.no_grad():
+        snail.logits_nchw(torch.from_numpy(codes).to(dev))
+        with compute_region(torch.bfloat16, dev):
+            q, k, v = attn.qkv(seen[0])
+    hook.remove()
+    check(q.dtype == torch.bfloat16, f"17b: prior q/k/v are {q.dtype}")
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(6)).to(torch.bfloat16)
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    label = f"trained bf16 prior q/k/v {tuple(q.shape)}"
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    check_flash_bf16(torch, fa, label, q, k, v, do, worst)
+    flash_bf16_controls(torch, fa, label, q, k, v, do)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               worst[r["name"][:-len("_bf16")]])
+    del snail, q, k, v, do
+    torch.cuda.empty_cache()
+
+    # grad_accum 2 (4 full batches: 2 updates) and steps_per_dispatch 8
+    # (8 batches), bf16, on codes of the same grid
+    rng = torch.Generator().manual_seed(3)
+    grid = PRIOR_SIZE // 4
+    more = torch.randint(0, FULL_WIDTH["num_embeddings"],
+                         (8 * PRIOR_BATCH, grid, grid), generator=rng,
+                         dtype=torch.int32).numpy()
+    meta = SimpleNamespace(num_embeddings=FULL_WIDTH["num_embeddings"],
+                           embedding_dim=FULL_WIDTH["embedding_dim"])
+    for label, kw, batches in (("grad_accum_2", dict(grad_accum=2), 4),
+                               ("steps_per_dispatch_8",
+                                dict(steps_per_dispatch=8), 8)):
+        args = SimpleNamespace(**PRIOR_ARGS, compute_dtype="bfloat16", **kw)
+        trace = []
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_prior({"codes": more[:batches * PRIOR_BATCH]}, meta, args,
+                    device=dev, step_trace=trace)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        updates = batches // kw.get("grad_accum", 1)
+        check(len(trace) == updates and all(v == v for v in trace),
+              f"17b {label}: {len(trace)} updates {trace}, expected "
+              f"{updates}")
+        layers = PRIOR_ARGS["pixelsnail_num_blocks"]
+        check(LAUNCH_COUNTS["flash_attention_fwd"] == layers * batches,
+              f"17b {label}: {LAUNCH_COUNTS['flash_attention_fwd']} "
+              f"forward launches for {batches} batches")
+        res[label] = {"updates": updates, "batches": batches,
+                      "seconds_with_init": secs, "ce": trace}
+        torch.cuda.empty_cache()
+    log(f"phase 17b (bf16 PixelSNAIL prior, L={grid * grid}, batch "
+        f"{PRIOR_BATCH}): {json.dumps(res)}")
+    return res
+
+
+def dispatch_run(torch, dev, path: dict, agg: str, dtype: str,
+                 steps: int) -> dict:
+    """``path``'s model under ``agg`` in ``dtype``, ``steps`` train steps
+    queued as the loop queues them, one synchronisation at the end: step
+    ms, images/s and the host synchronisations of a step."""
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import make_train_step
+
+    model = init_model(get_network(path["size"], 3, dict(
+        path["width"], compute_dtype=dtype)), seed=0, device=dev)
+    cfg = AggregatorConfig(name=agg, num_objectives=len(model.objective_names))
+    lr, sched, epochs, spe = path["lr"]
+    state = TrainState.create(model, build_optimizer(
+        "adam", lr_schedule(lr, sched, epochs, spe, lr_min=1e-6)),
+        init_state(cfg))
+    step = make_train_step(model, cfg, normalize_inputs=path["uint8"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shape = (path["batch"], path["size"], path["size"], 3)
+    batch = torch.randint(0, 256, shape, generator=gen, device=dev,
+                          dtype=torch.uint8)
+    if not path["uint8"]:
+        batch = batch.float() / 127.5 - 1.0
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, met = step(state, batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs, sites = count_syncs(torch, lambda: step(state, batch, gen))
+    loss = float(met["total_loss"])
+    check(loss == loss, f"{agg} {dtype}: loss {loss}")
+    res = {"agg": agg, "dtype": dtype, "steps": steps,
+           "step_ms": secs / steps * 1e3,
+           "images_per_sec": steps * path["batch"] / secs,
+           "host_syncs_per_step": syncs, "sync_sites": sites}
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bench_defaults(torch, dev, card: str) -> dict:
+    """17c: the JAX bench's default workload through the port's bench
+    (vq_vae 32 px, bf16, batch 1024, k = 8, sum, adam 1e-3), then bf16 at
+    k = 1 and float32 at k = 1 at the same batch (a dispatch is k single
+    steps: k only groups them); nearest_code launches equal to the
+    forwards, the host synchronisations a step (at most 1/8 under sum at
+    k = 8); then the cifar100 vae/mgda config of 16b twice (its host
+    solve's one synchronisation a step)."""
+    from movae_tpu_torch import bench
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS
+
+    count_syncs(torch, lambda: None)  # the debug mode's own first switch
+    res = {"card": card}
+    for label, flags in (("default", []),
+                         ("bf16_k1", ["--steps_per_dispatch", "1"]),
+                         ("f32_k1", ["--steps_per_dispatch", "1",
+                                     "--dtype", "float32"])):
+        start = LAUNCH_COUNTS["nearest_code"]
+        line = bench.main(["--steps", str(BENCH_17C_STEPS)] + flags)
+        launches = LAUNCH_COUNTS["nearest_code"] - start
+        check(launches == line["steps_run"],
+              f"17c {label}: nearest_code launched {launches} times in "
+              f"{line['steps_run']} forwards")
+        res[label] = dict(line, nearest_code_launches=launches)
+        torch.cuda.empty_cache()
+    d = res["default"]
+    check(d["dtype"] == "bfloat16" and d["steps_per_dispatch"] == 8
+          and "bs=1024" in d["metric"],
+          f"17c: the bench's defaults are not the JAX bench's: {d}")
+    check(d["host_syncs_per_step"] <= 1 / 8,
+          f"17c: {d['host_syncs_per_step']} host synchronisations a step "
+          f"at k = 8 under sum")
+    res["default_over_bf16_k1"] = d["value"] / res["bf16_k1"]["value"]
+    res["default_over_f32_k1"] = d["value"] / res["f32_k1"]["value"]
+    vae = vae_path(VAE_16B)
+    res["vae_mgda"] = [dispatch_run(torch, dev, vae, vae["agg"], "float32",
+                                    VAE_17C_STEPS) for _ in range(2)]
+    log(f"phase 17c (the JAX bench's default workload through the port's "
+        f"bench; {card}): {json.dumps(res)}")
+    return res
+
+
+def lever_run(torch, dev, path: dict, remat: bool, accum: int) -> dict:
+    """One way of a 256-px path: ``remat`` and/or ``grad_accum`` (the
+    batch split into ``accum`` microbatches): peak memory and step ms over
+    LEVER_TIMED steps after LEVER_WARMUP."""
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(get_network(path["size"], 3, path["width"]), seed=0,
+                       device=dev)
+    cfg = AggregatorConfig(name="sum",
+                           num_objectives=len(model.objective_names))
+    lr, sched, epochs, spe = path["lr"]
+    state = TrainState.create(model, build_optimizer(
+        "adam", lr_schedule(lr, sched, epochs, spe, lr_min=1e-6)),
+        init_state(cfg))
+    step = make_train_step(model, cfg, normalize_inputs=path["uint8"],
+                           remat=remat, grad_accum=accum)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b = path["batch"]
+    shape = (b // accum, path["size"], path["size"], 3)
+    if accum > 1:
+        shape = (accum, *shape)
+    batch = torch.randint(0, 256, shape, generator=gen, device=dev,
+                          dtype=torch.uint8)
+    times = []
+    for i in range(LEVER_WARMUP + LEVER_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= LEVER_WARMUP:
+            times.append(time.perf_counter() - t0)
+    loss = float(met["total_loss"])
+    check(loss == loss and float(met["skipped_nonfinite"]) == 0.0,
+          f"17d {path['width']['arch']} remat={remat} accum={accum}: "
+          f"loss {loss}")
+    res = {"remat": remat, "grad_accum": accum,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step_ms": statistics.median(times) * 1e3, "loss": loss}
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_levers(torch, dev, card: str) -> dict:
+    """17d: the memory levers at 256 px on the celeba-hq vq_vae2/sum path
+    (phase 7, batch 128) and the 16a vae (BatchNorm and noise, batch 128):
+    plain, --remat, --grad_accum 2 (2 x 64) and both."""
+    res = {"card": card}
+    for label, path in (("vq_vae2", VQVAE2), ("vae_16a", vae_path(VAE_16A))):
+        res[label] = [lever_run(torch, dev, path, remat, accum)
+                      for remat, accum in ((False, 1), (True, 1),
+                                           (False, 2), (True, 2))]
+    log(f"phase 17d (memory levers at 256 px, sum; {card}): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def phase_locksteps_17e(torch, dev) -> dict:
+    """17e: on the card, with deterministic kernels, 4 scanned steps
+    against 4 single steps with a NaN batch at position 2 (skipped; the
+    counter and lr do not advance), bit for bit or within the spread of
+    two single-step runs; remat against no remat (3 SGD steps) on vq_vae
+    with vq_ema and on the BatchNorm vae within REMAT_TOL; then an
+    accumulating step (A = 2, SGD at lr 1: the update is the accumulated
+    gradient) against the mean of the two microbatches' single-step
+    gradients within ACCUM_TOL; a bf16 vae step on the card against the
+    port's bf16 step on the CPU within BF16_STEP_TOL, every conv and dense
+    layer of both computing in bf16 (forward hooks)."""
+    import numpy as np
+
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import (make_scanned_train_step,
+                                            make_train_step)
+
+    small_vq = dict(FULL_WIDTH, hidden_dims=(16, 32), embedding_dim=8,
+                    num_embeddings=32)
+    small_vae = dict(arch="vae", hidden_dims=(8, 16), latent_dim=8,
+                     layer_norm="batch", batch_size=4, dataset_size=64)
+    rng = np.random.default_rng(7)
+
+    def imgs(n, size=16):
+        return torch.tensor(rng.uniform(-1, 1, (n, 4, size, size, 3)).astype(
+            np.float32))
+
+    def build(width, where, opt="adam", lr=1e-3, sched=None, dtype=None,
+              **kw):
+        w = dict(width, **({"compute_dtype": dtype} if dtype else {}))
+        model = init_model(get_network(16, 3, w), seed=3, device=where)
+        cfg = AggregatorConfig(name=kw.pop("agg", "sum"),
+                               num_objectives=len(model.objective_names))
+        tx = build_optimizer(opt, lr_schedule(lr, sched, 8, 1), eps=1e-4,
+                             **({"momentum": 0.0} if opt == "sgd" else {}))
+        state = TrainState.create(model, tx, init_state(cfg))
+        return model, state, make_train_step(model, cfg, 8, 1, **kw)
+
+    def max_diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   for k in a)
+
+    res = {}
+    # deterministic kernels (cuDNN algorithms, index_add_ without atomics)
+    # for the bit-for-bit comparisons; restored after
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # scanned against single (twice: the run-to-run spread), a NaN
+        # batch at position 2 of 4
+        xb = imgs(4).to(dev)
+        xb[2, 0, 0, 0, 0] = float("nan")
+        sds, mets = [], []
+        for scanned in (False, False, True):
+            model, state, step = build(small_vq, dev, sched="cosine",
+                                       agg="upgrad")
+            gen = torch.Generator(device=dev).manual_seed(0)
+            if scanned:
+                state, met = make_scanned_train_step(step, 4)(state, xb,
+                                                              gen)
+            else:
+                met = [step(state, xb[i], gen)[1] for i in range(4)]
+                met = {k: torch.stack([m[k] for m in met]) for k in met[0]}
+            sds.append({k: v.cpu() for k, v in model.state_dict().items()})
+            mets.append({k: v.cpu() for k, v in met.items()})
+            check(int(state.step) == 3 and float(state.tx.lr(state.step))
+                  == float(state.tx.lr(3)),
+                  f"17e scan: counter {int(state.step)} after 4 steps, "
+                  f"one skipped")
+        spread, err = max_diff(sds[0], sds[1]), max_diff(sds[0], sds[2])
+        check(err <= 2 * spread,
+              f"17e: 4 scanned steps differ from 4 single steps by "
+              f"{err:.3e} (two single runs by {spread:.3e})")
+        check(mets[2]["skipped_nonfinite"].tolist() == [0.0, 0.0, 1.0, 0.0],
+              f"17e scan skips {mets[2]['skipped_nonfinite'].tolist()}")
+        res["scan_vs_single"] = {"bit_for_bit": err == 0.0,
+                                 "max_abs_err": err, "single_spread": spread,
+                                 "applied_steps": 3}
+
+        # remat against no remat (SGD, 3 steps)
+        xr = imgs(3).to(dev)
+        for label, width in (("vq_vae_ema", dict(small_vq, vq_ema=True)),
+                             ("vae_bn", small_vae)):
+            sds = []
+            for remat in (False, True):
+                model, state, step = build(width, dev, opt="sgd", lr=1e-2,
+                                           remat=remat)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                for i in range(3):
+                    step(state, xr[i], gen)
+                sds.append({k: v.cpu() for k, v in
+                            model.state_dict().items()})
+            err = max_diff(*sds)
+            check(err <= REMAT_TOL, f"17e remat {label}: {err:.3e}")
+            res[f"remat_{label}"] = {"max_abs_err": err,
+                                     "bit_for_bit": err == 0.0}
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.backends.cudnn.benchmark = flags[1]
+        torch.use_deterministic_algorithms(flags[2])
+
+    # accumulation against the mean of the microbatch gradients (SGD lr 1)
+    xa = imgs(2).to(dev)
+    ups = []
+    for i in range(2):
+        model, state, step = build(small_vq, dev, opt="sgd", lr=1.0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        step(state, xa[i])
+        ups.append({k: model.state_dict()[k] - before[k] for k in before})
+    model, state, step = build(small_vq, dev, opt="sgd", lr=1.0,
+                               grad_accum=2)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    step(state, xa)
+    scale = max(float(u.abs().max()) for u in ups[0].values())
+    acc_err = max(float(((model.state_dict()[k] - before[k])
+                         - 0.5 * (ups[0][k] + ups[1][k])).abs().max())
+                  for k in before) / scale
+    check(acc_err <= ACCUM_TOL, f"17e accumulation: {acc_err:.3e} of the "
+          f"largest update from the microbatch mean")
+    res["accum_vs_mean"] = {"max_err_over_largest_update": acc_err}
+
+    # a bf16 vae step, card against CPU (SGD lr 1: the update is the
+    # gradient); the N(0, I) draw made once on the host
+    xv = imgs(1)[0]
+    noise = {"eps": torch.tensor(rng.standard_normal((4, 8)).astype(
+        np.float32))}
+    runs = {}
+    layers = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+    for where in ("cpu", dev):
+        model, state, step = build(small_vae, where, opt="sgd", lr=1.0,
+                                   dtype="bfloat16")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        # the output dtype of every conv and dense layer the step runs
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda mod, a, out, n=n: seen.append((n, str(out.dtype))))
+            for n, m in model.named_modules() if isinstance(m, layers)]
+        _, met = step(state, xv, noise=noise)
+        for h in hooks:
+            h.remove()
+        check(seen and all(d == "torch.bfloat16" for _, d in seen),
+              f"17e bf16 step on {where}: layer output dtypes {seen}")
+        runs[str(where)] = ({k: (model.state_dict()[k] - before[k]).cpu()
+                             for k, _ in model.named_parameters()},
+                            float(met["total_loss"]))
+    (up_c, l_c), (up_d, l_d) = runs["cpu"], runs[str(dev)]
+    scale = max(float(u.abs().max()) for u in up_c.values())
+    err = max(float((up_c[k] - up_d[k]).abs().max()) for k in up_c) / scale
+    check(err <= BF16_STEP_TOL and abs(l_c - l_d) <= 2e-3 * abs(l_c),
+          f"17e bf16 step: card vs CPU update {err:.3e} of the largest, "
+          f"losses {l_c} {l_d}")
+    res["bf16_card_vs_cpu"] = {"update_err_over_largest": err,
+                               "loss_cpu": l_c, "loss_card": l_d}
+    log(f"phase 17e (card locksteps): {json.dumps(res)}")
+    return res
+
+
+def phase_item6(torch, fa, dev, peaks, sass: dict, f32_prior: dict,
+                card: str) -> list:
+    """Phase 17 (17a-17e); returns the three bf16 kernel rows."""
+    t0 = time.perf_counter()
+    rows = phase_flash_bf16(torch, fa, dev, peaks, sass)
+    phase_prior_bf16(torch, fa, dev, f32_prior, rows)
+    phase_bench_defaults(torch, dev, card)
+    phase_levers(torch, dev, card)
+    phase_locksteps_17e(torch, dev)
+    log(f"phase 17 (bf16, grad_accum, steps_per_dispatch, remat; {card}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -2625,6 +3384,7 @@ def main() -> int:
              for src, text in build.build_logs.items()}))
         cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                                  "cuobjdump")
+        sass = {}
         if os.path.exists(cuobjdump):
             sass = {n: sass_counts(cuobjdump, str(p))
                     for n, p in zip(build.TARGETS, libs)}
@@ -2743,13 +3503,18 @@ def main() -> int:
 
         # the VAE family: no kernel of the port on its path (every count 0)
         phase_vae(torch, dev, args.profile, smi[0] if smi else name)
+
+        # this slice's path: bf16 compute (the bf16 flash kernels),
+        # grad_accum, steps_per_dispatch, remat
+        bf16_rows = phase_item6(torch, fa, dev, peaks, sass, prior,
+                                smi[0] if smi else name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - start:.1f} s")
-    log(json.dumps({"kernels": [row, *flash_rows]}))
+    log(json.dumps({"kernels": [row, *flash_rows, *bf16_rows]}))
     log(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,6 +20,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from movae_tpu_torch.train.step import optimizer_steps
+
 Array = np.ndarray
 
 # auto-enable budget: the resident set may take at most this fraction of
@@ -132,5 +134,9 @@ class DeviceData:
     def tail_steps(self) -> int:
         return -(-self.tail_len // self.B) if self.tail_len else 0
 
-    def optimizer_steps_per_epoch(self) -> int:
-        return max(1, self.steps + self.tail_steps)
+    def optimizer_steps_per_epoch(self, accum_k: int = 1) -> int:
+        """Optimizer updates per epoch (the lr schedule's and COMFORT's
+        cadence): the full batches, in groups of A under ``--grad_accum``
+        with the leftovers as single updates, plus the host tail's."""
+        return optimizer_steps(self.steps, self.steps + self.tail_steps,
+                               accum_k)

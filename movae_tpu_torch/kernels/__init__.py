@@ -7,7 +7,8 @@ wrapper module beside its plain PyTorch version:
   * ``nearest_code`` — nearest-codebook index of the VQ layer
     (replaces ``movae_tpu/ops/vq.py:_inds_kernel``);
   * ``flash_attention`` — causal flash attention, three kernels: forward,
-    dK/dV and dQ (replace the stock Pallas TPU flash attention that
+    dK/dV and dQ, each with a float32 and a bfloat16 instance (replace the
+    stock Pallas TPU flash attention that
     ``movae_tpu/ops/attention.py:causal_attention`` calls).
 
 ``LAUNCH_COUNTS`` holds one plain integer per kernel; its wrapper adds one

@@ -15,7 +15,8 @@
 //                           logits :1187, p :1227, dp :1237, ds :1243,
 //                           dq :1257).
 // Same functions: o = softmax(q k^T * s with an inclusive causal mask) v over
-// (B, H, L, D) float32, and its gradients dq, dk, dv given do, the forward's
+// (B, H, L, D) float32 (bfloat16: the instances at the end of this file),
+// and its gradients dq, dk, dv given do, the forward's
 // per-row log-sum-exp and di = sum_d o * do (computed by the caller, as the
 // JAX package leaves di to XLA, flash_attention.py:273). No L x L matrix
 // reaches device memory.
@@ -834,5 +835,556 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
   flash_bwd_dq_kernel<kD><<<grid_for(bh, L), kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       q, k, v, dout, lse2, di, dq, L, scale * kLog2e, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ===========================================================================
+// bfloat16 instances: what the stock Pallas kernel computes on bf16 q, k, v
+// (the PixelSNAIL prior under --compute_dtype bfloat16)
+// ===========================================================================
+//
+// Replace the same three Pallas kernels at bf16 (flash_attention.py, jax
+// 0.9.0): _flash_attention_impl :589 (logits from bf16 operands summed in
+// f32 :395-397, scaled on the f32 logits :410-411, p rounded to bf16 before
+// p.v :470-471, o written as bf16 :477), _flash_attention_bwd_dkv :941
+// (dv = bf16(p)^T do :900, dp = do v^T in f32 :908-910, ds = (dp - di) p s
+// :913-914, dk = bf16(ds)^T q :918, bf16 outputs :937-938) and
+// _flash_attention_bwd_dq :1287 (dq = bf16(ds) k :1257-1261, bf16 :1283).
+// di = sum_d o * do is the caller's, in f32 from the bf16 o and do (:273).
+// The running max and sum and the log-sum-exp (base 2) stay f32.
+//
+// Bound on an H100 SXM (700 W) at the prior shape B=16, H=8, L=4096, D=16:
+// each causal pair needs one exp2 (1.07 G pairs over the MUFU rate, 4.18
+// T/s: 0.257 ms in each kernel); the products (2, 4 and 3 a pair at
+// 2 * D flops each: 34.4 GFLOP each) over the dense bf16 rate (989 TFLOP/s)
+// take 0.07, 0.14 and 0.10 ms, and the bytes (each (B, H, L, D) bf16 tensor
+// 16.8 MB) 0.02-0.04 ms. So the exp2 per pair bounds all three at D=16.
+//
+// Design (a simple one; wgmma and TMA are later work):
+//   * the f32 kernels' blocks: 4 warps own 64 rows of the outer dimension,
+//     16 a warp, and stream the other side in tiles of 64 rows through
+//     shared memory, double buffered with cp.async; rows padded to D + 8
+//     bf16 (16 bytes), which keeps the 32-bit fragment loads free of bank
+//     conflicts at D >= 16;
+//   * every product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
+//     bf16 operands exactly as given, f32 accumulation, one pass. The
+//     logits' accumulator layout is the A layout of the next product (p or
+//     ds as A: k = 2t, 2t+1 of each 8 columns), so p and ds go from
+//     registers to the tensor cores, rounded to bf16 as they are packed;
+//   * A operands that stay (q, do in the forward and dQ; k, v in dK/dV) are
+//     loaded once from device memory into fragments; B operands come from
+//     the staged tiles: as 32-bit pairs where the reduction runs along a
+//     staged row (K for the logits, V for dp), as two 16-bit loads where it
+//     runs down the rows (V for p.v, do and q for dv and dk, K for dq);
+//   * D = 8 is below the mma's depth of 16: the logit and dp products pad
+//     the reduction to 16 with zeros in registers (the upper half of each
+//     A and B fragment is 0), never reading the staged row's padding;
+//   * accumulators run for the whole row (no per-step f32 add): the tensor
+//     cores' truncated sums drift by ~1e-5 relative over L = 4096, far under
+//     the bf16 rounding of the outputs (2^-9);
+//   * masking is element by element (key <= query, query < L) on every
+//     step; only whole 8-key blocks past a warp's last row are skipped.
+//
+// The recompute contract: each logit is one chain of m16n8k16 products over
+// the same D/16 reduction steps in the same order, from the same bf16
+// values, times scale * log2(e) in f32. The backward kernels' p is the
+// forward's p bit for bit (dK/dV swaps the operands of the same exact
+// bf16 x bf16 products, which sum position by position alike).
+
+#include <cuda_bf16.h>
+
+namespace {
+
+using u16 = unsigned short;
+
+template <int D>
+constexpr int kBfStride = D + 8;  // bf16 a staged row
+template <int D>
+constexpr int kBfMat = kTile * kBfStride<D>;  // bf16 of one staged tile
+template <int D>
+constexpr int kBfSteps = D < 16 ? 1 : D / 16;  // k16 steps over D
+
+template <int D>
+constexpr int bf_tiles_bytes() {  // 2 double-buffered tiles
+  return 4 * kBfMat<D> * static_cast<int>(sizeof(u16));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16) |
+         __bfloat16_as_ushort(v.x);
+}
+
+__device__ __forceinline__ uint32_t ld32(const u16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 a row apart (rows r and r + 1 of a staged tile) as one operand
+// register, the lower row in the low half
+template <int S>
+__device__ __forceinline__ uint32_t ld_pair(const u16* p) {
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[S]) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [r0, r0 + kTile) of an (L, D) bf16 matrix into a padded staged tile,
+// zeros past L
+template <int D>
+__device__ __forceinline__ void copy_tile_bf16(const u16* __restrict__ src,
+                                               u16* __restrict__ dst, int r0,
+                                               int L) {
+  constexpr int C = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = 8 * (i % C);
+    const bool in = r0 + r < L;
+    cp_async16(reinterpret_cast<float*>(dst + r * kBfStride<D> + c),
+               reinterpret_cast<const float*>(
+                   src + static_cast<int64_t>(in ? r0 + r : 0) * D + c),
+               in);
+  }
+}
+
+// the m16 x k16 A fragments over D of rows r0 (g) and r1 (g + 8) of an
+// (L, D) bf16 matrix in device memory; zeros past L and past D (D = 8)
+template <int D>
+__device__ __forceinline__ void load_a_bf16(const u16* __restrict__ m,
+                                            int r0, int r1, int L,
+                                            uint32_t (&a)[kBfSteps<D>][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int s = 0; s < kBfSteps<D>; ++s) {
+    const int c0 = 16 * s + 2 * t, c1 = c0 + 8;
+    a[s][0] = r0 < L ? __ldg(reinterpret_cast<const unsigned*>(
+                           m + static_cast<int64_t>(r0) * D + c0))
+                     : 0u;
+    a[s][1] = r1 < L ? __ldg(reinterpret_cast<const unsigned*>(
+                           m + static_cast<int64_t>(r1) * D + c0))
+                     : 0u;
+    a[s][2] = c1 < D && r0 < L
+                  ? __ldg(reinterpret_cast<const unsigned*>(
+                        m + static_cast<int64_t>(r0) * D + c1))
+                  : 0u;
+    a[s][3] = c1 < D && r1 < L
+                  ? __ldg(reinterpret_cast<const unsigned*>(
+                        m + static_cast<int64_t>(r1) * D + c1))
+                  : 0u;
+  }
+}
+
+// c += a b^T over D for the 8 staged rows at `row` (b's rows are the
+// product's columns: the reduction runs along each staged row)
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&c)[4],
+                                         const uint32_t (&a)[kBfSteps<D>][4],
+                                         const u16* __restrict__ row) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const u16* p = row + g * kBfStride<D> + 2 * t;
+#pragma unroll
+  for (int s = 0; s < kBfSteps<D>; ++s)
+    mma_bf16(c, a[s], ld32(p + 16 * s),
+             16 * s + 8 < D ? ld32(p + 16 * s + 8) : 0u);
+}
+
+// c[n] += a x (16 staged rows from `rows`, columns 8n .. 8n + 7): the
+// reduction runs down the staged rows
+template <int D>
+__device__ __forceinline__ void mma_down(float (&c)[D / 8][4],
+                                         const uint32_t (&a)[4],
+                                         const u16* __restrict__ rows) {
+  constexpr int S = kBfStride<D>;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const u16* p = rows + 2 * t * S + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    mma_bf16(c[n], a, ld_pair<S>(p + 8 * n), ld_pair<S>(p + 8 * S + 8 * n));
+}
+
+// the A fragment of a 16 x 16 block from two 8-column accumulators, rounded
+// to bf16
+__device__ __forceinline__ void acc_to_a(const float (&lo)[4],
+                                         const float (&hi)[4],
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// rows r0 (g) and r1 (g + 8) of an (.., D) accumulator set, as bf16, times
+// mul, at columns 8n + 2t (+1)
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(u16* __restrict__ out,
+                                                const float (&c)[D / 8][4],
+                                                int r0, int r1, int L,
+                                                float mul0, float mul1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= L) continue;
+    const float mul = r ? mul1 : mul0;
+    u16* p = out + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(p + 8 * n) =
+          pack_bf16(c[n][2 * r] * mul, c[n][2 * r + 1] * mul);
+  }
+}
+
+// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
+                      const u16* __restrict__ v, u16* __restrict__ o,
+                      float* __restrict__ lse2, int L, float scale_log2) {
+  constexpr int M = kBfMat<D>, N8 = D / 8;
+  extern __shared__ __align__(16) u16 bsmem[];
+  u16* ks = bsmem;          // 2 buffers
+  u16* vs = bsmem + 2 * M;  // 2 buffers
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
+  const int warp_first = qt * kTile + 16 * warp;
+  const int rows[2] = {warp_first + g, warp_first + g + 8};
+
+  copy_tile_bf16<D>(k + base, ks, 0, L);
+  copy_tile_bf16<D>(v + base, vs, 0, L);
+  cp_async_commit();
+
+  uint32_t qa[kBfSteps<D>][4];
+  load_a_bf16<D>(q + base, rows[0], rows[1], L, qa);
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // key tiles up to the diagonal one (tiles and blocks are both kTile rows)
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int buf = (kt & 1) * M;
+    if (kt < qt) {
+      const int next = ((kt + 1) & 1) * M;
+      copy_tile_bf16<D>(k + base, ks + next, (kt + 1) * kTile, L);
+      copy_tile_bf16<D>(v + base, vs + next, (kt + 1) * kTile, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int key0 = kt * kTile;
+    // 8-key blocks at or before the warp's last row (an even count)
+    const int nb = min(8, (warp_first + 15 - key0) / 8 + 1);
+    float s[8][4];
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if (j < nb) mma_rows<D>(s[j], qa, ks + buf + 8 * j * kBfStride<D>);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = key0 + 8 * j + 2 * t + (i & 1);
+        const float x = s[j][i] * scale_log2;
+        s[j][i] = j < nb && key <= rows[i >> 1] ? x : -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key 0 is in every row's first tile, so mx is finite from there on
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= corr[i >> 1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(s[j][i] - m[i >> 1]);
+        l[i >> 1] += s[j][i];
+      }
+    // p v, p rounded to bf16 as the A operand
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (2 * c >= nb) break;
+      uint32_t pa[4];
+      acc_to_a(s[2 * c], s[2 * c + 1], pa);
+      mma_down<D>(acc, pa, vs + buf + 16 * c * kBfStride<D>);
+    }
+    __syncthreads();  // before tile kt + 2 overwrites this buffer
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && rows[r] < L)
+      lse2[static_cast<int64_t>(blockIdx.x) * L + rows[r]] =
+          m[r] + log2f(l[r]);
+  }
+  store_rows_bf16<D>(o + base, acc, rows[0], rows[1], L, inv[0], inv[1]);
+}
+
+// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the FIRST key tile, which sees
+// every query tile
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
+                          const u16* __restrict__ v,
+                          const u16* __restrict__ dout,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ di, u16* __restrict__ dk,
+                          u16* __restrict__ dv, int L, float scale_log2,
+                          float scale) {
+  constexpr int M = kBfMat<D>, N8 = D / 8;
+  extern __shared__ __align__(16) u16 bsmem[];
+  u16* qs = bsmem;           // 2 buffers
+  u16* dos = bsmem + 2 * M;  // 2 buffers
+  float* ls = reinterpret_cast<float*>(bsmem + 4 * M);  // 2 buffers of kTile
+  float* dis = ls + 2 * kTile;                           // 2 buffers of kTile
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int kt = blockIdx.y;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
+  const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
+  const int warp_first = kt * kTile + 16 * warp;
+  const int cols[2] = {warp_first + g, warp_first + g + 8};
+  const int n_tiles = (L - kt * kTile + kTile - 1) / kTile;
+
+  // one query tile (rows t0 .. t0 + 63) of q, do, lse2, di into buffer b
+  auto load_tile = [&](int t0, int b) {
+    copy_tile_bf16<D>(q + base, qs + b * M, t0, L);
+    copy_tile_bf16<D>(dout + base, dos + b * M, t0, L);
+    const int r = threadIdx.x % kTile;  // 2 * kTile == kThreads
+    const bool in = t0 + r < L;
+    const int64_t at = lbase + (in ? t0 + r : 0);
+    if (threadIdx.x < kTile)
+      cp_async4(ls + b * kTile + r, lse2 + at, in);
+    else
+      cp_async4(dis + b * kTile + r, di + at, in);
+    cp_async_commit();
+  };
+  load_tile(kt * kTile, 0);
+
+  uint32_t ka[kBfSteps<D>][4], va[kBfSteps<D>][4];
+  load_a_bf16<D>(k + base, cols[0], cols[1], L, ka);
+  load_a_bf16<D>(v + base, cols[0], cols[1], L, va);
+  float dka[N8][4], dva[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = kt * kTile + it * kTile, b = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile(t0 + kTile, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const u16* qt_ = qs + b * M;
+    const u16* dt_ = dos + b * M;
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      const int qi0 = t0 + 16 * c;
+      if (qi0 >= L) break;
+      if (qi0 + 15 < warp_first) continue;  // every query before every key
+      // s^T, dp^T: keys (rows g, g+8) by queries qi0 + 8jj + 2t (+1)
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
+        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
+        mma_rows<D>(s[jj], ka, qt_ + (16 * c + 8 * jj) * kBfStride<D>);
+        mma_rows<D>(dp[jj], va, dt_ + (16 * c + 8 * jj) * kBfStride<D>);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * c + 8 * jj + 2 * t + (i & 1);  // tile row
+          const int qi = t0 + r;
+          const float p =
+              qi >= cols[i >> 1] && qi < L
+                  ? exp2f(s[jj][i] * scale_log2 - ls[b * kTile + r])
+                  : 0.f;
+          s[jj][i] = p;
+          dp[jj][i] = (dp[jj][i] - dis[b * kTile + r]) * p * scale;
+        }
+      }
+      uint32_t pa[4], da[4];
+      acc_to_a(s[0], s[1], pa);
+      acc_to_a(dp[0], dp[1], da);
+      mma_down<D>(dva, pa, dt_ + 16 * c * kBfStride<D>);
+      mma_down<D>(dka, da, qt_ + 16 * c * kBfStride<D>);
+    }
+    __syncthreads();  // before tile it + 2 overwrites this buffer
+  }
+  store_rows_bf16<D>(dk + base, dka, cols[0], cols[1], L, 1.f, 1.f);
+  store_rows_bf16<D>(dv + base, dva, cols[0], cols[1], L, 1.f, 1.f);
+}
+
+// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
+                         const u16* __restrict__ v,
+                         const u16* __restrict__ dout,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ di, u16* __restrict__ dq,
+                         int L, float scale_log2, float scale) {
+  constexpr int M = kBfMat<D>, N8 = D / 8;
+  extern __shared__ __align__(16) u16 bsmem[];
+  u16* ks = bsmem;          // 2 buffers
+  u16* vs = bsmem + 2 * M;  // 2 buffers
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
+  const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
+  const int warp_first = qt * kTile + 16 * warp;
+  const int rows[2] = {warp_first + g, warp_first + g + 8};
+
+  copy_tile_bf16<D>(k + base, ks, 0, L);
+  copy_tile_bf16<D>(v + base, vs, 0, L);
+  cp_async_commit();
+
+  uint32_t qa[kBfSteps<D>][4], da[kBfSteps<D>][4];
+  load_a_bf16<D>(q + base, rows[0], rows[1], L, qa);
+  load_a_bf16<D>(dout + base, rows[0], rows[1], L, da);
+  float lr[2], dir[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < L;
+    lr[r] = in ? lse2[lbase + rows[r]] : 0.f;
+    dir[r] = in ? di[lbase + rows[r]] : 0.f;
+  }
+  float dqa[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int buf = (kt & 1) * M;
+    if (kt < qt) {
+      const int next = ((kt + 1) & 1) * M;
+      copy_tile_bf16<D>(k + base, ks + next, (kt + 1) * kTile, L);
+      copy_tile_bf16<D>(v + base, vs + next, (kt + 1) * kTile, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int key0 = kt * kTile;
+    const int nb = min(8, (warp_first + 15 - key0) / 8 + 1);
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      if (2 * c >= nb) break;
+      // s, dp: rows g, g+8 by keys key0 + 16c + 8jj + 2t (+1)
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
+        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
+        const int off = buf + (16 * c + 8 * jj) * kBfStride<D>;
+        mma_rows<D>(s[jj], qa, ks + off);
+        mma_rows<D>(dp[jj], da, vs + off);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int key = key0 + 16 * c + 8 * jj + 2 * t + (i & 1);
+          const float p = key <= rows[r] && rows[r] < L
+                              ? exp2f(s[jj][i] * scale_log2 - lr[r])
+                              : 0.f;
+          dp[jj][i] = (dp[jj][i] - dir[r]) * p * scale;
+        }
+      }
+      uint32_t dsa[4];
+      acc_to_a(dp[0], dp[1], dsa);
+      mma_down<D>(dqa, dsa, ks + buf + 16 * c * kBfStride<D>);
+    }
+    __syncthreads();  // before tile kt + 2 overwrites this buffer
+  }
+  store_rows_bf16<D>(dq + base, dqa, rows[0], rows[1], L, 1.f, 1.f);
+}
+
+}  // namespace
+
+// C interface of the bf16 instances: q, k, v, o, do, dq, dk, dv contiguous
+// bf16 (bh, L, d), 16-byte aligned; lse2 and di float32 (bh, L). Otherwise
+// as the float32 functions above.
+extern "C" int movae_flash_bf16_fwd(const void* q, const void* k,
+                                    const void* v, void* o, float* lse2,
+                                    int bh, int L, int d, float scale,
+                                    int device, void* stream) {
+  int err = prologue(bh, L, d, device);
+  if (err != 0) return err;
+  constexpr int smem = bf_tiles_bytes<kD>();
+  err = allow_smem(flash_fwd_bf16_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_fwd_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u16*>(q), static_cast<const u16*>(k),
+      static_cast<const u16*>(v), static_cast<u16*>(o), lse2, L,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int movae_flash_bf16_bwd_dkv(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const float* lse2, const float* di,
+                                        void* dk, void* dv, int bh, int L,
+                                        int d, float scale, int device,
+                                        void* stream) {
+  int err = prologue(bh, L, d, device);
+  if (err != 0) return err;
+  constexpr int smem =
+      bf_tiles_bytes<kD>() + 4 * kTile * static_cast<int>(sizeof(float));
+  err = allow_smem(flash_bwd_dkv_bf16_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_bwd_dkv_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u16*>(q), static_cast<const u16*>(k),
+      static_cast<const u16*>(v), static_cast<const u16*>(dout), lse2, di,
+      static_cast<u16*>(dk), static_cast<u16*>(dv), L, scale * kLog2e, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int movae_flash_bf16_bwd_dq(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const float* lse2, const float* di,
+                                       void* dq, int bh, int L, int d,
+                                       float scale, int device, void* stream) {
+  int err = prologue(bh, L, d, device);
+  if (err != 0) return err;
+  constexpr int smem = bf_tiles_bytes<kD>();
+  err = allow_smem(flash_bwd_dq_bf16_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_bwd_dq_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u16*>(q), static_cast<const u16*>(k),
+      static_cast<const u16*>(v), static_cast<const u16*>(dout), lse2, di,
+      static_cast<u16*>(dq), L, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }

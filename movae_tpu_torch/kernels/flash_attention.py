@@ -1,12 +1,18 @@
 """Causal flash attention: the CUDA kernels' wrapper and their plain version.
 
 ``flash_causal_attention(q, k, v, sm_scale)`` computes, over (B, H, L, D)
-float32 tensors, ``softmax(q k^T * sm_scale, inclusive causal mask) v``
-(position i attends to 0..i) — the function of the stock Pallas TPU flash
-attention that ``movae_tpu/ops/attention.py:causal_attention`` calls for
-long sequences, and of its ``dense_causal_attention``. A CPU tensor takes
-the plain PyTorch version; a CUDA tensor launches ``flash_attention.cu``
-(forward; dK/dV then dQ in the backward) or raises.
+float32 or bfloat16 tensors, ``softmax(q k^T * sm_scale, inclusive causal
+mask) v`` (position i attends to 0..i) — the function of the stock Pallas
+TPU flash attention that ``movae_tpu/ops/attention.py:causal_attention``
+calls for long sequences. A CPU tensor takes the plain PyTorch version; a
+CUDA tensor launches ``flash_attention.cu`` (forward; dK/dV then dQ in the
+backward), the float32 or the bfloat16 instances by its dtype, or raises.
+
+At bfloat16 the kernels compute what the stock Pallas kernel computes on
+bf16 inputs: products of bf16 values summed in float32, the logits scaled
+in float32, p and ds rounded to bf16 before their products, outputs in
+bf16; the softmax statistics and di stay float32. The plain version rounds
+at the same points (:func:`flash_causal_attention_plain`).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ Tensor = torch.Tensor
 SUPPORTED_DIMS = build.FLASH_HEAD_DIMS  # one library each
 _INT32_MAX = 2 ** 31 - 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+DTYPES = (torch.float32, torch.bfloat16)
 _SIGNATURES = {
     # q, k, v, o, lse2, bh, L, d, scale, device, stream
     "movae_flash_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
@@ -32,15 +39,22 @@ _SIGNATURES = {
     # q, k, v, do, lse2, di, dq, bh, L, d, scale, device, stream
     "movae_flash_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
 }
+# the bfloat16 instances take the same arguments
+_SIGNATURES.update({name.replace("movae_flash_", "movae_flash_bf16_"): sig
+                    for name, sig in list(_SIGNATURES.items())})
+# bfloat16 plain version: rows of B*H computed at a time, so that the L x L
+# float32 intermediates of the prior's shape stay a few GB
+_PLAIN_CHUNK = 8
 
 
-def flash_causal_attention_plain(
+def dense_causal_attention(
         q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
         weights_fn: Optional[Callable[[Tensor], Tensor]] = None) -> Tensor:
-    """The dense masked softmax in plain PyTorch (the L x L logits are
-    materialized), as ``movae_tpu/ops/attention.py:dense_causal_attention``.
-    ``weights_fn`` maps the (B, H, L, L) attention weights before they meet
-    v (the prior's attention-weight dropout)."""
+    """The dense masked softmax in plain PyTorch, in the inputs' dtype (the
+    L x L logits are materialized), as ``movae_tpu/ops/attention.py:
+    dense_causal_attention``. ``weights_fn`` maps the (B, H, L, L)
+    attention weights before they meet v (the prior's attention-weight
+    dropout)."""
     L = q.shape[2]
     logits = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
@@ -48,6 +62,96 @@ def flash_causal_attention_plain(
     if weights_fn is not None:
         weights = weights_fn(weights)
     return torch.matmul(weights, v)
+
+
+def _plain_logits(q: Tensor, k: Tensor, sm_scale: float) -> Tensor:
+    """Scaled float32 logits from bf16 q, k (their products are exact in
+    float32), the causal mask as -inf."""
+    L = q.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def _bf(x: Tensor) -> Tensor:
+    """x rounded to bfloat16, back in float32 for the product it feeds."""
+    return x.to(torch.bfloat16).float()
+
+
+def plain_fwd_bf16(q: Tensor, k: Tensor, v: Tensor, sm_scale: float):
+    """The bf16 forward kernel's arithmetic in plain PyTorch: f32 logits and
+    softmax statistics, p rounded to bf16 before p v, o in bf16. Returns
+    (o, lse), lse the natural log-sum-exp of the scaled logits, (B, H, L)
+    float32."""
+    o = torch.empty_like(q)
+    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+    for i in range(0, q.shape[0], _PLAIN_CHUNK):
+        sl = slice(i, i + _PLAIN_CHUNK)
+        s = _plain_logits(q[sl], k[sl], sm_scale)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        denom = p.sum(-1, keepdim=True)
+        o[sl] = (torch.matmul(_bf(p), v[sl].float()) / denom).to(o.dtype)
+        lse[sl] = (m + torch.log(denom))[..., 0]
+        del s, p
+    return o, lse
+
+
+def plain_bwd_bf16(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                   do: Tensor, sm_scale: float):
+    """The bf16 backward kernels' arithmetic in plain PyTorch from the
+    forward's ``o`` and natural ``lse``: di = sum(o do) in f32, dv =
+    bf16(p)^T do, ds = (dp - di) p s and dk = bf16(ds)^T q, dq = bf16(ds) k,
+    each in bf16. Returns (dq, dk, dv)."""
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for i in range(0, q.shape[0], _PLAIN_CHUNK):
+        sl = slice(i, i + _PLAIN_CHUNK)
+        dof = do[sl].float()
+        di = (o[sl].float() * dof).sum(-1, keepdim=True)
+        p = torch.exp(_plain_logits(q[sl], k[sl], sm_scale)
+                      - lse[sl][..., None])
+        dv[sl] = torch.matmul(_bf(p).transpose(-1, -2), dof).to(dv.dtype)
+        dp = torch.matmul(dof, v[sl].float().transpose(-1, -2))
+        ds = _bf((dp - di) * p * sm_scale)
+        dk[sl] = torch.matmul(ds.transpose(-1, -2),
+                              q[sl].float()).to(dk.dtype)
+        dq[sl] = torch.matmul(ds, k[sl].float()).to(dq.dtype)
+        del p, dp, ds
+    return dq, dk, dv
+
+
+class _PlainFlashBf16(torch.autograd.Function):
+    """:func:`plain_fwd_bf16`, differentiable through
+    :func:`plain_bwd_bf16`."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, sm_scale: float
+                ) -> Tensor:
+        o, lse = plain_fwd_bf16(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do: Tensor):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*plain_bwd_bf16(q, k, v, o, lse, do, ctx.sm_scale), None)
+
+
+def flash_causal_attention_plain(
+        q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
+        weights_fn: Optional[Callable[[Tensor], Tensor]] = None) -> Tensor:
+    """The kernels' plain PyTorch version. float32: the dense masked
+    softmax (:func:`dense_causal_attention`; ``weights_fn`` as there).
+    bfloat16: the kernels' rounding points (:class:`_PlainFlashBf16`),
+    which take no ``weights_fn``."""
+    if q.dtype != torch.bfloat16:
+        return dense_causal_attention(q, k, v, sm_scale, weights_fn)
+    if weights_fn is not None:
+        raise ValueError("the bfloat16 plain flash version takes no "
+                         "weights_fn (the dense path applies weight "
+                         "dropout)")
+    return _PlainFlashBf16.apply(q, k, v, float(sm_scale))
 
 
 def _library(d: int) -> ctypes.CDLL:
@@ -62,16 +166,17 @@ def _library(d: int) -> ctypes.CDLL:
 
 def _check(**tensors: Tensor) -> None:
     """Raise on anything the kernels do not take: every tensor on one CUDA
-    device, float32, 4-D (B, H, L, D) of one shape, contiguous, 16-byte
-    aligned, D in SUPPORTED_DIMS."""
+    device, all float32 or all bfloat16, 4-D (B, H, L, D) of one shape,
+    contiguous, 16-byte aligned, D in SUPPORTED_DIMS."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"flash_causal_attention_cuda needs every tensor "
                              f"on one CUDA device, got {name} on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_causal_attention_cuda takes float32, got "
-                            f"{name} {t.dtype}")
+        if t.dtype not in DTYPES or t.dtype != first.dtype:
+            raise TypeError(f"flash_causal_attention_cuda takes float32 or "
+                            f"bfloat16 tensors of one dtype, got {name} "
+                            f"{t.dtype}")
         if t.dim() != 4 or t.shape != first.shape:
             raise ValueError(f"flash_causal_attention_cuda takes (B, H, L, D) "
                              f"tensors of one shape, got {name} "
@@ -88,7 +193,10 @@ def _check(**tensors: Tensor) -> None:
                          f"B*H, L*D < 2^31, got {tuple(first.shape)}")
 
 
-def _launch(name: str, count: str, d: int, *args) -> None:
+def _launch(name: str, count: str, dtype: torch.dtype, d: int, *args
+            ) -> None:
+    if dtype == torch.bfloat16:
+        name = name.replace("movae_flash_", "movae_flash_bf16_")
     err = getattr(_library(d), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -100,23 +208,26 @@ def _stream(t: Tensor) -> int:
 
 
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, sm_scale: float):
-    """Forward kernel: (o, lse2), lse2 the per-row log-sum-exp of the scaled
-    logits in base 2, (B, H, L). Inputs are checked by the caller."""
+    """Forward kernel: (o, lse2), o in q's dtype, lse2 the per-row
+    log-sum-exp of the scaled logits in base 2, (B, H, L) float32. Inputs
+    are checked by the caller."""
     b, h, L, d = q.shape
     o = torch.empty_like(q)
     lse2 = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
-    _launch("movae_flash_fwd", "flash_attention_fwd", d, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), o.data_ptr(), lse2.data_ptr(), b * h,
+    _launch("movae_flash_fwd", "flash_attention_fwd", q.dtype, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse2.data_ptr(), b * h,
             L, d, sm_scale, q.device.index, _stream(q))
     return o, lse2
 
 
 def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse2: Tensor,
                   di: Tensor, sm_scale: float):
-    """dK/dV kernel: (dk, dv). ``di`` = (o * do).sum(-1), (B, H, L)."""
+    """dK/dV kernel: (dk, dv). ``di`` = (o * do).sum(-1), (B, H, L)
+    float32."""
     b, h, L, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("movae_flash_bwd_dkv", "flash_attention_bwd_dkv", d,
+    _launch("movae_flash_bwd_dkv", "flash_attention_bwd_dkv", q.dtype, d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b * h, L, d, sm_scale, q.device.index, _stream(q))
@@ -128,9 +239,10 @@ def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse2: Tensor,
     """dQ kernel."""
     b, h, L, d = q.shape
     dq = torch.empty_like(q)
-    _launch("movae_flash_bwd_dq", "flash_attention_bwd_dq", d, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), b * h, L, d, sm_scale,
+    _launch("movae_flash_bwd_dq", "flash_attention_bwd_dq", q.dtype, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h, L, d,
+            sm_scale,
             q.device.index, _stream(q))
     return dq
 
@@ -154,7 +266,8 @@ class _FlashCausalAttention(torch.autograd.Function):
         # cotangent
         do = do.contiguous()
         _check(q=q, do=do)
-        di = (o * do).sum(-1)
+        # in float32 from the bf16 o and do at bfloat16, as the TPU kernel
+        di = (o.float() * do.float()).sum(-1)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse2, di, ctx.sm_scale)
         dq = flash_bwd_dq(q, k, v, do, lse2, di, ctx.sm_scale)
         return dq, dk, dv, None
@@ -175,8 +288,8 @@ def flash_causal_attention(q: Tensor, k: Tensor, v: Tensor,
     """(B, H, L, D) q, k, v -> (B, H, L, D) causal attention output.
 
     CPU tensors take :func:`flash_causal_attention_plain`; CUDA tensors
-    launch the kernels, which raise on anything they do not take (no
-    fallback)."""
+    launch the kernels of their dtype, which raise on anything they do not
+    take (no fallback, and no cast from bfloat16 to float32)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_causal_attention_plain(q, k, v, sm_scale)
     return flash_causal_attention_cuda(q, k, v, sm_scale)

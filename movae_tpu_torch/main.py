@@ -147,8 +147,8 @@ def build_parser() -> ArgumentParser:
                              ".npy files")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="model compute dtype (bfloat16: ROADMAP.md "
-                             "Queue 1 item 6)")
+                        help="dtype of the conv and dense layers "
+                             "(parameters stay float32)")
     parser.add_argument("--log_every", type=int, default=1,
                         help="per-step logger record cadence (0 = epoch "
                              "only)")
@@ -179,14 +179,15 @@ def build_parser() -> ArgumentParser:
                              "only)")
     parser.add_argument("--vq_ema_decay", type=float, default=0.99)
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="optimizer steps fused into one dispatch (> 1: "
-                             "ROADMAP.md Queue 1 item 6)")
+                        help="train steps a dispatch queues; the port's "
+                             "step makes no host synchronisation, so every "
+                             "batch runs through the single step")
     parser.add_argument("--grad_accum", type=int, default=1,
-                        help="gradient accumulation microbatches (> 1: "
-                             "ROADMAP.md Queue 1 item 6)")
+                        help="gradient accumulation microbatches per "
+                             "optimizer update")
     parser.add_argument("--remat", action="store_true",
-                        help="rematerialized backward (ROADMAP.md Queue 1 "
-                             "item 6)")
+                        help="rematerialized backward (recompute the "
+                             "forward in the backward)")
     parser.add_argument("--device_data", action="store_true",
                         help="keep the whole uint8 train set on the card "
                              "and gather batches there (auto-enabled on "

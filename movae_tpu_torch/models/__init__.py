@@ -21,7 +21,8 @@ from typing import Any, Mapping
 import torch
 
 from movae_tpu_torch.device import DeviceLike, resolve_device
-from movae_tpu_torch.models.base import MOVAEModel, resolve_lambda_weights
+from movae_tpu_torch.models.base import (MOVAEModel, resolve_compute_dtype,
+                                         resolve_lambda_weights)
 from movae_tpu_torch.models.betatc_vae import BetaTCVAE
 from movae_tpu_torch.models.cycle_vae import CycleVAE
 from movae_tpu_torch.models.gg_vae import GGVAE
@@ -35,7 +36,8 @@ from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
 __all__ = ["BetaTCVAE", "CycleVAE", "GGVAE", "GGVQVAE", "GGVQVAE2",
            "RecursiveCyclicVAE", "RecursiveKLVAE", "VAE", "VQVAE", "VQVAE2",
-           "MOVAEModel", "get_network", "init_model"]
+           "MOVAEModel", "get_network", "init_model",
+           "resolve_compute_dtype"]
 
 _NOT_PORTED = {
     "pixelcnn": "Queue 1 item 8 (the flat priors are built by "
@@ -166,11 +168,9 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     if not (vae_family or arch in ("vq_vae", "vq_vae2")
             or arch.startswith("gg_vq_vae")):
         raise ValueError(f"Network architecture {arch} not supported")
-    dtype = _get(args, "compute_dtype", "float32")
-    if dtype not in ("float32", torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype {dtype!r}: the port computes in float32 only; "
-            f"bf16 compute is ROADMAP.md Queue 1 item 6 (deferred)")
+    # the conv and dense layers' dtype; parameters stay float32
+    dtype = resolve_compute_dtype(_get(args, "compute_dtype", "float32")
+                                  or "float32")
     recons_objective = (_get(args, "recons_objective", None)
                         or _get(args, "recons_obj", None))
     if recons_objective is None:
@@ -194,7 +194,7 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
                            lambda_weights, dict(
                                recons_objective=recons_objective,
                                recons_activation=recons_activation,
-                               perceptual_fn=perceptual_fn))
+                               perceptual_fn=perceptual_fn, dtype=dtype))
     vq_ema = bool(_get(args, "vq_ema", False))
     # EMA maintains the codebooks; the gradient-free embedding loss leaves
     # the objective vector
@@ -244,7 +244,7 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
         recons_objective=recons_objective, perceptual_fn=perceptual_fn,
         lambda_weights=_weights(lambda_weights, names, defaults),
         vq_ema=vq_ema, vq_ema_decay=float(_get(args, "vq_ema_decay", 0.99)),
-        **kw)
+        dtype=dtype, **kw)
 
 
 def init_model(model: MOVAEModel, seed: int = 0,

@@ -13,6 +13,10 @@ Every model follows the same contract as the JAX zoo:
     parameters.
   * ``forward(x, train)`` = heads(trunk(x)).
 
+``compute_dtype`` (float32, or bfloat16 for ``--compute_dtype bfloat16``)
+is the dtype of the conv and dense layers (:func:`compute_region`);
+parameters stay float32, so ``state_dict()`` does not change.
+
 Images are NHWC at this interface. ``train`` is an explicit argument as in
 the JAX package (not ``nn.Module.train()``), and randomness comes from an
 explicit ``torch.Generator``. ``restart_rows`` maps an EMA codebook's module
@@ -24,6 +28,7 @@ from ``generator`` (so a test can give both frameworks the same rows);
 
 from __future__ import annotations
 
+import contextlib
 from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
                     Union)
 
@@ -71,6 +76,30 @@ def resolve_lambda_weights(
     return tuple((k, float(w)) for k, w in zip(names, seq))
 
 
+def resolve_compute_dtype(dt) -> torch.dtype:
+    """'float32' / 'bfloat16' (or a torch dtype) -> the torch dtype; the
+    single resolver of ``--compute_dtype`` (the JAX package's
+    ``resolve_compute_dtype``)."""
+    if isinstance(dt, str):
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {dt!r}: float32 or bfloat16")
+    return dt
+
+
+def compute_region(dtype: torch.dtype, device: torch.device):
+    """flax's ``dtype=`` on the conv and dense layers of a region: under
+    bfloat16 every convolution and matmul inside computes in bf16 from its
+    float32 parameters cast at use (``torch.autocast``), and the activations
+    and residual sums between them stay bf16. The caller casts at the
+    region's ends where the JAX package does (inputs to the dtype, outputs
+    to float32); norms compute in float32 themselves. float32 changes
+    nothing."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=dtype)
+
+
 def resolve_activation(name: Optional[str]) -> Callable[[Tensor], Tensor]:
     """Decoder output activation by name."""
     name = (name or "none").lower()
@@ -87,6 +116,7 @@ class MOVAEModel(nn.Module):
     """Abstract base (see module docstring for the contract)."""
 
     lambda_weights: LambdaWeights = ()
+    compute_dtype: torch.dtype = torch.float32
 
     @property
     def objective_names(self) -> Tuple[str, ...]:
@@ -157,9 +187,13 @@ class MOVAEModel(nn.Module):
         return stats
 
     @torch.no_grad()
-    def commit_batch_stats(self, updates: Mapping[str, Tensor]) -> None:
+    def commit_batch_stats(self, updates: Mapping[str, Tensor],
+                           ok: Optional[Tensor] = None) -> None:
         """Write a step's new statistics (``outputs["batch_stats"]``) in
-        place."""
+        place; where the 0-dim bool ``ok`` is False each keeps its value
+        (decided on the device)."""
         stats = self.batch_stats()
         for name, value in updates.items():
-            stats[name].copy_(value)
+            old = stats[name]
+            value = value.to(old.dtype)
+            old.copy_(value if ok is None else torch.where(ok, value, old))

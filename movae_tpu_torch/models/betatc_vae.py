@@ -27,7 +27,8 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, Noise, RestartRows,
-                                         resolve_activation)
+                                         compute_region, resolve_activation,
+                                         resolve_compute_dtype)
 from movae_tpu_torch.models.vae import VAE, _nchw, _nhwc, reset_vae_parameters
 
 Tensor = torch.Tensor
@@ -54,8 +55,10 @@ class BetaTCVAE(VAE):
                  recons_activation: str = "tanh",
                  recons_objective: str = "mse",
                  lambda_weights: Optional[LambdaWeights] = None,
-                 perceptual_fn: Optional[Any] = None):
+                 perceptual_fn: Optional[Any] = None,
+                 dtype: Any = torch.float32):
         nn.Module.__init__(self)
+        self.compute_dtype = resolve_compute_dtype(dtype)
         hd = tuple(hidden_dims)
         self.latent_dim = latent_dim
         self.input_size = input_size
@@ -104,15 +107,20 @@ class BetaTCVAE(VAE):
 
     def encode(self, x: Tensor, train: bool = False, stats=None
                ) -> Tuple[Tensor, Tensor]:
-        h = self.fc(self.encoder(_nchw(x)).flatten(1))
-        return self.fc_mu(h), self.fc_var(h)
+        """NHWC images -> float32 (mu, log_var), computed in
+        ``compute_dtype``."""
+        with compute_region(self.compute_dtype, x.device):
+            h = self.fc(self.encoder(_nchw(x, self.compute_dtype)).flatten(1))
+            mu, log_var = self.fc_mu(h), self.fc_var(h)
+        return mu.float(), log_var.float()
 
     def decode(self, z: Tensor, train: bool = False, stats=None) -> Tensor:
         s = self.spatial_dim
-        h = self.decoder_input(z.float()).reshape(z.shape[0],
-                                                  self.hidden_dims[-1], s, s)
-        h = self.final_layer(self.decoder(h))
-        return _nhwc(self._act(h))
+        with compute_region(self.compute_dtype, z.device):
+            h = self.decoder_input(z.to(self.compute_dtype)).reshape(
+                z.shape[0], self.hidden_dims[-1], s, s)
+            h = self._act(self.final_layer(self.decoder(h)))
+        return _nhwc(h.float())
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,

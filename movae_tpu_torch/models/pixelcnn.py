@@ -32,7 +32,7 @@ draws differ, so tests compare at dropout 0 or by statistics.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from torch import nn
 from movae_tpu_torch.ops.attention import (DENSE_ATTENTION_MAX_L,
                                            causal_attention,
                                            dense_causal_attention)
+from movae_tpu_torch.models.base import compute_region, resolve_compute_dtype
 from movae_tpu_torch.ops.vq import gather_rows
 
 Tensor = torch.Tensor
@@ -179,13 +180,17 @@ class CausalAttention(nn.Module):
         q, k, v = self.qkv(x)
         sm_scale = 1.0 / math.sqrt(hd)
         drop = self.dropout if train else 0.0
-        if (drop > 0.0 and self.attn_dropout_mode == "weights"
-                and L <= DENSE_ATTENTION_MAX_L):
-            out = dense_causal_attention(
-                q, k, v, sm_scale, lambda w: _dropout(w, drop, generator))
-        else:
-            out = _dropout(causal_attention(q, k, v, sm_scale), drop,
-                           generator)
+        # the attention computes in q's dtype (the projections' compute
+        # dtype), as the JAX package's: no autocast re-casting inside
+        with torch.autocast(x.device.type, enabled=False):
+            if (drop > 0.0 and self.attn_dropout_mode == "weights"
+                    and L <= DENSE_ATTENTION_MAX_L):
+                out = dense_causal_attention(
+                    q, k, v, sm_scale,
+                    lambda w: _dropout(w, drop, generator))
+            else:
+                out = _dropout(causal_attention(q, k, v, sm_scale), drop,
+                               generator)
         # flatten DIM-MAJOR, channel = d * nh + head, as the reference's
         # out.permute(0, 2, 3, 1).reshape(B, L, proj_dim) does; out_proj's
         # weights are bound to this layout (a heads-major flatten was the
@@ -224,9 +229,13 @@ def _pos_encoding(h: int, w: int) -> np.ndarray:
 
 
 class _Prior(nn.Module):
-    """Shared embedding, output head, loss and initializers."""
+    """Shared embedding, output head, loss and initializers.
+    ``compute_dtype`` (float32 or bfloat16) is the dtype of the conv and
+    dense layers (``models/base.py:compute_region``); the embedding, the
+    logits and the cross-entropy are float32, as in the JAX package."""
 
     num_embeddings: int
+    compute_dtype: torch.dtype = torch.float32
 
     def _head(self) -> nn.Sequential:
         hc = self.hidden_channels
@@ -248,11 +257,6 @@ class _Prior(nn.Module):
                 mod.bias.zero_()
         self.embedding.reset_parameters(generator)
 
-    def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None,
-                    condition: Optional[Tensor] = None) -> Tensor:
-        raise NotImplementedError
-
     def _input(self, codes: Tensor, extra: Optional[Tensor],
                condition: Optional[Tensor]) -> Tensor:
         """conv_in's NCHW input: the code embedding, then ``extra``
@@ -263,6 +267,24 @@ class _Prior(nn.Module):
         if condition is not None:
             h.append(condition.permute(0, 3, 1, 2).to(h[0].dtype))
         return torch.cat(h, dim=1) if len(h) > 1 else h[0]
+
+    def _logits(self, h: Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> Tensor:
+        raise NotImplementedError
+
+    def logits_nchw(self, codes: Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    condition: Optional[Tensor] = None) -> Tensor:
+        """(B, H, W) codes -> (B, K, H, W) float32 logits, the layers in
+        ``compute_dtype``."""
+        h = self._input(codes, self._extra(codes), condition)
+        with compute_region(self.compute_dtype, codes.device):
+            out = self._logits(h, train, generator)
+        # bf16 logits to float32; a float64 module keeps float64
+        return out.to(torch.promote_types(out.dtype, torch.float32))
+
+    def _extra(self, codes: Tensor) -> Optional[Tensor]:
+        return None
 
     def forward(self, codes: Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -286,8 +308,10 @@ class PixelCNN(_Prior):
 
     def __init__(self, num_embeddings: int, embedding_dim: int = 64,
                  hidden_channels: int = 128, num_layers: int = 15,
-                 kernel_size: int = 7, conditional_channels: int = 0):
+                 kernel_size: int = 7, conditional_channels: int = 0,
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.hidden_channels = hidden_channels
@@ -300,10 +324,9 @@ class PixelCNN(_Prior):
             GatedResBlock(hidden_channels) for _ in range(num_layers))
         self.conv_out = self._head()
 
-    def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None,
-                    condition: Optional[Tensor] = None) -> Tensor:
-        h = self.conv_in(self._input(codes, None, condition))
+    def _logits(self, h: Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> Tensor:
+        h = self.conv_in(h)
         for blk in self.res_blocks:
             h = blk(h)
         return self.conv_out(h)
@@ -316,8 +339,10 @@ class PixelSNAIL(_Prior):
                  hidden_channels: int = 128, num_blocks: int = 8,
                  num_res_blocks_per_layer: int = 2, num_heads: int = 8,
                  kernel_size: int = 7, conditional_channels: int = 0,
-                 dropout: float = 0.1, attn_dropout_mode: str = "output"):
+                 dropout: float = 0.1, attn_dropout_mode: str = "output",
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.hidden_channels = hidden_channels
@@ -335,13 +360,14 @@ class PixelSNAIL(_Prior):
             for _ in range(num_blocks))
         self.conv_out = self._head()
 
-    def logits_nchw(self, codes: Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None,
-                    condition: Optional[Tensor] = None) -> Tensor:
+    def _extra(self, codes: Tensor) -> Tensor:
         b, hh, ww = codes.shape
         pos = torch.from_numpy(_pos_encoding(hh, ww).transpose(0, 3, 1, 2))
-        pos = pos.to(codes.device).expand(b, -1, -1, -1)
-        h = self.conv_in(self._input(codes, pos, condition))
+        return pos.to(codes.device).expand(b, -1, -1, -1)
+
+    def _logits(self, h: Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> Tensor:
+        h = self.conv_in(h)
         for blk in self.blocks:
             h = h + blk(h, train=train, generator=generator)
         return self.conv_out(h)
@@ -356,8 +382,9 @@ class HierarchicalPrior(nn.Module):
     (the samplers sample ``prior_top`` and ``prior_bottom`` themselves)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 hidden_channels: int):
+                 hidden_channels: int, dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.hidden_channels = hidden_channels
@@ -388,9 +415,11 @@ class HierarchicalPrior(nn.Module):
         self.prior_bottom.reset_parameters(generator)
 
     def condition_from_top(self, z_top: Tensor) -> Tensor:
-        """(B, h, w) top codes -> (B, 2h, 2w, D) conditioning plane."""
+        """(B, h, w) top codes -> (B, 2h, 2w, D) conditioning plane, in
+        ``compute_dtype``."""
         emb = self.embedding_top(z_top).permute(0, 3, 1, 2)
-        return self.upsample_top(emb).permute(0, 2, 3, 1)
+        with compute_region(self.compute_dtype, z_top.device):
+            return self.upsample_top(emb).permute(0, 2, 3, 1)
 
     def forward(self, z_top: Tensor, z_bottom: Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
@@ -417,18 +446,22 @@ class HierarchicalPixelCNN(HierarchicalPrior):
     """PixelCNN top prior, conditioned PixelCNN bottom prior."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int = 64,
-                 hidden_channels: int = 128, num_layers: int = 15):
+                 hidden_channels: int = 128, num_layers: int = 15,
+                 dtype: Any = torch.float32):
         self.num_layers = num_layers
-        super().__init__(num_embeddings, embedding_dim, hidden_channels)
+        super().__init__(num_embeddings, embedding_dim, hidden_channels,
+                         dtype)
 
     def make_top_module(self) -> "PixelCNN":
         return PixelCNN(self.num_embeddings, self.embedding_dim,
-                        self.hidden_channels, self.num_layers)
+                        self.hidden_channels, self.num_layers,
+                        dtype=self.compute_dtype)
 
     def make_bottom_module(self) -> "PixelCNN":
         return PixelCNN(self.num_embeddings, self.embedding_dim,
                         self.hidden_channels, self.num_layers,
-                        conditional_channels=self.embedding_dim)
+                        conditional_channels=self.embedding_dim,
+                        dtype=self.compute_dtype)
 
 
 class HierarchicalPixelSNAIL(HierarchicalPrior):
@@ -439,26 +472,30 @@ class HierarchicalPixelSNAIL(HierarchicalPrior):
                  hidden_channels: int = 128, num_blocks_top: int = 8,
                  num_res_blocks_per_layer: int = 2, num_heads: int = 8,
                  num_layers_bottom: int = 15, dropout: float = 0.1,
-                 attn_dropout_mode: str = "output"):
+                 attn_dropout_mode: str = "output",
+                 dtype: Any = torch.float32):
         self.num_blocks_top = num_blocks_top
         self.num_res_blocks_per_layer = num_res_blocks_per_layer
         self.num_heads = num_heads
         self.num_layers_bottom = num_layers_bottom
         self.dropout = dropout
         self.attn_dropout_mode = attn_dropout_mode
-        super().__init__(num_embeddings, embedding_dim, hidden_channels)
+        super().__init__(num_embeddings, embedding_dim, hidden_channels,
+                         dtype)
 
     def make_top_module(self) -> "PixelSNAIL":
         return PixelSNAIL(
             self.num_embeddings, self.embedding_dim, self.hidden_channels,
             self.num_blocks_top, self.num_res_blocks_per_layer,
             self.num_heads, dropout=self.dropout,
-            attn_dropout_mode=self.attn_dropout_mode)
+            attn_dropout_mode=self.attn_dropout_mode,
+            dtype=self.compute_dtype)
 
     def make_bottom_module(self) -> "PixelCNN":
         return PixelCNN(self.num_embeddings, self.embedding_dim,
                         self.hidden_channels, self.num_layers_bottom,
-                        conditional_channels=self.embedding_dim)
+                        conditional_channels=self.embedding_dim,
+                        dtype=self.compute_dtype)
 
 
 # ===========================================================================

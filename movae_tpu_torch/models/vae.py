@@ -37,7 +37,9 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
-                                         RestartRows, resolve_activation)
+                                         RestartRows, compute_region,
+                                         resolve_activation,
+                                         resolve_compute_dtype)
 from movae_tpu_torch.models.vq_vae import (_TRUNC_STD_CORRECTION,
                                            reset_conv_parameters)
 
@@ -67,7 +69,9 @@ class TorchBatchNorm(nn.Module):
     variance accumulating the unbiased one, keep-fraction ``momentum`` 0.9
     (torch's 0.1), eps 1e-5. The running statistics update functionally
     (see the module docstring); ``num_batches_tracked`` is kept for the
-    reference layout and stays 0, as the JAX exporter writes it."""
+    reference layout and stays 0, as the JAX exporter writes it. A bf16
+    input is normalized in float32 and the output returned in bf16, as the
+    JAX module does with ``dtype=bfloat16``."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -91,14 +95,16 @@ class TorchBatchNorm(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x: Tensor, train: bool, stats: Stats) -> Tensor:
+        xf = x.float()
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(x.dtype)
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         if stats is not None:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3),
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3),
                                            unbiased=False)
                 n = x.numel() // x.shape[1]
                 unbiased = var * (n / max(n - 1, 1))
@@ -108,13 +114,14 @@ class TorchBatchNorm(nn.Module):
                     key = self.prefix + name
                     old = stats.get(key, getattr(self, name))
                     stats[key] = m * old + (1.0 - m) * batch
-        return y
+        return y.to(x.dtype)
 
 
 class ChannelLayerNorm(nn.Module):
     """Flax ``nn.LayerNorm`` on NHWC features, here on NCHW ones: normalizes
     each position over the channel axis alone, eps 1e-6, variance as
-    E[x^2] - E[x]^2 clipped at 0 (flax's fast variance)."""
+    E[x^2] - E[x]^2 clipped at 0 (flax's fast variance); in float32, the
+    output in the input's dtype (flax's ``LayerNorm(dtype=)``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-6):
         super().__init__()
@@ -128,10 +135,11 @@ class ChannelLayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x: Tensor, train: bool, stats: Stats) -> Tensor:
-        mean = x.mean(1, keepdim=True)
-        var = ((x * x).mean(1, keepdim=True) - mean * mean).clamp(min=0.0)
+        xf = x.float()
+        mean = xf.mean(1, keepdim=True)
+        var = ((xf * xf).mean(1, keepdim=True) - mean * mean).clamp(min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
-        return (x - mean) * mul + self.bias[:, None, None]
+        return ((xf - mean) * mul + self.bias[:, None, None]).to(x.dtype)
 
 
 def make_norm(kind: Optional[str], channels: int) -> nn.Module:
@@ -167,8 +175,8 @@ def reset_vae_parameters(module: nn.Module,
             buf.zero_()
 
 
-def _nchw(x: Tensor) -> Tensor:
-    return x.float().permute(0, 3, 1, 2)
+def _nchw(x: Tensor, dtype: torch.dtype = torch.float32) -> Tensor:
+    return x.to(dtype).permute(0, 3, 1, 2)
 
 
 def _nhwc(x: Tensor) -> Tensor:
@@ -188,8 +196,10 @@ class VAE(MOVAEModel):
                  layer_norm: str = "batch", recons_activation: str = "tanh",
                  recons_objective: str = "mse",
                  lambda_weights: Optional[LambdaWeights] = None,
-                 perceptual_fn: Optional[Any] = None):
+                 perceptual_fn: Optional[Any] = None,
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         hd = tuple(hidden_dims)
         self.latent_dim = latent_dim
         self.input_size = input_size
@@ -254,23 +264,28 @@ class VAE(MOVAEModel):
 
     def encode(self, x: Tensor, train: bool = False, stats: Stats = None
                ) -> Tuple[Tensor, Tensor]:
-        """NHWC images -> (mu, log_var); train-mode norms write their new
-        statistics into ``stats``."""
-        h = _nchw(x)
-        for block in self.encoder:
-            h = self._block(block, h, train, stats)
-        h = h.flatten(1)
-        return self.mu(h), self.log_var(h)
+        """NHWC images -> float32 (mu, log_var), computed in
+        ``compute_dtype``; train-mode norms write their new statistics into
+        ``stats``."""
+        with compute_region(self.compute_dtype, x.device):
+            h = _nchw(x, self.compute_dtype)
+            for block in self.encoder:
+                h = self._block(block, h, train, stats)
+            h = h.flatten(1)
+            mu, log_var = self.mu(h), self.log_var(h)
+        return mu.float(), log_var.float()
 
     def decode(self, z: Tensor, train: bool = False, stats: Stats = None
                ) -> Tensor:
-        """(B, latent_dim) -> NHWC images."""
-        h = self.decoder[0](self.decoder_input(z.float()))
-        for block in self.decoder[1:]:
-            h = self._block(block, h, train, stats)
-        h = self.final_layer[3](self._block(self.final_layer, h, train,
-                                            stats))
-        return _nhwc(self._act(h))
+        """(B, latent_dim) -> float32 NHWC images, computed in
+        ``compute_dtype``."""
+        with compute_region(self.compute_dtype, z.device):
+            h = self.decoder[0](self.decoder_input(z.to(self.compute_dtype)))
+            for block in self.decoder[1:]:
+                h = self._block(block, h, train, stats)
+            h = self._act(self.final_layer[3](self._block(
+                self.final_layer, h, train, stats)))
+        return _nhwc(h.float())
 
     def reparameterize(self, mu: Tensor, log_var: Tensor,
                        generator: Optional[torch.Generator] = None,

@@ -28,7 +28,9 @@ from torch import nn
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
                                          Noise, RestartRows,
-                                         resolve_activation)
+                                         compute_region,
+                                         resolve_activation,
+                                         resolve_compute_dtype)
 from movae_tpu_torch.ops import vq as vq_ops
 
 Tensor = torch.Tensor
@@ -168,8 +170,10 @@ class VQVAE(MOVAEModel):
                      ("embedding_loss", 1.0),
                      ("commitment_loss", 0.25)),
                  perceptual_fn: Optional[Any] = None,
-                 vq_ema: bool = False, vq_ema_decay: float = 0.99):
+                 vq_ema: bool = False, vq_ema_decay: float = 0.99,
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         hd = tuple(hidden_dims)
         self.in_channels = in_channels
         self.embedding_dim = embedding_dim
@@ -228,13 +232,18 @@ class VQVAE(MOVAEModel):
         return self.input_size // (2 ** len(self.hidden_dims))
 
     # --- encoder / decoder (NHWC in and out) ------------------------------
+    # each computes in compute_dtype from its input cast to it and returns
+    # float32, so the quantizer sees float32 latents (as in the JAX package)
     def encode(self, x: Tensor, train: bool = False) -> Tensor:
-        h = self.encoder(x.float().permute(0, 3, 1, 2))
-        return h.permute(0, 2, 3, 1)
+        with compute_region(self.compute_dtype, x.device):
+            h = self.encoder(x.to(self.compute_dtype).permute(0, 3, 1, 2))
+        return h.permute(0, 2, 3, 1).float()
 
     def decode(self, z: Tensor, train: bool = False) -> Tensor:
-        h = self.decoder(z.float().permute(0, 3, 1, 2))
-        return self._act(h).permute(0, 2, 3, 1)
+        with compute_region(self.compute_dtype, z.device):
+            h = self._act(self.decoder(
+                z.to(self.compute_dtype).permute(0, 3, 1, 2)))
+        return h.permute(0, 2, 3, 1).float()
 
     # --- trunk / heads ------------------------------------------------------
     def trunk(self, x: Tensor, train: bool = False):

@@ -33,7 +33,9 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
-                                         RestartRows, resolve_activation)
+                                         RestartRows, compute_region,
+                                         resolve_activation,
+                                         resolve_compute_dtype)
 from movae_tpu_torch.models.vq_vae import Codebook, reset_conv_parameters
 from movae_tpu_torch.ops import vq as vq_ops
 
@@ -125,8 +127,10 @@ class VQVAE2(MOVAEModel):
                      ("commitment_loss", 1.0),
                      ("embedding_loss", 1.0)),
                  perceptual_fn: Optional[Any] = None,
-                 vq_ema: bool = False, vq_ema_decay: float = 0.99):
+                 vq_ema: bool = False, vq_ema_decay: float = 0.99,
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.compute_dtype = resolve_compute_dtype(dtype)
         self.in_channels = in_channels
         self.embedding_dim = embedding_dim
         self.num_embeddings = num_embeddings
@@ -178,23 +182,36 @@ class VQVAE2(MOVAEModel):
         return self.input_size // 8
 
     # --- trunk / heads ------------------------------------------------------
+    # every conv stack computes in compute_dtype and hands float32 on, where
+    # the JAX package casts: the encoders' outputs, both quantizer inputs and
+    # the decoded images
+    def _region(self, x: Tensor):
+        return compute_region(self.compute_dtype, x.device)
+
     def trunk(self, x: Tensor, train: bool = False):
-        enc_b = self.enc_b(_nchw(x.float()))
-        enc_t = self.enc_t(enc_b)
+        with self._region(x):
+            enc_b = self.enc_b(_nchw(x.to(self.compute_dtype))).float()
+            enc_t = self.enc_t(enc_b).float()
         return (_nhwc(enc_t), _nhwc(enc_b)), None
+
+    def _top_input(self, enc_t: Tensor) -> Tensor:
+        """quantize_conv_t(enc_t), NHWC in and out."""
+        with self._region(enc_t):
+            return _nhwc(self.quantize_conv_t(_nchw(enc_t)).float())
 
     def _bottom_input(self, quant_t: Tensor, enc_b: Tensor) -> Tensor:
         """quantize_conv_b([dec_t(quant_t), enc_b]), NHWC in and out."""
-        dec_t = self.dec_t(_nchw(quant_t))
-        return _nhwc(self.quantize_conv_b(torch.cat([dec_t, _nchw(enc_b)],
-                                                    dim=1)))
+        with self._region(enc_b):
+            dec_t = self.dec_t(_nchw(quant_t))
+            return _nhwc(self.quantize_conv_b(torch.cat(
+                [dec_t, _nchw(enc_b).to(dec_t.dtype)], dim=1)).float())
 
     def heads(self, features, aux, x: Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None,
               restart_rows: RestartRows = None,
               noise: Noise = None) -> Dict[str, Any]:
         enc_t, enc_b = features
-        qt_in = _nhwc(self.quantize_conv_t(_nchw(enc_t)))
+        qt_in = self._top_input(enc_t)
         vq_t = vq_ops.vector_quantize(qt_in, self.quantize_t())
         qb_in = self._bottom_input(vq_t["quantized"], enc_b)
         vq_b = vq_ops.vector_quantize(qb_in, self.quantize_b())
@@ -225,9 +242,12 @@ class VQVAE2(MOVAEModel):
     def decode(self, quant_t: Tensor, quant_b: Tensor,
                train: bool = False) -> Tensor:
         """(top, bottom) quantized NHWC latents -> NHWC images."""
-        up = self.upsample_t(_nchw(quant_t.float()))
-        h = self.dec(torch.cat([up, _nchw(quant_b.float())], dim=1))
-        return _nhwc(self._act(h))
+        dt = self.compute_dtype
+        with self._region(quant_t):
+            up = self.upsample_t(_nchw(quant_t.to(dt)))
+            h = self._act(self.dec(torch.cat([up, _nchw(quant_b.to(dt))],
+                                             dim=1)))
+        return _nhwc(h.float())
 
     # --- losses ------------------------------------------------------------
     def _recon_fn(self):
@@ -262,7 +282,7 @@ class VQVAE2(MOVAEModel):
         the bottom quantizer conditions on), not the image decoder: two
         nearest-code launches on the card."""
         (enc_t, enc_b), _ = self.trunk(x)
-        qt_in = _nhwc(self.quantize_conv_t(_nchw(enc_t)))
+        qt_in = self._top_input(enc_t)
         vq_t = vq_ops.vector_quantize(qt_in, self.quantize_t())
         qb_in = self._bottom_input(vq_t["quantized"], enc_b)
         inds_b = vq_ops.nearest_code_indices(

@@ -5,10 +5,12 @@ All paths use the inclusive-diagonal causal mask (position i attends to
 0..i) over (B, H, L, D) tensors:
 
   * ``dense`` for L <= ``DENSE_ATTENTION_MAX_L``: the plain O(L^2) masked
-    softmax, which is also what XLA runs in the JAX package at that length;
+    softmax in the inputs' dtype, which is also what XLA runs in the JAX
+    package at that length;
   * ``flash`` above it: the hand-written CUDA kernels on the card
-    (``movae_tpu_torch/kernels/flash_attention.cu``), their plain version on
-    the CPU.
+    (``movae_tpu_torch/kernels/flash_attention.cu``; a bfloat16 tensor
+    reaches the bfloat16 instances, never the float32 ones through a cast),
+    their plain version on the CPU.
 
 Not ported: the JAX package's ring (context-parallel) path, ``ROADMAP.md``
 Queue 1 item 13 (``train_prior`` refuses ``context_parallel > 1``), and its
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from movae_tpu_torch.kernels.flash_attention import (
-    flash_causal_attention, flash_causal_attention_plain)
+    dense_causal_attention, flash_causal_attention)
 
 Tensor = torch.Tensor
 
@@ -31,8 +33,8 @@ Tensor = torch.Tensor
 # OUTPUT.
 DENSE_ATTENTION_MAX_L = 1024
 
-# the reference O(L^2) path over (B, H, L, D) is the kernels' plain version
-dense_causal_attention = flash_causal_attention_plain
+__all__ = ["DENSE_ATTENTION_MAX_L", "causal_attention",
+           "dense_causal_attention", "flash_causal_attention"]
 
 
 def causal_attention(q: Tensor, k: Tensor, v: Tensor, sm_scale: float

@@ -9,9 +9,14 @@ reference's: ``<save_path>/<dataset>/<arch>/<optimizer>/<aggregator>/
 
 The host reads each step's metrics one step late: the step's metric
 tensors are stacked on the card and copied into a pinned host buffer
-without blocking, and the copy is read after the next step is queued.
-The train step's non-finite guard is then the only host synchronisation a
-step makes.
+without blocking, and the copy is read after the next step is queued, so
+a step itself makes no host synchronisation (its non-finite guard runs on
+the card). ``--grad_accum A`` runs full batches in groups of A through
+the accumulating step (:class:`_Steps`). ``--steps_per_dispatch k`` is
+accepted and runs every batch through the single step: the steps already
+queue with no host synchronisation between them, and k single steps give
+the numbers of the JAX package's k-step scan. ``--remat`` and
+``--compute_dtype bfloat16`` reach the step and the model.
 
 Flags the port cannot honour yet raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item (:func:`check_supported`).
@@ -37,7 +42,8 @@ from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train import figures as fig_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
 from movae_tpu_torch.train.state import TrainState
-from movae_tpu_torch.train.step import make_eval_step, make_train_step
+from movae_tpu_torch.train.step import (accum_groups, make_eval_step,
+                                        make_train_step, optimizer_steps)
 from movae_tpu_torch.utils import AverageMeter
 from movae_tpu_torch.utils.logging import ExperimentLogger, StepTimer
 from movae_tpu_torch.utils.preemption import PreemptionGuard
@@ -61,20 +67,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_supported(args) -> None:
-    """Raise for a flag the port cannot honour yet, naming its item."""
+    """Raise for a flag the port cannot honour yet, naming its item, and
+    for ``--grad_accum`` with ``--steps_per_dispatch`` (``ValueError``, as
+    in the JAX package)."""
     for flag in ("model_partitions", "context_parallel", "pipeline_parallel"):
         if int(getattr(args, flag, 1) or 1) > 1:
             raise _not_ported(f"--{flag} > 1", "Queue 1 item 13")
     if getattr(args, "fsdp", False):
         raise _not_ported("--fsdp", "Queue 1 item 13")
-    for flag in ("grad_accum", "steps_per_dispatch"):
-        if int(getattr(args, flag, 1) or 1) > 1:
-            raise _not_ported(f"--{flag} > 1", "Queue 1 item 6")
-    if getattr(args, "remat", False):
-        raise _not_ported("--remat", "Queue 1 item 6")
-    if getattr(args, "compute_dtype", "float32") != "float32":
-        raise _not_ported(f"--compute_dtype {args.compute_dtype}",
-                          "Queue 1 item 6")
+    if (int(getattr(args, "grad_accum", 1) or 1) > 1
+            and int(getattr(args, "steps_per_dispatch", 1) or 1) > 1):
+        raise ValueError(
+            "--grad_accum and --steps_per_dispatch are mutually "
+            "exclusive (an accumulation group is already one dispatch)")
 
 
 def aggregator_config_from_args(args, num_objectives: int) -> AggregatorConfig:
@@ -214,65 +219,87 @@ def _end_timed(timer: Optional[StepTimer], device: torch.device,
         timer.stop(n_images)
 
 
+class _Steps:
+    """Runs one epoch's update groups (:func:`accum_groups`): a group of A
+    full batches through the accumulating step as ONE optimizer update
+    whose metrics are the microbatch means, a batch alone through the
+    single step. ``step`` counts optimizer updates."""
+
+    def __init__(self, step_fn, accum_fn, state, generator, step, pump):
+        self.step_fn, self.accum_fn = step_fn, accum_fn
+        self.state, self.generator = state, generator
+        self.step, self.pump, self.n_images = step, pump, 0
+
+    def __call__(self, group) -> None:
+        if len(group) == 1:
+            self.state, metrics = self.step_fn(self.state, group[0][0],
+                                               self.generator)
+        else:
+            self.state, metrics = self.accum_fn(
+                self.state, torch.stack([b for b, _ in group]),
+                self.generator)
+        n_valid = sum(n for _, n in group)
+        self.step += 1
+        self.n_images += n_valid
+        self.pump.push(self.step, n_valid, metrics)
+
+
 def train_epoch(step_fn, state, loader, device, generator, step, logger,
                 objective_names, log_every: int = 1,
-                timer: Optional[StepTimer] = None, stop_check=None):
+                timer: Optional[StepTimer] = None, stop_check=None,
+                accum_fn=None, accum_k: int = 1):
     """One epoch over the host loader (reference train_epoch,
     main.py:125-235). The wrap padding of the tail batch is dropped, so it
-    trains on its valid rows only. ``stop_check`` is polled after every
-    step; when it returns True the epoch ends early. Returns ``(state,
-    meters, step)``."""
+    trains on its valid rows only. Under ``--grad_accum`` full batches go
+    through ``accum_fn`` in groups of ``accum_k`` (:func:`accum_groups`).
+    ``stop_check`` is polled after every update; when it returns True the
+    epoch ends early. Returns ``(state, meters, step)``."""
     pump = _MetricPump(objective_names, logger, log_every, device)
-    n_images = 0
+    run = _Steps(step_fn, accum_fn, state, generator, step, pump)
     if timer is not None:
         timer.start()
-    for imgs, _labels, n_valid in loader:
-        state, metrics = step_fn(state, to_device(imgs[:n_valid], device),
-                                 generator)
-        step += 1
-        n_images += n_valid
-        pump.push(step, n_valid, metrics)
+    batches = ((to_device(imgs[:n_valid], device), n_valid)
+               for imgs, _labels, n_valid in loader)
+    for group in accum_groups(batches, accum_k,
+                              lambda b: b[1] == loader.batch_size):
+        run(group)
         if stop_check is not None and stop_check():
             break
     pump.flush()
-    _end_timed(timer, device, n_images)
-    return state, pump.final_meters(), step
+    _end_timed(timer, device, run.n_images)
+    return run.state, pump.final_meters(), run.step
 
 
 def train_epoch_device(dd, step_fn, state, device, generator, step, logger,
                        objective_names, epoch_index: int,
                        log_every: int = 1,
-                       timer: Optional[StepTimer] = None, stop_check=None):
+                       timer: Optional[StepTimer] = None, stop_check=None,
+                       accum_fn=None, accum_k: int = 1):
     """One epoch over a device-resident set (``data/device.py``): full
-    batches gathered and flipped on the card, the leftovers as host
-    batches. Returns ``(state, meters, step)``."""
+    batches gathered and flipped on the card (grouped for ``accum_fn`` as
+    in :func:`train_epoch`), the leftovers as host batches, each a single
+    update. Returns ``(state, meters, step)``."""
     pump = _MetricPump(objective_names, logger, log_every, device)
-    n_images = 0
+    run = _Steps(step_fn, accum_fn, state, generator, step, pump)
     idx, tail_ids = dd.epoch_plan(epoch_index)
     if timer is not None:
         timer.start()
     stopped = False
-    for batch in dd.batches(idx, generator):
-        state, metrics = step_fn(state, batch, generator)
-        step += 1
-        n_images += dd.B
-        pump.push(step, dd.B, metrics)
+    for group in accum_groups(((b, dd.B) for b in dd.batches(idx, generator)),
+                              accum_k, lambda b: True):
+        run(group)
         if stop_check is not None and stop_check():
             stopped = True
             break
     if not stopped and len(tail_ids):
         host_rng = np.random.default_rng((dd.seed, epoch_index, 1 << 20))
         for imgs, n_valid in dd.tail_batches(tail_ids, host_rng):
-            state, metrics = step_fn(state, to_device(imgs, device),
-                                     generator)
-            step += 1
-            n_images += n_valid
-            pump.push(step, n_valid, metrics)
+            run([(to_device(imgs, device), n_valid)])
             if stop_check is not None and stop_check():
                 break
     pump.flush()
-    _end_timed(timer, device, n_images)
-    return state, pump.final_meters(), step
+    _end_timed(timer, device, run.n_images)
+    return run.state, pump.final_meters(), run.step
 
 
 def evaluate(eval_fn, loader, objective_names,
@@ -339,9 +366,18 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     for name, w in dict(model.lambda_weights).items():
         setattr(args, f"{name}_weight", w)
 
+    accum_k = int(getattr(args, "grad_accum", 1) or 1)
     dd = resolve_device_data(args, train_ds, batch_size, dev)
-    steps_per_epoch = (dd.optimizer_steps_per_epoch() if dd is not None
-                       else len(train_loader))
+    # the lr schedule and COMFORT's beta count OPTIMIZER steps; NashMTL's
+    # per-epoch default counts gradient aggregations (batches)
+    if dd is not None:
+        steps_per_epoch = dd.optimizer_steps_per_epoch(accum_k)
+        batches_per_epoch = dd.steps + dd.tail_steps
+    else:
+        batches_per_epoch = len(train_loader)
+        steps_per_epoch = optimizer_steps(
+            min(len(train_ds) // batch_size, batches_per_epoch),
+            batches_per_epoch, accum_k)
     sched = lr_schedule(args.lr, getattr(args, "scheduler", None),
                         args.epochs, steps_per_epoch,
                         lr_min=getattr(args, "scheduler_lr_min", 0.0),
@@ -357,9 +393,12 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     if (agg_cfg.name == "nashmtl"
             and not getattr(args, "nashmtl_update_every", None)):
         # reference default: recompute the Nash weights once per epoch
-        # (update_weights_every=len(train_loader), main.py:1230-1235)
+        # (update_weights_every=len(train_loader), main.py:1230-1235); the
+        # counter advances once per gradient aggregation, so under
+        # --grad_accum the default counts microbatches
         agg_cfg = AggregatorConfig(
-            **{**agg_cfg.__dict__, "nashmtl_update_every": steps_per_epoch})
+            **{**agg_cfg.__dict__,
+               "nashmtl_update_every": batches_per_epoch})
     args.aggregator = agg_cfg.name
     state = TrainState.create(model, tx, init_state(agg_cfg))
 
@@ -379,8 +418,15 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     hv_indicator = build_hv_indicator(model.objective_names,
                                       getattr(args, "hv_ref", None))
 
+    remat = bool(getattr(args, "remat", False))
     train_step = make_train_step(model, agg_cfg, args.epochs,
-                                 steps_per_epoch, normalize_inputs=normalize)
+                                 steps_per_epoch, normalize_inputs=normalize,
+                                 remat=remat)
+    grouped = dict(accum_k=accum_k)
+    if accum_k > 1:
+        grouped["accum_fn"] = make_train_step(
+            model, agg_cfg, args.epochs, steps_per_epoch,
+            normalize_inputs=normalize, remat=remat, grad_accum=accum_k)
     eval_fn = make_eval_step(model, normalize_inputs=normalize)
     # the step's draws (EMA restarts, aggregator choices, device flips)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -405,7 +451,7 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
         gen.set_state(payload["generator_state"])
         start_epoch = int(payload.get("epoch") or 0) + 1
         step = int(payload.get("step") or 0)
-        state.step = step
+        state.step.fill_(int(payload.get("applied_steps", step)))
         train_loader.epoch = start_epoch - 1
         print(f"Resumed from {resume_from} at epoch {start_epoch}")
 
@@ -436,6 +482,8 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
         ref, extra = ckpt_lib.split_state_dict(model)
         ckpt_lib.save_checkpoint(ckpt_lib.last_checkpoint_path(save_root), {
             "epoch": epoch_done, "step": step,
+            # updates applied (the device counter: the lr's position)
+            "applied_steps": int(state.step),
             "model_state_dict": ref, "ema_state": extra,
             "optimizer_state_dict": state.optimizer.state_dict(),
             "agg_state": {k: v.detach().cpu()
@@ -449,12 +497,12 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
                 dd, train_step, state, dev, gen, step, logger,
                 model.objective_names, epoch_index=epoch,
                 log_every=log_every, timer=timer,
-                stop_check=lambda: guard.triggered)
+                stop_check=lambda: guard.triggered, **grouped)
         else:
             state, meters, step = train_epoch(
                 train_step, state, train_loader, dev, gen, step, logger,
                 model.objective_names, log_every=log_every, timer=timer,
-                stop_check=lambda: guard.triggered)
+                stop_check=lambda: guard.triggered, **grouped)
         train_losses.append({k: v.avg for k, v in meters.items()})
 
         if guard.triggered:

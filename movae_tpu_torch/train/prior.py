@@ -10,10 +10,12 @@ best-epoch-loss rule. Under a ``save_root`` it writes the reference's
 ``<pixelcnn|pixelsnail>_prior/checkpoints/{best,final}_prior.pth`` and a
 resumable ``last_prior.pth`` every epoch, exits 143 on SIGTERM, resumes,
 logs ``prior/loss`` and draws ``prior_sample_every`` sample grids.
+``compute_dtype`` bfloat16 builds the prior with bf16 layers (the flash
+kernels' bf16 instances at L > 1024); ``grad_accum`` A accumulates A full
+code batches into one update, as the JAX package's prior does.
 
-Not ported yet, each raising with its ``ROADMAP.md`` item:
-``grad_accum > 1`` and bf16 compute (Queue 1 item 6), context / pipeline
-parallelism and fsdp (item 13).
+Not ported yet, raising with its ``ROADMAP.md`` item: context / pipeline
+parallelism and fsdp (Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -27,13 +29,15 @@ import numpy as np
 import torch
 
 from movae_tpu_torch.device import DeviceLike, resolve_device
+from movae_tpu_torch.models.base import resolve_compute_dtype
 from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
                                              HierarchicalPixelSNAIL,
                                              PixelCNN, PixelSNAIL,
                                              warn_long_seq_dropout)
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
-from movae_tpu_torch.train.step import preprocess_batch
+from movae_tpu_torch.train.step import (accum_groups, accumulate,
+                                        optimizer_steps, preprocess_batch)
 from movae_tpu_torch.utils.codes import CodeLoader
 from movae_tpu_torch.utils.codes_cache import get_or_extract_codes
 from movae_tpu_torch.utils.preemption import PreemptionGuard
@@ -58,10 +62,8 @@ def build_prior(args, num_embeddings: int, hierarchical: bool = False,
     code-embedding width follows a prior checkpoint's echo, then the VQ
     model's ``embedding_dim``, then the args' echo, then 64. The module's
     weights are not initialized: call ``reset_parameters``."""
-    dtype = _get(args, "compute_dtype", "float32")
-    if dtype not in (None, "float32", torch.float32):
-        raise _not_ported(f"compute_dtype {dtype!r} (bf16 compute)",
-                          "Queue 1 item 6")
+    dtype = resolve_compute_dtype(_get(args, "compute_dtype", "float32")
+                                  or "float32")
     d = (_get(args, "prior_embedding_dim") or embedding_dim
          or _get(args, "embedding_dim") or 64)
     hc = _get(args, "pixelcnn_hidden_channels", 128)
@@ -79,12 +81,13 @@ def build_prior(args, num_embeddings: int, hierarchical: bool = False,
             return HierarchicalPixelSNAIL(
                 num_embeddings=num_embeddings, embedding_dim=d,
                 hidden_channels=hc, num_blocks_top=blocks,
-                num_layers_bottom=nl, **snail)
+                num_layers_bottom=nl, dtype=dtype, **snail)
         return PixelSNAIL(num_embeddings=num_embeddings, embedding_dim=d,
-                          hidden_channels=hc, num_blocks=blocks, **snail)
+                          hidden_channels=hc, num_blocks=blocks, dtype=dtype,
+                          **snail)
     cls = HierarchicalPixelCNN if hierarchical else PixelCNN
     return cls(num_embeddings=num_embeddings, embedding_dim=d,
-               hidden_channels=hc, num_layers=nl)
+               hidden_channels=hc, num_layers=nl, dtype=dtype)
 
 
 def extract_codes(model, normalize_inputs: bool = False,
@@ -197,8 +200,11 @@ def find_prior(model_path: str, model, vq_args) -> Optional[Dict[str, Any]]:
 
 
 def _check_supported(args) -> None:
-    if int(_get(args, "grad_accum", 1) or 1) > 1:
-        raise _not_ported("grad_accum > 1", "Queue 1 item 6")
+    if (int(_get(args, "grad_accum", 1) or 1) > 1
+            and int(_get(args, "steps_per_dispatch", 1) or 1) > 1):
+        raise ValueError(
+            "--grad_accum and --steps_per_dispatch are mutually exclusive "
+            "(an accumulation group is already one dispatch)")
     if (int(_get(args, "context_parallel", 1) or 1) > 1
             or int(_get(args, "pipeline_parallel", 1) or 1) > 1
             or _get(args, "fsdp", False)):
@@ -243,9 +249,13 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     continue from; a path that does not exist is ignored, as in the JAX
     package.
 
-    ``steps_per_dispatch`` is accepted and changes nothing: in JAX it fuses
-    k steps into one dispatch with the same numbers, and eager PyTorch has
-    no counterpart.
+    ``grad_accum`` A: full batches accumulate in groups of A into one
+    update (gradients ``acc + g / A`` in float32, the loss the microbatch
+    mean); a group's leftovers and the ragged tail run as single updates,
+    and the per-epoch cosine counts optimizer steps. ``steps_per_dispatch``
+    k gives the numbers of k single steps, as the JAX package's scanned
+    step does; the loop already queues steps with no host synchronisation
+    between them (it reads the losses every 8 steps).
     """
     _check_supported(args)
     hierarchical = "codes" not in levels
@@ -271,13 +281,19 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     warn_long_seq_dropout(prior, grid.shape[1], grid.shape[2])
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    # the per-epoch cosine: the LR is constant within an epoch
-    spe = max(len(loader), 1)
+    # the per-epoch cosine: the LR is constant within an epoch, whose
+    # length counts optimizer steps (full batches in groups of A under
+    # grad_accum, the leftovers and the ragged tail as single updates)
+    accum_k = int(_get(args, "grad_accum", 1) or 1)
+    n_batches = max(len(loader), 1)
+    spe = optimizer_steps(min(n_batches, loader.n // loader.batch_size),
+                          n_batches, accum_k)
     recipe = build_optimizer(
         "adamw" if wd else "adam",
         lr_schedule(lr, "cosine", epochs, spe, lr_min=1e-6),
         weight_decay=wd, max_grad_norm=1.0, eps=eps)
-    opt = recipe.init(list(prior.parameters()))
+    params = list(prior.parameters())
+    opt = recipe.init(params)
     echo = prior_args_echo(args, prior.embedding_dim)
 
     start_epoch, step, best_loss = 1, 0, float("inf")
@@ -323,15 +339,37 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
                         step_trace.append(value)
                 pending.clear()
 
-        for batch, n_valid in loader:
-            codes = [torch.from_numpy(batch[k]).to(dev) for k in names]
-            loss = prior.loss_function(*codes, train=True,
-                                       generator=gen)["total_loss"]
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
+        def update(batches) -> None:
+            nonlocal step
+            losses = []
+            if len(batches) == 1:
+                codes = [torch.from_numpy(batches[0][0][k]).to(dev)
+                         for k in names]
+                loss = prior.loss_function(*codes, train=True,
+                                           generator=gen)["total_loss"]
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                losses.append(loss.detach())
+            else:
+                acc = [torch.zeros_like(p) for p in params]
+                for batch, _ in batches:
+                    codes = [torch.from_numpy(batch[k]).to(dev)
+                             for k in names]
+                    loss = prior.loss_function(*codes, train=True,
+                                               generator=gen)["total_loss"]
+                    accumulate(acc, torch.autograd.grad(
+                        loss, params, allow_unused=True), 1.0 / len(batches))
+                    losses.append(loss.detach())
+                for p, a in zip(params, acc):
+                    p.grad = a
             recipe.step(opt, step)
             step += 1
-            pending.append((loss.detach(), n_valid))
+            pending.append((torch.stack(losses).mean(),
+                            sum(n for _, n in batches)))
+
+        for group in accum_groups(loader, accum_k,
+                                  lambda b: b[1] == loader.batch_size):
+            update(group)
             if len(pending) >= 8:
                 flush()
             if guard is not None and guard.triggered:

@@ -3,7 +3,8 @@ bench}``) against the JAX package's: the YAML schema of every file of
 ``configs/``, an end-to-end ``main`` run on the CPU that writes the JAX
 run tree (whose prior ``.pth`` the JAX package loads and whose logits it
 reproduces), ``evaluate`` on a checkpoint exported from a JAX model, the
-bench's JSON line, and the flags that still raise.
+bench's JSON line, the item-6 flags (bf16, grad_accum,
+steps_per_dispatch, remat) on the CPU, and the flags that still raise.
 """
 
 import json
@@ -213,19 +214,33 @@ def test_evaluate_on_a_checkpoint_exported_from_jax(tmp_path, monkeypatch,
 
 def test_bench_prints_one_json_line():
     """``python -m movae_tpu_torch.bench --device cpu``: one JSON line with
-    bench.py's keys (and the device it ran on)."""
+    bench.py's keys, the device it ran on, and the run's dtype (float32 on
+    the CPU, as bench.py), steps a dispatch, remat, host synchronisations
+    a step and steps run; the defaults are bench.py's (bf16, batch 1024,
+    8 steps a dispatch; 2 here, to keep the run short)."""
+    from movae_tpu_torch import bench
+
+    defaults = bench.build_parser().parse_args([])
+    assert (defaults.dtype, defaults.batch_size,
+            defaults.steps_per_dispatch) == ("bfloat16", 1024, 8)
     out = subprocess.run(
         [sys.executable, "-m", "movae_tpu_torch.bench", "--device", "cpu",
-         "--steps", "5", "--warmup", "1", "--batch_size", "4",
-         "--input_size", "16"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
+         "--steps", "5", "--warmup", "1", "--batch_size", "2",
+         "--input_size", "8", "--steps_per_dispatch", "2"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1
     line = json.loads(lines[0])
-    assert set(line) == {"metric", "value", "unit", "vs_baseline", "device"}
+    assert set(line) == {"metric", "value", "unit", "vs_baseline", "device",
+                         "dtype", "steps_per_dispatch", "remat",
+                         "host_syncs_per_step", "steps_run"}
     assert line["unit"] == "images/sec/chip" and line["value"] > 0
-    assert line["device"] == "cpu"
+    assert line["device"] == "cpu" and line["dtype"] == "float32"
+    assert line["steps_per_dispatch"] == 2 and line["remat"] is False
+    assert line["host_syncs_per_step"] == 0
+    # 1 warmup dispatch, 5 timed rounds and the sync count of 1 dispatch
+    assert line["steps_run"] == 7 * 2
 
 
 @pytest.mark.parametrize("arch", ["vq_vae", "vae", "gg_vae_v2",
@@ -295,10 +310,6 @@ def test_main_cli_runs_a_vae_to_the_jax_run_tree(tmp_path):
     (["--context_parallel", "2"], "item 13"),
     (["--pipeline_parallel", "2"], "item 13"),
     (["--fsdp"], "item 13"),
-    (["--grad_accum", "2"], "item 6"),
-    (["--steps_per_dispatch", "2"], "item 6"),
-    (["--remat"], "item 6"),
-    (["--compute_dtype", "bfloat16"], "item 6"),
     (["--arch", "sphere_encoder"], "item 11")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
     from movae_tpu_torch.train.loop import run_training
@@ -308,10 +319,50 @@ def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
         run_training(args)
 
 
-@pytest.mark.parametrize("flag", [["--steps_per_dispatch", "8"],
-                                  ["--dtype", "bfloat16"], ["--remat"]])
-def test_bench_tpu_flags_name_item_6(flag):
+@pytest.mark.parametrize("flag,steps", [
+    (["--grad_accum", "2"], 2), (["--steps_per_dispatch", "2"], 4),
+    (["--remat"], 4), (["--compute_dtype", "bfloat16"], 4)])
+def test_item6_flags_run_on_the_cpu(flag, steps, tmp_path):
+    """The flags of ROADMAP item 6 train at the file's tiny size (64
+    images, batch 16: 4 batches an epoch): --grad_accum 2 makes 2 optimizer
+    updates of 2 microbatches, the others 4 updates; the step counter
+    counts them, the losses are finite, nothing is skipped."""
+    from movae_tpu_torch.train.loop import run_training
+
+    args = tmain.parse_args(TINY + ["--save_path", str(tmp_path), "--epochs",
+                                    "1", "--num_vis_samples", "2"] + flag)
+    res = run_training(args)
+    assert res["step"] == steps and int(res["state"].step) == steps
+    assert all(np.isfinite(v) for v in res["train_losses"][0].values())
+    want = (torch.bfloat16 if "bfloat16" in flag else torch.float32)
+    assert res["model"].compute_dtype == want
+    assert all(p.dtype == torch.float32 for p in res["model"].parameters())
+
+
+def test_grad_accum_with_steps_per_dispatch_raises_value_error(tmp_path):
+    """As in the JAX package: an accumulation group is already one
+    dispatch."""
+    from movae_tpu.train.loop import run_training as jrun
+    from movae_tpu_torch.train.loop import run_training
+
+    flags = ["--grad_accum", "2", "--steps_per_dispatch", "2"]
+    for run, parse in ((run_training, tmain.parse_args),
+                       (jrun, jmain.parse_args)):
+        args = parse(TINY + ["--save_path", str(tmp_path)] + flags)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            run(args)
+
+
+@pytest.mark.parametrize("flag,key,value", [
+    (["--steps_per_dispatch", "2"], "steps_per_dispatch", 2),
+    (["--dtype", "bfloat16"], "dtype", "float32"),
+    (["--remat"], "remat", True)])
+def test_bench_tpu_flags_run_on_the_cpu(flag, key, value):
+    """bench.py's TPU flags run through the port's bench on the CPU
+    (bfloat16 computes in float32 there, as bench.py does)."""
     from movae_tpu_torch import bench
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        bench.main(["--device", "cpu"] + flag)
+    line = bench.main(["--device", "cpu", "--batch_size", "2", "--steps",
+                       "5", "--warmup", "1", "--input_size", "8",
+                       "--steps_per_dispatch", "1"] + flag)
+    assert line[key] == value and line["value"] > 0

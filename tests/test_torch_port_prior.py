@@ -46,12 +46,12 @@ def prior_args(kind, **kw):
     return args
 
 
-def run_jax(kind, levels, tmp_path):
+def run_jax(kind, levels, tmp_path, **kw):
     from movae_tpu.parallel.mesh import DataParallel, make_mesh
     from movae_tpu.train import checkpoint as ckpt_lib
     from movae_tpu.train.prior import build_prior, train_prior
 
-    args = prior_args(kind)
+    args = prior_args(kind, **kw)
     prior = build_prior(args, K, False, D)
     rng = jax.random.PRNGKey(SEED + 1)
     init = prior.init({"params": rng, "dropout": rng},
@@ -105,11 +105,9 @@ def test_train_prior_locksteps_with_jax(kind, ce_tol, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(grad_accum=2), "Queue 1 item 6"),
     (dict(context_parallel=2), "Queue 1 item 13"),
     (dict(pipeline_parallel=2), "Queue 1 item 13"),
-    (dict(fsdp=True), "Queue 1 item 13"),
-    (dict(compute_dtype="bfloat16"), "Queue 1 item 6")])
+    (dict(fsdp=True), "Queue 1 item 13")])
 def test_unported_options_name_roadmap_item(kw, item):
     from movae_tpu_torch.train.prior import train_prior
 
@@ -117,6 +115,69 @@ def test_unported_options_name_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         train_prior(make_codes(), meta, prior_args("pixelsnail", **kw),
                     device="cpu")
+
+
+@pytest.mark.parametrize("kind,kw,updates", [
+    ("pixelcnn", dict(grad_accum=2), 2),
+    ("pixelsnail", dict(compute_dtype="bfloat16"), 3)])
+def test_item6_options_run_on_the_cpu(kind, kw, updates):
+    """grad_accum and bf16 compute train the prior on the CPU for one
+    epoch: 3 batches (the last ragged) make 2 updates under grad_accum 2
+    (the two full batches accumulated, the ragged one alone) and 3
+    otherwise; the losses are finite and the parameters stay float32."""
+    from movae_tpu_torch.train.prior import train_prior
+
+    meta = types.SimpleNamespace(num_embeddings=K, embedding_dim=D)
+    trace = []
+    out = train_prior(make_codes(), meta,
+                      prior_args(kind, pixelcnn_epochs=1, **kw),
+                      device="cpu", step_trace=trace)
+    assert len(trace) == updates and np.isfinite(trace).all()
+    want = torch.bfloat16 if kw.get("compute_dtype") else torch.float32
+    assert out["model"].compute_dtype == want
+    assert all(p.dtype == torch.float32 for p in out["model"].parameters())
+
+
+@pytest.mark.parametrize("kw", [dict(grad_accum=2),
+                                dict(steps_per_dispatch=2)])
+def test_train_prior_accum_and_dispatch_lockstep_with_jax(kw, tmp_path):
+    """The JAX ``train_prior``'s accumulating and scanned prior steps on the
+    same codes: per-step (per-update) CE within 1e-4 relative and the
+    final parameters within 1e-3, the bounds of the plain lockstep above.
+    Under grad_accum the cosine counts optimizer steps on both sides."""
+    from movae_tpu_torch.train.prior import build_prior, train_prior
+    from movae_tpu_torch.utils import weights
+
+    levels = make_codes()
+    init, j_trace, _, j_final = run_jax("pixelcnn", levels, tmp_path, **kw)
+    args = prior_args("pixelcnn", **kw)
+    prior = build_prior(args, K, False, D)
+    weights.load_jax_prior_params(prior, init)
+    t_trace = []
+    meta = types.SimpleNamespace(num_embeddings=K, embedding_dim=D)
+    train_prior(levels, meta, args, device="cpu", step_trace=t_trace,
+                prior=prior)
+    per_epoch = 2 if kw.get("grad_accum") else 3
+    assert len(t_trace) == len(j_trace) == EPOCHS * per_epoch
+    rel = np.abs(np.array(t_trace) - np.array(j_trace)) / np.abs(j_trace)
+    assert rel.max() < 1e-4, (t_trace, j_trace)
+    ref = weights.pixelcnn_state_dict(j_final)
+    got = prior.state_dict()
+    assert max(float(np.abs(got[k].numpy() - ref[k]).max())
+               for k in ref) < 1e-3
+
+
+def test_grad_accum_with_steps_per_dispatch_raises_value_error(tmp_path):
+    """As in the JAX package's train_prior."""
+    from movae_tpu_torch.train.prior import train_prior
+
+    kw = dict(grad_accum=2, steps_per_dispatch=2)
+    meta = types.SimpleNamespace(num_embeddings=K, embedding_dim=D)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        train_prior(make_codes(), meta, prior_args("pixelcnn", **kw),
+                    device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        run_jax("pixelcnn", make_codes(), tmp_path, **kw)
 
 
 def test_hierarchical_prior_and_save_root_name_roadmap_items(tmp_path):

@@ -210,15 +210,6 @@ def test_lr_schedules_match_jax(sched, kw):
         np.testing.assert_allclose(tfn(step), float(jfn(step)), rtol=1e-6)
 
 
-def test_grad_accum_names_roadmap_item():
-    from movae_tpu_torch.moo import AggregatorConfig
-    from movae_tpu_torch.train.step import make_train_step
-
-    _, _, _, tm = build_pair(seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(tm, AggregatorConfig(num_objectives=3), grad_accum=2)
-
-
 def test_port_imports_neither_jax_nor_movae_tpu():
     """Every movae_tpu_torch module imports without JAX or movae_tpu."""
     code = (
