@@ -469,27 +469,52 @@ def ptxas_summary(log_text: str) -> dict:
     return out
 
 
-SASS_OPS = ("HMMA", "FFMA", "MUFU", "LDS")
+# SASS opcodes counted per kernel: an entry with a dot counts that opcode
+# with its first modifier (MUFU.EX2), one without counts every modifier;
+# SYNCS are the mbarrier operations, UTMALDG the TMA loads
+SASS_OPS = ("HMMA", "FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "ISETP", "MUFU",
+            "MUFU.EX2", "LDS", "LDSM", "SHFL", "BAR", "SYNCS", "UTMALDG")
 
 
 def sass_counts(cuobjdump: str, lib: str, ops=SASS_OPS) -> dict:
     """{kernel: {op: count, "all": instructions}} of SASS opcodes in a
-    built library (static counts: every instruction of the binary once)."""
+    built library (static counts: every instruction of the binary once),
+    and "hot": the instructions and MUFU.EX2 of the kernel's branch-free
+    run (between two branches or exits) that holds the most MUFU.EX2, the
+    body of its unrolled step."""
     text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=120).stdout
-    out, name = {}, None
+    out, name, run = {}, None, [0, 0]
     for line in text.splitlines():
         m = re.search(r"Function : .*?" + KERNEL_NAME, line)
         if m:
-            name = kernel_name(m)
+            name, run = kernel_name(m), [0, 0]
             out[name] = dict.fromkeys((*ops, "all"), 0)
+            out[name]["hot"] = [0, 0]
             continue
-        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_]+)(\.[A-Z0-9_]+)?", line)
         if m and name:
             out[name]["all"] += 1
-            if m.group(1) in ops:
-                out[name][m.group(1)] += 1
+            for op in {m.group(1), m.group(1) + (m.group(2) or "")}:
+                if op in ops:
+                    out[name][op] += 1
+            run[0] += 1
+            run[1] += m.group(1) + (m.group(2) or "") == "MUFU.EX2"
+            if m.group(1) in ("BRA", "EXIT", "RET", "BRX", "JMP", "CALL"):
+                if run[1] > out[name]["hot"][1]:
+                    out[name]["hot"] = run
+                run = [0, 0]
     return out
+
+
+def per_ex2(ops: dict) -> tuple:
+    """SASS instructions other than MUFU per MUFU.EX2 of a kernel: over the
+    whole binary (prologue, epilogue and both step instances), and in its
+    hot branch-free run (``sass_counts``)."""
+    hot_all, hot_ex2 = ops["hot"]
+    return ((ops["all"] - ops["MUFU"]) / max(ops["MUFU.EX2"], 1),
+            (hot_all - hot_ex2) / max(hot_ex2, 1))
 
 
 def time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
@@ -2820,9 +2845,8 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
     their bound, the plain version and scaled_dot_product_attention in
     bf16 (the yardstick; the port never calls it). Returns the three bf16
     kernel rows (launches and the trained prior's q/k/v come from 17b)."""
-    import torch.nn.functional as F
-
     from movae_tpu_torch.kernels import build
+    from movae_tpu_torch.kernels.flash_ab import sdpa_ms
 
     for d in build.FLASH_HEAD_DIMS:
         for kern in ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
@@ -2830,6 +2854,12 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
             ops = sass.get(f"flash_attention_d{d}", {}).get(f"{kern}<{d}>")
             check(not sass or (ops is not None and ops["HMMA"] > 0),
                   f"no HMMA in {kern}<{d}>: {ops}")
+            if ops:
+                whole, hot = per_ex2(ops)
+                log(f"17a SASS {kern}<{d}> (static): {json.dumps(ops)}; "
+                    f"instructions other than MUFU per MUFU.EX2: {whole:.2f} "
+                    f"in the binary, {hot:.2f} in the hot step "
+                    f"({ops['hot'][0]} instructions, {ops['hot'][1]} EX2)")
     gen = torch.Generator(device=dev).manual_seed(17)
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
 
@@ -2860,21 +2890,18 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
             reps=20),
     }
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-    def backward_ms(out):
-        return time_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), reps=3, warmup=1)
-
     with torch.no_grad():
         plain_fwd = time_ms(torch, lambda: fa.flash_causal_attention_plain(
             q, k, v, scale), reps=3, warmup=1)
-        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale), reps=20)
-    plain_bwd = backward_ms(fa.flash_causal_attention_plain(*leaves, scale))
+    out = fa.flash_causal_attention_plain(*leaves, scale)
+    plain_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), reps=3, warmup=1)
+    del leaves, out
     torch.cuda.empty_cache()
-    sdpa_bwd = backward_ms(F.scaled_dot_product_attention(
-        *leaves, is_causal=True, scale=scale))
-    del leaves, o, lse2, di, q, k, v, do
+    # the yardstick, timed as the kernels are: SDPA's causal forward and the
+    # flash backward its autograd calls, each by CUDA-graph replay
+    sdpa_fwd, sdpa_bwd = sdpa_ms(q, k, v, do, scale, reps=20)
+    del o, lse2, di, q, k, v, do
     torch.cuda.empty_cache()
     bounds = flash_bounds(FLASH_SLICE, peaks, elem_bytes=2,
                           tensor_sxm=BF16_SXM)
@@ -2903,7 +2930,8 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
     return rows
 
 
-def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list) -> dict:
+def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list,
+                     profile: bool = False) -> dict:
     """17b: the stage-2 PixelSNAIL in bf16 at phase 5's width and cut
     (256-px VQ-VAE extraction, L = 4096, 8 blocks of 128 channels and 8
     heads of 16, batch 16), every flash launch recorded with its dtype:
@@ -2926,7 +2954,7 @@ def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list) -> dict:
 
     fa._launch = recorded
     try:
-        res, snail, codes = phase_prior(torch, dev, False, "bfloat16")
+        res, snail, codes = phase_prior(torch, dev, profile, "bfloat16")
     finally:
         fa._launch = launch
     check(dtypes and all(d == torch.bfloat16 for d in dtypes),
@@ -3312,11 +3340,12 @@ def phase_locksteps_17e(torch, dev) -> dict:
 
 
 def phase_item6(torch, fa, dev, peaks, sass: dict, f32_prior: dict,
-                card: str) -> list:
-    """Phase 17 (17a-17e); returns the three bf16 kernel rows."""
+                card: str, profile: bool = False) -> list:
+    """Phase 17 (17a-17e); returns the three bf16 kernel rows. ``profile``
+    adds 17b's torch.profiler breakdown."""
     t0 = time.perf_counter()
     rows = phase_flash_bf16(torch, fa, dev, peaks, sass)
-    phase_prior_bf16(torch, fa, dev, f32_prior, rows)
+    phase_prior_bf16(torch, fa, dev, f32_prior, rows, profile)
     phase_bench_defaults(torch, dev, card)
     phase_levers(torch, dev, card)
     phase_locksteps_17e(torch, dev)
@@ -3507,7 +3536,7 @@ def main() -> int:
         # this slice's path: bf16 compute (the bf16 flash kernels),
         # grad_accum, steps_per_dispatch, remat
         bf16_rows = phase_item6(torch, fa, dev, peaks, sass, prior,
-                                smi[0] if smi else name)
+                                smi[0] if smi else name, args.profile)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -115,10 +115,12 @@
 //     argument whose error grows with |x|, is not used); the log-sum-exp
 //     handed from the forward to the backward is in base 2 as well.
 //
-// Registers at D=16 (ptxas, sm_90a): forward 118, dK/dV 127, dQ 128 (all
-// under __launch_bounds__(128, 4)), none spilling; at D=32 180, 239 and
-// 244, none spilling; at D >= 64 all but the forward at D=64 spill.
-// chip_smoke.py prints the registers and spills at every head dim.
+// Registers of the forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9; spill
+// store/load bytes in brackets): D=8 95, 107, 104; D=16 118, 127, 128 (all
+// under __launch_bounds__(128, 4)); D=32 180, 239, 244; D=64 254, 255
+// [1204/1048], 255 [580/488]; D=128 255 [1896/2908], 255 [4432/5240], 255
+// [4184/7548]. chip_smoke.py prints the registers and spills at every head
+// dim; the bfloat16 instances' are in their note below.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -851,46 +853,101 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 // :913-914, dk = bf16(ds)^T q :918, bf16 outputs :937-938) and
 // _flash_attention_bwd_dq :1287 (dq = bf16(ds) k :1257-1261, bf16 :1283).
 // di = sum_d o * do is the caller's, in f32 from the bf16 o and do (:273).
-// The running max and sum and the log-sum-exp (base 2) stay f32.
+// The softmax statistics and the log-sum-exp (base 2) stay f32.
 //
 // Bound on an H100 SXM (700 W) at the prior shape B=16, H=8, L=4096, D=16:
-// each causal pair needs one exp2 (1.07 G pairs over the MUFU rate, 4.18
-// T/s: 0.257 ms in each kernel); the products (2, 4 and 3 a pair at
-// 2 * D flops each: 34.4 GFLOP each) over the dense bf16 rate (989 TFLOP/s)
-// take 0.07, 0.14 and 0.10 ms, and the bytes (each (B, H, L, D) bf16 tensor
-// 16.8 MB) 0.02-0.04 ms. So the exp2 per pair bounds all three at D=16.
+// each causal pair needs one exp2 (1.07 G pairs over the MUFU rate, 16 a
+// clock per SM, 4.18 T/s at 1.98 GHz: 0.257 ms in each kernel); the
+// products (2, 4 and 3 a pair at 2 * D flops each: 34.4 GFLOP each) over
+// the dense bf16 rate (989 TFLOP/s) take 0.07, 0.14 and 0.10 ms, and the
+// bytes (each (B, H, L, D) bf16 tensor 16.8 MB) 0.02-0.04 ms. So the exp2
+// per pair bounds all three at D=16: MUFU.EX2 issues a warp's 32 results
+// in 8 cycles of its SM sub-partition, so a kernel stays on that bound only
+// while it issues fewer than 8 other instructions per MUFU.EX2, and keeps
+// enough warps in flight to cover the chain logits -> max -> exp2 -> p v.
 //
-// Design (a simple one; wgmma and TMA are later work):
-//   * the f32 kernels' blocks: 4 warps own 64 rows of the outer dimension,
-//     16 a warp, and stream the other side in tiles of 64 rows through
-//     shared memory, double buffered with cp.async; rows padded to D + 8
-//     bf16 (16 bytes), which keeps the 32-bit fragment loads free of bank
-//     conflicts at D >= 16;
+// flash_fwd_bf16_kernel and flash_bwd_dkv_bf16_kernel, built for that:
+//   * a block is 4 consumer warps and 1 producer warp. The producer's first
+//     lane streams the other side in stages of 64 rows by TMA
+//     (cp.async.bulk.tensor; K, then K and V, in the forward; q, do, lse2
+//     and di in dK/dV) into a ring of 4 stages (3 at D = 128), each with a
+//     "full" and an "empty" mbarrier: a consumer warp waits on full, runs
+//     only math and arrives on empty once it is done with the stage. No
+//     __syncthreads after the barriers are set up, no address arithmetic
+//     for the copies;
+//   * a staged tile is dense, laid out by the TMA box's swizzle (32-, 64- or
+//     128-byte rows; D = 128 in two boxes of 64 columns; D = 8 rows are 16
+//     bytes and need none), so that the 8 rows of every ldmatrix phase fall
+//     on distinct banks (BfTile). Rows past L arrive as zeros;
+//   * every B operand read from a staged tile is one ldmatrix: along the
+//     rows for the logits and dp (K; q and do), .trans down the rows for
+//     p v, p^T do and ds^T q. The A operands that stay (q in the forward, k
+//     and v in dK/dV) are loaded once from device memory;
+//   * only the steps that touch the diagonal (or, in dK/dV, pass L) are
+//     masked, each a warp-uniform choice between two instances of the step;
+//   * forward: a warp owns 16 query rows (32 at D = 8, two groups that share
+//     every staged fragment: at D = 16 two groups spilled at 128 registers
+//     and one was as fast), in steps of 64 keys (32 at D = 128), in two
+//     passes over the keys. Pass 1 takes each row's maximum m of the raw
+//     logits s (logits and FMNMX only: the scale is positive, so m c rounds
+//     as max(s c) would); pass 2 computes p = 2^fma(s, c, -m c), c = scale *
+//     log2(e): one FFMA and one MUFU.EX2 a logit, then the sum and half a
+//     bf16 pack, and no rescale of the sums. So p is rounded to bf16 against
+//     the row's final maximum, as the plain version rounds it: a running
+//     maximum (one pass, 441 us against 537 at the prior shape) put the
+//     trained bf16 prior's dk 0.080 u from float64 in best-fit scale, past
+//     17a's gate (the plain version's 0.005 u + 0.0625), through o's bf16
+//     rounding in di on sharp rows. chip_smoke.py 17a prints the SASS
+//     counts;
+//   * dK/dV: a warp owns 32 keys at D <= 16 (two groups of 16 that share
+//     every staged fragment), 16 above, in steps of 16 queries; a stage
+//     whose every query sees every key of the warp runs its 4 steps
+//     unrolled, with no mask. lse2 and di * scale of a step's queries are
+//     read once into registers; p = 2^fma(s, c, -lse2), ds = p fma(dp,
+//     scale, -di scale): 3 FP32 instructions, one bf16 pack and one
+//     MUFU.EX2 a pair.
+//     Past L, lse2 and di come from the next head and are masked; each of
+//     their boxes starts at the 16-byte boundary at or before the stage's
+//     first query (a TMA box must start 16-byte aligned);
+//   * ex2.approx.ftz.f32 is the MUFU.EX2 that exp2f compiles to, without
+//     exp2f's fix-up of results below 2^-126: those are flushed to 0,
+//     which no bf16 output can see. (The CUDA C++ programming guide bounds
+//     exp2f at 2 ulp.)
+// flash_bwd_dq_bf16_kernel keeps the first design: 4 warps own 64 query
+// rows, 16 a warp, and stream K and V in tiles of 64 rows double buffered
+// with cp.async, rows padded to D + 8 bf16; B operands as 32-bit pairs
+// along a staged row and as two 16-bit loads down the rows; p = exp2f(s c -
+// lse2), ds = (dp - di) p scale, masked element by element.
+//
+// Common to all three:
 //   * every product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
 //     bf16 operands exactly as given, f32 accumulation, one pass. The
 //     logits' accumulator layout is the A layout of the next product (p or
 //     ds as A: k = 2t, 2t+1 of each 8 columns), so p and ds go from
 //     registers to the tensor cores, rounded to bf16 as they are packed;
-//   * A operands that stay (q, do in the forward and dQ; k, v in dK/dV) are
-//     loaded once from device memory into fragments; B operands come from
-//     the staged tiles: as 32-bit pairs where the reduction runs along a
-//     staged row (K for the logits, V for dp), as two 16-bit loads where it
-//     runs down the rows (V for p.v, do and q for dv and dk, K for dq);
+//     wgmma would buy nothing while the products take 69.5-139 us of bound
+//     against exp2's 257;
 //   * D = 8 is below the mma's depth of 16: the logit and dp products pad
 //     the reduction to 16 with zeros in registers (the upper half of each
-//     A and B fragment is 0), never reading the staged row's padding;
+//     A and B fragment is 0);
 //   * accumulators run for the whole row (no per-step f32 add): the tensor
 //     cores' truncated sums drift by ~1e-5 relative over L = 4096, far under
 //     the bf16 rounding of the outputs (2^-9);
-//   * masking is element by element (key <= query, query < L) on every
-//     step; only whole 8-key blocks past a warp's last row are skipped.
+//   * no atomics: each block owns its outputs; the longest blocks first.
 //
 // The recompute contract: each logit is one chain of m16n8k16 products over
 // the same D/16 reduction steps in the same order, from the same bf16
-// values, times scale * log2(e) in f32. The backward kernels' p is the
-// forward's p bit for bit (dK/dV swaps the operands of the same exact
-// bf16 x bf16 products, which sum position by position alike).
+// values, so the raw logit s is bit for bit the same in all three kernels
+// (dK/dV swaps the operands of the same exact bf16 x bf16 products, which
+// sum position by position alike); the three scale it by c in f32.
+//
+// Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9;
+// spill store/load bytes in brackets): D=8 120, 128 [4/4], 51; D=16 90,
+// 127, 64; D=32 121, 168, 72; D=64 147, 167, 125; D=128 191, 255, 215
+// (before this design the forward and dK/dV took 80 and 67 at D=16, 125
+// and 165 at D=64, 168 and 254 at D=128, none spilling).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 
 namespace {
@@ -1039,208 +1096,621 @@ __device__ __forceinline__ void store_rows_bf16(u16* __restrict__ out,
   }
 }
 
-// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
+// ---------------------------------------------------------------------------
+// The bf16 forward and dK/dV: TMA ring, one producer warp, ldmatrix
+// ---------------------------------------------------------------------------
+
+constexpr int kBfConsumers = 4;                      // math warps a block
+constexpr int kBfThreads = 32 * (kBfConsumers + 1);  // + 1 producer warp
+constexpr int kStage = 64;                           // streamed rows a stage
+// dK/dV's lse2 and di boxes: a box must start on a 16-byte boundary of
+// device memory, so each starts at the 4-float boundary at or before the
+// stage's first query and runs 4 floats longer; they lie kVecPitch floats
+// apart in shared memory (384 bytes: a TMA destination is 128-byte aligned)
+constexpr int kVecBox = kStage + 4;
+constexpr int kVecPitch = 96;
+
+// 16-row groups a warp owns: two where they fit the registers without a
+// spill, so that every staged fragment feeds two chains (at D = 16 the
+// forward's two groups spilled at 128 registers, and one group was as fast)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
-                      const u16* __restrict__ v, u16* __restrict__ o,
-                      float* __restrict__ lse2, int L, float scale_log2) {
-  constexpr int M = kBfMat<D>, N8 = D / 8;
-  extern __shared__ __align__(16) u16 bsmem[];
-  u16* ks = bsmem;          // 2 buffers
-  u16* vs = bsmem + 2 * M;  // 2 buffers
+constexpr int kFwdGroups = D == 8 ? 2 : 1;
+template <int D>
+constexpr int kDkvGroups = D <= 16 ? 2 : 1;
+template <int D>
+constexpr int kStages = D <= 64 ? 4 : 3;  // ring depth
+template <int D>
+constexpr int kFwdStep = D <= 64 ? 64 : 32;  // forward: keys a step
+// blocks an SM must hold at once: 3 blocks of 5 warps put 4 warps on one SM
+// sub-partition (16,384 registers each), which caps a thread at 128
+template <int D>
+constexpr int kFwdMinBlocks = D <= 32 ? 3 : 1;
+template <int D>
+constexpr int kDkvMinBlocks = D <= 16 ? 3 : D == 32 ? 2 : 1;
 
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
-  const int warp_first = qt * kTile + 16 * warp;
-  const int rows[2] = {warp_first + g, warp_first + g + 8};
+// A staged (kStage, D) bf16 tile as TMA writes it: boxes of kBox bytes a
+// row (two boxes of 64 columns at D = 128), each box kStage dense rows, its
+// 16-byte chunks swizzled by the box's own mode (CU_TENSOR_MAP_SWIZZLE_32B,
+// _64B, _128B: chunk bits [4, 4 + log2(kBox / 16)) of the byte offset
+// XORed with bits [7, ...)), so that the 8 rows an ldmatrix phase reads lie
+// on 8 distinct 16-byte bank groups. D = 8 rows are 16 bytes, so 8
+// consecutive rows already do. Tiles start on 1024-byte boundaries, the
+// 128-byte swizzle's period.
+template <int D>
+struct BfTile {
+  static constexpr int kBox = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int kPer = kBox / 16;  // 16-byte chunks a box row
+  static constexpr int kBytes = kStage * 2 * D;
+  // byte offset of 16-byte chunk c (of 2D / 16) of row r
+  __device__ static __forceinline__ uint32_t at(int r, int c) {
+    const int o = r * kBox + (c % kPer) * 16;
+    return static_cast<uint32_t>((c / kPer) * (kStage * kBox) +
+                                 (o ^ (((o >> 7) & (kPer - 1)) << 4)));
+  }
+};
 
-  copy_tile_bf16<D>(k + base, ks, 0, L);
-  copy_tile_bf16<D>(v + base, vs, 0, L);
-  cp_async_commit();
+template <int D>
+constexpr int fwd_bf16_smem() {  // K and V a stage, the barriers, alignment
+  return 1024 + kStages<D> * 2 * BfTile<D>::kBytes + 16 * kStages<D>;
+}
+template <int D>
+constexpr int dkv_bf16_smem() {  // q, do, lse2 and di a stage
+  return 1024 + kStages<D> * (2 * BfTile<D>::kBytes + 8 * kVecPitch) +
+         16 * kStages<D>;
+}
 
-  uint32_t qa[kBfSteps<D>][4];
-  load_a_bf16<D>(q + base, rows[0], rows[1], L, qa);
-  float acc[N8][4];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// this thread's arrival, and `bytes` more that the copies must bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed; a phase
+// that never completes (a copy that faulted) traps after 2^28 polls, so
+// that the launch fails where it would hang
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 28)) __trap();
+  } while (!done);
+}
+
+// box (c0, c1, c2) of a tensor map into shared memory at dst, completing
+// its bytes on the barrier
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// rows [r0, r0 + kStage) of head h of a (bh, L, D) map: one box a 64
+// columns (128 bytes)
+template <int D>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int r0, int h) {
+  constexpr int kBoxes = 2 * D / BfTile<D>::kBox;
 #pragma unroll
-  for (int n = 0; n < N8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int b = 0; b < kBoxes; ++b)
+    tma_3d(dst + b * kStage * BfTile<D>::kBox, map, bar,
+           b * (BfTile<D>::kBox / 2), r0, h);
+}
 
-  // key tiles up to the diagonal one (tiles and blocks are both kTile rows)
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int buf = (kt & 1) * M;
-    if (kt < qt) {
-      const int next = ((kt + 1) & 1) * M;
-      copy_tile_bf16<D>(k + base, ks + next, (kt + 1) * kTile, L);
-      copy_tile_bf16<D>(v + base, vs + next, (kt + 1) * kTile, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int key0 = kt * kTile;
-    // 8-key blocks at or before the warp's last row (an even count)
-    const int nb = min(8, (warp_first + 15 - key0) / 8 + 1);
-    float s[8][4];
-    float mx[2] = {m[0], m[1]};
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr)
+      : "memory");
+}
+
+// B fragments of a product that reduces along the staged rows (K for the
+// forward's logits, q and do for dK/dV's), reduction step st over D: (b[0],
+// b[1]) for rows r0 .. r0 + 7 as the columns, (b[2], b[3]) for rows r0 + 8
+// .. r0 + 15; at D = 8 the upper halves are 0 (the reduction padded to 16)
+template <int D>
+__device__ __forceinline__ void ldsm_along(uint32_t tile, int r0, int st,
+                                           uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D >= 16) {
+    ldsm_x4(tile + BfTile<D>::at(r0 + (lane & 7) + ((lane >> 4) << 3),
+                                 2 * st + ((lane >> 3) & 1)),
+            b);
+  } else {
+    ldsm_x2(tile + BfTile<D>::at(r0 + (lane & 7) + (lane & 8), 0), b[0],
+            b[2]);
+    b[1] = b[3] = 0u;
+  }
+}
+
+// B fragments of a product that reduces down the staged rows (V for p v, do
+// and q for dv and dk): 16 rows from r0 by columns 16 n2 .. 16 n2 + 15, as
+// (b[0], b[1]) for n-tile 2 n2 and (b[2], b[3]) for n-tile 2 n2 + 1 (only
+// the first at D = 8)
+template <int D>
+__device__ __forceinline__ void ldsm_down(uint32_t tile, int r0, int n2,
+                                          uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int r = r0 + (lane & 7) + (lane & 8);
+  if constexpr (D >= 16)
+    ldsm_x4_t(tile + BfTile<D>::at(r, 2 * n2 + (lane >> 4)), b);
+  else
+    ldsm_x2_t(tile + BfTile<D>::at(r, 0), b[0], b[1]);
+}
+
+// 2^x on the MUFU unit, inputs and results below 2^-126 flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the raw logits s[rg][j] of kFwdStep<D> staged keys from tile row c (key
+// index key0) for the warp's kFwdGroups<D> groups of 16 rows from row0: rows
+// row0 + 16 rg + g (+8) by keys key0 + 8j + 2t (+1). kMasked: the step holds
+// keys past some row of the warp (the diagonal), which read as -inf
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_bf16_logits(
+    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4], uint32_t ktile,
+    int c, int key0, int row0,
+    float (&s)[kFwdGroups<D>][kFwdStep<D> / 8][4]) {
+  constexpr int G = kFwdGroups<D>, NJ = kFwdStep<D> / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      if (j < nb) mma_rows<D>(s[j], qa, ks + buf + 8 * j * kBfStride<D>);
+  for (int j2 = 0; j2 < NJ / 2; ++j2) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = key0 + 8 * j + 2 * t + (i & 1);
-        const float x = s[j][i] * scale_log2;
-        s[j][i] = j < nb && key <= rows[i >> 1] ? x : -INFINITY;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+    for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[rg][2 * j2][i] = s[rg][2 * j2 + 1][i] = 0.f;
+#pragma unroll
+    for (int st = 0; st < kBfSteps<D>; ++st) {
+      uint32_t b[4];
+      ldsm_along<D>(ktile, c + 16 * j2, st, b);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg) {
+        mma_bf16(s[rg][2 * j2], qa[rg][st], b[0], b[1]);
+        mma_bf16(s[rg][2 * j2 + 1], qa[rg][st], b[2], b[3]);
       }
     }
-    float corr[2];
+  }
+  if (kMasked) {
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (key0 + 8 * j + 2 * t + (i & 1) >
+              row0 + 16 * rg + g + 8 * (i >> 1))
+            s[rg][j][i] = -INFINITY;
+  }
+}
+
+// pass 1 of the forward over one step: this thread's share of each row's
+// maximum raw logit (the scale is positive, so m c rounds as max(s c) would)
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_bf16_max(
+    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4],
+    float (&m)[kFwdGroups<D>][2], uint32_t ktile, int c, int key0,
+    int row0) {
+  float s[kFwdGroups<D>][kFwdStep<D> / 8][4];
+  fwd_bf16_logits<D, kMasked>(qa, ktile, c, key0, row0, s);
+#pragma unroll
+  for (int rg = 0; rg < kFwdGroups<D>; ++rg)
+#pragma unroll
+    for (int j = 0; j < kFwdStep<D> / 8; ++j) {
+      m[rg][0] = fmaxf(m[rg][0], fmaxf(s[rg][j][0], s[rg][j][1]));
+      m[rg][1] = fmaxf(m[rg][1], fmaxf(s[rg][j][2], s[rg][j][3]));
+    }
+}
+
+// pass 2 of the forward over one step: p = 2^fma(s, c, -m c) against the
+// row's final maximum (one FFMA and one MUFU.EX2 a logit), the sum of p, and
+// p v with p rounded to bf16 as the A operand
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_bf16_step(
+    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4],
+    float (&acc)[kFwdGroups<D>][D / 8][4], const float (&mc)[kFwdGroups<D>][2],
+    float (&l)[kFwdGroups<D>][2], uint32_t ktile, uint32_t vtile, int c,
+    int key0, int row0, float cl2) {
+  constexpr int G = kFwdGroups<D>, NJ = kFwdStep<D> / 8;
+  float s[G][NJ][4];
+  fwd_bf16_logits<D, kMasked>(qa, ktile, c, key0, row0, s);
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ex2(fmaf(s[rg][j][i], cl2, -mc[rg][i >> 1]));
+        l[rg][i >> 1] += p;
+        s[rg][j][i] = p;
+      }
+#pragma unroll
+  for (int j2 = 0; j2 < NJ / 2; ++j2) {
+    uint32_t pa[G][4];
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg)
+      acc_to_a(s[rg][2 * j2], s[rg][2 * j2 + 1], pa[rg]);
+#pragma unroll
+    for (int n2 = 0; n2 < (D < 16 ? 1 : D / 16); ++n2) {
+      uint32_t b[4];
+      ldsm_down<D>(vtile, c + 16 * j2, n2, b);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg) {
+        mma_bf16(acc[rg][2 * n2], pa[rg], b[0], b[1]);
+        if constexpr (D >= 16)
+          mma_bf16(acc[rg][2 * n2 + 1], pa[rg], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// grid (B*H, ceil(L / R)), R = 64 kFwdGroups<D> query rows a block;
+// blockIdx.y = 0 is the LAST query block. Warp 4 streams the K tiles of
+// kStage keys (pass 1), then K and V again (pass 2), through a ring of
+// kStages<D> stages; warps 0-3 own 16 kFwdGroups<D> rows each
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, kFwdMinBlocks<D>)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const u16* __restrict__ q, u16* __restrict__ o,
+                      float* __restrict__ lse2, int L, float scale_log2) {
+  constexpr int G = kFwdGroups<D>, N8 = D / 8, S = kStages<D>;
+  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  extern __shared__ uint8_t bf_smem[];
+  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
+  const uint32_t full = tiles + S * 2 * TB, empty = full + 8 * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qb = gridDim.y - 1 - blockIdx.y, h = blockIdx.x;
+  // key stages up to the one that holds the block's last row, twice
+  const int n_tiles = (min(qb * R + R, L) - 1) / kStage + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBfConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
+    if (lane == 0)
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int s = i % S, kt = i < n_tiles ? i : i - n_tiles;
+        const uint32_t at = tiles + s * 2 * TB;
+        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, i < n_tiles ? TB : 2 * TB);
+        tma_rows<D>(at, &tk, full + 8 * s, kt * kStage, h);
+        if (i >= n_tiles)
+          tma_rows<D>(at + TB, &tv, full + 8 * s, kt * kStage, h);
+      }
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t base = static_cast<int64_t>(h) * L * D;
+  const int row0 = qb * R + 16 * G * warp, last = row0 + 16 * G - 1;
+
+  uint32_t qa[G][kBfSteps<D>][4];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg)
+    load_a_bf16<D>(q + base, row0 + 16 * rg + g, row0 + 16 * rg + g + 8, L,
+                   qa[rg]);
+  float acc[G][N8][4], m[G][2], l[G][2];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg) {
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+      acc[rg][n][0] = acc[rg][n][1] = acc[rg][n][2] = acc[rg][n][3] = 0.f;
+    m[rg][0] = m[rg][1] = -INFINITY;
+    l[rg][0] = l[rg][1] = 0.f;
+  }
+
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    const int s = i % S, kt = i < n_tiles ? i : i - n_tiles;
+    const uint32_t at = tiles + s * 2 * TB;
+    if (i == n_tiles) {
+      // the rows' maxima across the 4 lanes of a row; key 0 is in every
+      // row, so each is finite. Pass 2 rounds p against them, as the plain
+      // version does (a running maximum moved the trained prior's dK)
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& mr = m[rg][r];
+          mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+          mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+          mr *= scale_log2;  // m c from here on
+        }
+    }
+    mbar_wait(full + 8 * s, (i / S) & 1);
+#pragma unroll 1
+    for (int c = 0; c < kStage; c += kFwdStep<D>) {
+      const int key0 = kt * kStage + c;
+      if (key0 > last) break;  // every key here is ahead of the warp
+      const bool full_step = key0 + kFwdStep<D> - 1 <= row0;
+      if (i < n_tiles) {
+        if (full_step)
+          fwd_bf16_max<D, false>(qa, m, at, c, key0, row0);
+        else
+          fwd_bf16_max<D, true>(qa, m, at, c, key0, row0);
+      } else if (full_step) {
+        fwd_bf16_step<D, false>(qa, acc, m, l, at, at + TB, c, key0, row0,
+                                scale_log2);
+      } else {
+        fwd_bf16_step<D, true>(qa, acc, m, l, at, at + TB, c, key0, row0,
+                               scale_log2);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg) {
+    const int r0 = row0 + 16 * rg + g;
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key 0 is in every row's first tile, so mx is finite from there on
-      corr[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= corr[r];
+      float lr = l[rg][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      inv[r] = 1.f / lr;
+      if (t == 0 && r0 + 8 * r < L)
+        lse2[static_cast<int64_t>(h) * L + r0 + 8 * r] = m[rg][r] + log2f(lr);
     }
+    store_rows_bf16<D>(o + base, acc[rg], r0, r0 + 8, L, inv[0], inv[1]);
+  }
+}
+
+// one dK/dV step over the 16 staged queries from tile row c (query index
+// qi0) for the warp's kDkvGroups<D> groups of 16 keys from key0: logits and
+// dp transposed, p, ds, then dv and dk. kMasked: the step holds a query
+// before some key of the warp, or past L
+template <int D, bool kMasked>
+__device__ __forceinline__ void dkv_bf16_step(
+    const uint32_t (&ka)[kDkvGroups<D>][kBfSteps<D>][4],
+    const uint32_t (&va)[kDkvGroups<D>][kBfSteps<D>][4],
+    float (&dka)[kDkvGroups<D>][D / 8][4],
+    float (&dva)[kDkvGroups<D>][D / 8][4], uint32_t qtile, uint32_t dotile,
+    const float* __restrict__ ls, const float* __restrict__ dis, int c,
+    int qi0, int key0, int L, float cl2, float scale) {
+  constexpr int G = kDkvGroups<D>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // lse2 and di * scale of this thread's queries c + 8j + 2t (+1), once a
+  // step
+  float lq[2][2], dq[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lq[j][e] = ls[c + 8 * j + 2 * t + e];
+      dq[j][e] = dis[c + 8 * j + 2 * t + e] * scale;
+    }
+  // s[kg][j], dp[kg][j]: keys key0 + 16 kg + g (+8) by queries qi0 + 8j +
+  // 2t (+1)
+  float s[G][2][4], dp[G][2][4];
+#pragma unroll
+  for (int kg = 0; kg < G; ++kg)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[kg][j][i] = dp[kg][j][i] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kBfSteps<D>; ++st) {
+    uint32_t bq[4], bd[4];
+    ldsm_along<D>(qtile, c, st, bq);
+    ldsm_along<D>(dotile, c, st, bd);
+#pragma unroll
+    for (int kg = 0; kg < G; ++kg) {
+      mma_bf16(s[kg][0], ka[kg][st], bq[0], bq[1]);
+      mma_bf16(s[kg][1], ka[kg][st], bq[2], bq[3]);
+      mma_bf16(dp[kg][0], va[kg][st], bd[0], bd[1]);
+      mma_bf16(dp[kg][1], va[kg][st], bd[2], bd[3]);
+    }
+  }
+  uint32_t pa[G][4], da[G][4];
+#pragma unroll
+  for (int kg = 0; kg < G; ++kg) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = i & 1;
+        float p = ex2(fmaf(s[kg][j][i], cl2, -lq[j][e]));
+        if (kMasked) {
+          const int qi = qi0 + 8 * j + 2 * t + e;
+          if (qi < key0 + 16 * kg + g + 8 * (i >> 1) || qi >= L) p = 0.f;
+        }
+        s[kg][j][i] = p;
+        dp[kg][j][i] = p * fmaf(dp[kg][j][i], scale, -dq[j][e]);
+      }
+    // p^T and ds^T as A operands: k = 2t (+1) of each 8 queries
+    acc_to_a(s[kg][0], s[kg][1], pa[kg]);
+    acc_to_a(dp[kg][0], dp[kg][1], da[kg]);
+  }
+#pragma unroll
+  for (int n2 = 0; n2 < (D < 16 ? 1 : D / 16); ++n2) {
+    uint32_t bd[4], bq[4];
+    ldsm_down<D>(dotile, c, n2, bd);
+    ldsm_down<D>(qtile, c, n2, bq);
+#pragma unroll
+    for (int kg = 0; kg < G; ++kg) {
+      mma_bf16(dva[kg][2 * n2], pa[kg], bd[0], bd[1]);
+      mma_bf16(dka[kg][2 * n2], da[kg], bq[0], bq[1]);
+      if constexpr (D >= 16) {
+        mma_bf16(dva[kg][2 * n2 + 1], pa[kg], bd[2], bd[3]);
+        mma_bf16(dka[kg][2 * n2 + 1], da[kg], bq[2], bq[3]);
+      }
+    }
+  }
+}
+
+// grid (B*H, ceil(L / R)), R = 64 kDkvGroups<D> keys a block; blockIdx.y =
+// 0 is the FIRST key block, which sees every query. Warp 4 streams q, do,
+// lse2 and di stages of kStage queries from the block's first key on;
+// warps 0-3 own 16 kDkvGroups<D> keys each
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, kDkvMinBlocks<D>)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdi,
+                          const u16* __restrict__ k, const u16* __restrict__ v,
+                          u16* __restrict__ dk, u16* __restrict__ dv, int L,
+                          float scale_log2, float scale) {
+  constexpr int G = kDkvGroups<D>, N8 = D / 8, S = kStages<D>;
+  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  extern __shared__ uint8_t bf_smem[];
+  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
+  const uint32_t vecs = tiles + S * 2 * TB;  // lse2 then di, a stage each
+  const uint32_t full = vecs + S * 8 * kVecPitch, empty = full + 8 * S;
+  const float* vec_ptr = reinterpret_cast<const float*>(
+      bf_smem + (vecs - smem_u32(bf_smem)));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, q_first = blockIdx.y * R;
+  const int n_tiles = (L - q_first + kStage - 1) / kStage;
+  // the vector boxes start at element h L + q0 - off (q0 % 4 == 0)
+  const int off = (h * L) & 3;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBfConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
+    if (lane == 0)
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % S, q0 = q_first + i * kStage;
+        const uint32_t at = tiles + s * 2 * TB, vat = vecs + s * 8 * kVecPitch;
+        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TB + 8 * kVecBox);
+        tma_rows<D>(at, &tq, full + 8 * s, q0, h);
+        tma_rows<D>(at + TB, &tdo, full + 8 * s, q0, h);
+        // (bh L,) vectors: past L come the next head's values, masked
+        tma_1d(vat, &tlse, full + 8 * s, h * L + q0 - off);
+        tma_1d(vat + 4 * kVecPitch, &tdi, full + 8 * s, h * L + q0 - off);
+      }
+    return;
+  }
+  const int g = lane >> 2;
+  const int64_t base = static_cast<int64_t>(h) * L * D;
+  const int key0 = q_first + 16 * G * warp, key_last = key0 + 16 * G - 1;
+
+  // the warp's k (logits) and v (dp) rows as A fragments
+  uint32_t ka[G][kBfSteps<D>][4], va[G][kBfSteps<D>][4];
+#pragma unroll
+  for (int kg = 0; kg < G; ++kg) {
+    const int c0 = key0 + 16 * kg + g;
+    load_a_bf16<D>(k + base, c0, c0 + 8, L, ka[kg]);
+    load_a_bf16<D>(v + base, c0, c0 + 8, L, va[kg]);
+  }
+  float dka[G][N8][4], dva[G][N8][4];
+#pragma unroll
+  for (int kg = 0; kg < G; ++kg)
 #pragma unroll
     for (int n = 0; n < N8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] *= corr[i >> 1];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[j][i] = exp2f(s[j][i] - m[i >> 1]);
-        l[i >> 1] += s[j][i];
-      }
-    // p v, p rounded to bf16 as the A operand
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (2 * c >= nb) break;
-      uint32_t pa[4];
-      acc_to_a(s[2 * c], s[2 * c + 1], pa);
-      mma_down<D>(acc, pa, vs + buf + 16 * c * kBfStride<D>);
-    }
-    __syncthreads();  // before tile kt + 2 overwrites this buffer
-  }
+      for (int i = 0; i < 4; ++i) dka[kg][n][i] = dva[kg][n][i] = 0.f;
 
-  float inv[2];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % S, q0 = q_first + i * kStage;
+    const uint32_t at = tiles + s * 2 * TB;
+    const float* ls = vec_ptr + s * 2 * kVecPitch + off;
+    const float* dis = ls + kVecPitch;
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    if (D <= 32 && q0 >= key_last && q0 + kStage <= L) {
+      // every query of the stage sees every key of the warp: the four
+      // steps unrolled, no mask (at D >= 64 the products dominate, and
+      // the unrolled steps would spill)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.f / l[r];
-    if (t == 0 && rows[r] < L)
-      lse2[static_cast<int64_t>(blockIdx.x) * L + rows[r]] =
-          m[r] + log2f(l[r]);
-  }
-  store_rows_bf16<D>(o + base, acc, rows[0], rows[1], L, inv[0], inv[1]);
-}
-
-// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the FIRST key tile, which sees
-// every query tile
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
-                          const u16* __restrict__ v,
-                          const u16* __restrict__ dout,
-                          const float* __restrict__ lse2,
-                          const float* __restrict__ di, u16* __restrict__ dk,
-                          u16* __restrict__ dv, int L, float scale_log2,
-                          float scale) {
-  constexpr int M = kBfMat<D>, N8 = D / 8;
-  extern __shared__ __align__(16) u16 bsmem[];
-  u16* qs = bsmem;           // 2 buffers
-  u16* dos = bsmem + 2 * M;  // 2 buffers
-  float* ls = reinterpret_cast<float*>(bsmem + 4 * M);  // 2 buffers of kTile
-  float* dis = ls + 2 * kTile;                           // 2 buffers of kTile
-
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int kt = blockIdx.y;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
-  const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
-  const int warp_first = kt * kTile + 16 * warp;
-  const int cols[2] = {warp_first + g, warp_first + g + 8};
-  const int n_tiles = (L - kt * kTile + kTile - 1) / kTile;
-
-  // one query tile (rows t0 .. t0 + 63) of q, do, lse2, di into buffer b
-  auto load_tile = [&](int t0, int b) {
-    copy_tile_bf16<D>(q + base, qs + b * M, t0, L);
-    copy_tile_bf16<D>(dout + base, dos + b * M, t0, L);
-    const int r = threadIdx.x % kTile;  // 2 * kTile == kThreads
-    const bool in = t0 + r < L;
-    const int64_t at = lbase + (in ? t0 + r : 0);
-    if (threadIdx.x < kTile)
-      cp_async4(ls + b * kTile + r, lse2 + at, in);
-    else
-      cp_async4(dis + b * kTile + r, di + at, in);
-    cp_async_commit();
-  };
-  load_tile(kt * kTile, 0);
-
-  uint32_t ka[kBfSteps<D>][4], va[kBfSteps<D>][4];
-  load_a_bf16<D>(k + base, cols[0], cols[1], L, ka);
-  load_a_bf16<D>(v + base, cols[0], cols[1], L, va);
-  float dka[N8][4], dva[N8][4];
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = kt * kTile + it * kTile, b = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile(t0 + kTile, b ^ 1);
-      cp_async_wait<1>();
+      for (int c = 0; c < kStage; c += 16)
+        dkv_bf16_step<D, false>(ka, va, dka, dva, at, at + TB, ls, dis, c,
+                                q0 + c, key0, L, scale_log2, scale);
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const u16* qt_ = qs + b * M;
-    const u16* dt_ = dos + b * M;
 #pragma unroll 1
-    for (int c = 0; c < 4; ++c) {
-      const int qi0 = t0 + 16 * c;
-      if (qi0 >= L) break;
-      if (qi0 + 15 < warp_first) continue;  // every query before every key
-      // s^T, dp^T: keys (rows g, g+8) by queries qi0 + 8jj + 2t (+1)
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
-        mma_rows<D>(s[jj], ka, qt_ + (16 * c + 8 * jj) * kBfStride<D>);
-        mma_rows<D>(dp[jj], va, dt_ + (16 * c + 8 * jj) * kBfStride<D>);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * c + 8 * jj + 2 * t + (i & 1);  // tile row
-          const int qi = t0 + r;
-          const float p =
-              qi >= cols[i >> 1] && qi < L
-                  ? exp2f(s[jj][i] * scale_log2 - ls[b * kTile + r])
-                  : 0.f;
-          s[jj][i] = p;
-          dp[jj][i] = (dp[jj][i] - dis[b * kTile + r]) * p * scale;
-        }
+      for (int c = 0; c < kStage; c += 16) {
+        const int qi0 = q0 + c;
+        if (qi0 >= L) break;
+        if (qi0 + 15 < key0) continue;  // every query before every key
+        if (qi0 >= key_last && qi0 + 16 <= L)
+          dkv_bf16_step<D, false>(ka, va, dka, dva, at, at + TB, ls, dis, c,
+                                  qi0, key0, L, scale_log2, scale);
+        else
+          dkv_bf16_step<D, true>(ka, va, dka, dva, at, at + TB, ls, dis, c,
+                                 qi0, key0, L, scale_log2, scale);
       }
-      uint32_t pa[4], da[4];
-      acc_to_a(s[0], s[1], pa);
-      acc_to_a(dp[0], dp[1], da);
-      mma_down<D>(dva, pa, dt_ + 16 * c * kBfStride<D>);
-      mma_down<D>(dka, da, qt_ + 16 * c * kBfStride<D>);
     }
-    __syncthreads();  // before tile it + 2 overwrites this buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-  store_rows_bf16<D>(dk + base, dka, cols[0], cols[1], L, 1.f, 1.f);
-  store_rows_bf16<D>(dv + base, dva, cols[0], cols[1], L, 1.f, 1.f);
+#pragma unroll
+  for (int kg = 0; kg < G; ++kg) {
+    const int c0 = key0 + 16 * kg + g;
+    store_rows_bf16<D>(dk + base, dka[kg], c0, c0 + 8, L, 1.f, 1.f);
+    store_rows_bf16<D>(dv + base, dva[kg], c0, c0 + 8, L, 1.f, 1.f);
+  }
 }
 
 // grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
@@ -1329,25 +1799,108 @@ flash_bwd_dq_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
   store_rows_bf16<D>(dq + base, dqa, rows[0], rows[1], L, 1.f, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// host: tensor maps for the TMA copies
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
+// library links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (bh, L, D) bf16 tensor in boxes of (kBox / 2 columns, kStage rows, one
+// head), swizzled as BfTile<D> reads them; rows past L read as zeros
+template <int D>
+inline int rows_map(CUtensorMap* map, const void* ptr, int bh, int L) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr int kBox = BfTile<D>::kBox;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {2ull * D, 2ull * D * L};
+  const cuuint32_t box[3] = {kBox / 2, kStage, 1}, one[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      kBox == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kBox == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : kBox == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                   : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a (bh, L) float32 tensor as one vector of bh L in boxes of kVecBox (a
+// row stride of 4L bytes need not be a multiple of 16, which a 2-D map
+// asks)
+inline int vec_map(CUtensorMap* map, const float* ptr, int bh, int L) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(bh) * L};
+  const cuuint64_t strides[1] = {4};  // unused at rank 1
+  const cuuint32_t box[1] = {kVecBox}, one[1] = {1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                         const_cast<float*>(ptr), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline dim3 bf_grid(int bh, int L, int rows) {
+  return dim3(static_cast<unsigned>(bh),
+              static_cast<unsigned>((L + rows - 1) / rows));
+}
+
 }  // namespace
 
 // C interface of the bf16 instances: q, k, v, o, do, dq, dk, dv contiguous
 // bf16 (bh, L, d), 16-byte aligned; lse2 and di float32 (bh, L). Otherwise
-// as the float32 functions above.
+// as the float32 functions above; the dK/dV kernel also needs bh L < 2^31
+// (its lse2 and di copies index the flat vectors with 32-bit coordinates).
 extern "C" int movae_flash_bf16_fwd(const void* q, const void* k,
                                     const void* v, void* o, float* lse2,
                                     int bh, int L, int d, float scale,
                                     int device, void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  constexpr int smem = bf_tiles_bytes<kD>();
+  CUtensorMap tk, tv;
+  if ((err = rows_map<kD>(&tk, k, bh, L)) != 0) return err;
+  if ((err = rows_map<kD>(&tv, v, bh, L)) != 0) return err;
+  constexpr int smem = fwd_bf16_smem<kD>();
   err = allow_smem(flash_fwd_bf16_kernel<kD>, smem);
   if (err != 0) return err;
-  flash_fwd_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u16*>(q), static_cast<const u16*>(k),
-      static_cast<const u16*>(v), static_cast<u16*>(o), lse2, L,
-      scale * kLog2e);
+  flash_fwd_bf16_kernel<kD>
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kFwdGroups<kD>), kBfThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          tk, tv, static_cast<const u16*>(q), static_cast<u16*>(o), lse2, L,
+          scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1359,15 +1912,22 @@ extern "C" int movae_flash_bf16_bwd_dkv(const void* q, const void* k,
                                         void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  constexpr int smem =
-      bf_tiles_bytes<kD>() + 4 * kTile * static_cast<int>(sizeof(float));
+  if (static_cast<int64_t>(bh) * L > 2147483647 - kStage)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tdo, tlse, tdi;
+  if ((err = rows_map<kD>(&tq, q, bh, L)) != 0) return err;
+  if ((err = rows_map<kD>(&tdo, dout, bh, L)) != 0) return err;
+  if ((err = vec_map(&tlse, lse2, bh, L)) != 0) return err;
+  if ((err = vec_map(&tdi, di, bh, L)) != 0) return err;
+  constexpr int smem = dkv_bf16_smem<kD>();
   err = allow_smem(flash_bwd_dkv_bf16_kernel<kD>, smem);
   if (err != 0) return err;
-  flash_bwd_dkv_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u16*>(q), static_cast<const u16*>(k),
-      static_cast<const u16*>(v), static_cast<const u16*>(dout), lse2, di,
-      static_cast<u16*>(dk), static_cast<u16*>(dv), L, scale * kLog2e, scale);
+  flash_bwd_dkv_bf16_kernel<kD>
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kDkvGroups<kD>), kBfThreads,
+         smem, static_cast<cudaStream_t>(stream)>>>(
+          tq, tdo, tlse, tdi, static_cast<const u16*>(k),
+          static_cast<const u16*>(v), static_cast<u16*>(dk),
+          static_cast<u16*>(dv), L, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,15 +3,19 @@ CPU: the kernels' arithmetic emulated in torch passes it, and the planted
 faults that 17a plants on the card do not.
 
 ``movae_tpu_torch/kernels/flash_attention.cu``'s bf16 forward takes the
-logits from bf16 products summed in float32, scales them by
-``s * log2(e)`` in float32 and runs an online softmax over tiles of 64 keys:
-each tile's p = exp2(logit - running max) is rounded to bf16 before p v,
-the running sum takes the unrounded p, and o = bf16(acc / sum). Its
-backward kernels recompute p = exp2(logit - lse2) from the forward's lse2
-and round p and ds to bf16 before their products; they sum in another
-order than torch's GEMMs, which the emulation models by summing in
-float64. The plain version (``plain_fwd_bf16``/``plain_bwd_bf16``) rounds
-at the same points against the row's final maximum.
+raw logits s from bf16 products summed in float32 in two passes over the
+keys: the first takes each row's maximum m of the raw logits, the second,
+in steps of 64 keys (32 at D = 128), p = 2^fma(s, c, -m c) (c = scale *
+log2(e), m c one float32 product, results below 2^-126 flushed to 0),
+rounded to bf16 before p v; the sum takes the unrounded p, and o =
+bf16(acc / sum), lse2 = m c + log2(sum). The dK/dV kernel recomputes p
+= 2^fma(s, c, -lse2) and ds = p fma(dp, scale, -di scale), the dQ kernel
+p = 2^(s c - lse2) and ds = (dp - di) p scale; both round p and ds to
+bf16 before their products and sum in another order than torch's GEMMs,
+which the emulation models by summing in float64 (a float32 fma is a
+float64 sum rounded once). The plain version (``plain_fwd_bf16``/
+``plain_bwd_bf16``) rounds at the same points against the row's final
+maximum.
 
 The gate and the controls are chip_smoke.py's own functions, loaded from
 the checkout.
@@ -27,8 +31,13 @@ torch = pytest.importorskip("torch")
 
 from movae_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
-TILE = 64  # the forward kernel's keys per online-softmax step
 LOG2E = 1.4426950408889634
+TINY = 2.0 ** -126  # ex2.approx.ftz flushes results below it to 0
+
+
+def tile(d):
+    """The forward kernel's keys per step of its second pass (kFwdStep)."""
+    return 64 if d <= 64 else 32
 
 
 def _chip_smoke():
@@ -46,41 +55,58 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the product is exact in float64."""
+    return (a.double() * b + c.double()).float()
+
+
+def _ex2(x):
+    """ex2.approx.ftz.f32, exactly rounded."""
+    p = torch.exp2(x)
+    return torch.where(p < TINY, torch.zeros_like(p), p)
+
+
 def _kernel_fwd(q, k, v, scale):
-    """The forward kernel's tiles: (o, lse2)."""
+    """The forward kernel's two passes: each row's final maximum of the raw
+    logits, then its steps against it: (o, lse2)."""
     B, H, L, D = q.shape
+    T, c = tile(D), torch.tensor(scale * LOG2E, dtype=torch.float32)
     qf, kf, vf = q.float(), k.float(), v.float()
-    m = torch.full((B, H, L, 1), -math.inf)
+    rows = torch.arange(L)[:, None]
+    s = (qf @ kf.transpose(-1, -2)).masked_fill(
+        torch.arange(L)[None, :] > rows, -math.inf)
+    mc = s.amax(-1, keepdim=True) * c  # key 0 is in every row
     s_sum = torch.zeros((B, H, L, 1))
     acc = torch.zeros((B, H, L, D))
-    rows = torch.arange(L)[:, None]
-    for k0 in range(0, L, TILE):
-        s = (qf @ kf[:, :, k0:k0 + TILE].transpose(-1, -2)) * (scale * LOG2E)
-        keys = torch.arange(k0, min(k0 + TILE, L))[None, :]
-        s = s.masked_fill(keys > rows, -math.inf)
-        mx = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.nan_to_num(torch.exp2(m - mx), nan=0.0)
-        p = torch.nan_to_num(torch.exp2(s - mx), nan=0.0)
-        s_sum = s_sum * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + _bf(p) @ vf[:, :, k0:k0 + TILE]
-        m = mx
-    return (acc * (1.0 / s_sum)).to(torch.bfloat16), (m + torch.log2(s_sum))[
+    for k0 in range(0, L, T):
+        p = _ex2(_fma(s[..., k0:k0 + T], c, -mc))
+        s_sum = s_sum + p.sum(-1, keepdim=True)
+        acc = acc + _bf(p) @ vf[:, :, k0:k0 + T]
+    return (acc * (1.0 / s_sum)).to(torch.bfloat16), (mc + torch.log2(s_sum))[
         ..., 0]
 
 
 def _kernel_bwd(q, k, v, o, lse2, do, scale):
     """The backward kernels from the forward's o and lse2, summed in
-    float64: (dq, dk, dv)."""
+    float64: (dq, dk, dv); dQ's p and ds as that kernel computes them,
+    dK/dV's with one fma each."""
     L = q.shape[2]
-    s = (q.double() @ k.double().transpose(-1, -2)).float() * (scale * LOG2E)
-    s = s.masked_fill(~torch.ones(L, L, dtype=torch.bool).tril(), -math.inf)
-    p = torch.exp2(s - lse2[..., None])
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    sc = torch.tensor(scale, dtype=torch.float32)
+    s = (q.double() @ k.double().transpose(-1, -2)).float()
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
     di = (o.float() * do.float()).sum(-1, keepdim=True)
     dp = (do.double() @ v.double().transpose(-1, -2)).float()
-    ds = _bf((dp - di) * p * scale).double()
+    # dQ (flash_bwd_dq_bf16_kernel): exp2f(s c - lse2), ((dp - di) p) s
+    p_q = torch.exp2((s * c).masked_fill(~causal, -math.inf)
+                     - lse2[..., None])
+    ds_q = _bf((dp - di) * p_q * sc).double()
+    # dK/dV: 2^fma(s, c, -lse2), p fma(dp, s, -di s)
+    p = _ex2(_fma(s, c, -lse2[..., None])).masked_fill(~causal, 0.0)
+    ds = _bf(p * _fma(dp, sc, -(di * sc))).double()
     dv = _bf(p).double().transpose(-1, -2) @ do.double()
     return [t.to(torch.bfloat16) for t in
-            (ds @ k.double(), ds.transpose(-1, -2) @ q.double(), dv)]
+            (ds_q @ k.double(), ds.transpose(-1, -2) @ q.double(), dv)]
 
 
 def _inputs(shape, seed, sharp=1.0):
@@ -95,6 +121,9 @@ def _inputs(shape, seed, sharp=1.0):
 CASES = [((1, 2, 1024, 16), 1.0), ((1, 2, 1025, 8), 1.0),
          ((1, 2, 777, 32), 1.0), ((1, 1, 333, 128), 1.0),
          ((1, 2, 1024, 16), 5.0), ((1, 2, 640, 32), 5.0)]
+# ragged L at the edges of the forward's key step T: T - 1, T + 1, 2T + 1
+CASES += [((1, 1, L, d), 1.0) for d in (8, 16)
+          for L in (tile(d) - 1, tile(d) + 1, 2 * tile(d) + 1)]
 
 
 @pytest.mark.parametrize("shape,sharp", CASES)
@@ -153,3 +182,49 @@ def test_gate_refuses_a_bias_within_1e2_of_the_largest_value():
     assert err < 1e-2
     a = cs.bf16_agreement(torch, low, o, torch.zeros(o.shape))
     assert abs(a["scale"]) > cs.BF16_SCALE and not cs.bf16_agrees(a)
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi16EEEvPKt
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/              @!P0 BRA 0x100 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0030*/                   FFMA R1, R2, R3, -R4 ;
+        /*0040*/                   MUFU.EX2 R1, R1 ;
+        /*0050*/                   FFMA R5, R6, R3, -R4 ;
+        /*0060*/                   MUFU.EX2 R5, R5 ;
+        /*0070*/                   FADD R7, R1, R5 ;
+        /*0080*/                   LDSM.16.M88.4 R8, [R9] ;
+        /*0090*/               @P1 BRA 0x20 ;
+        /*00a0*/                   MUFU.RCP R2, R7 ;
+        /*00b0*/                   EXIT ;
+"""
+
+PTXAS = """ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__flash_attention_cu_2724flash_bwd_dq_bf16_kernelILi16EEEvPKt' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__flash_attention_cu_2724flash_bwd_dq_bf16_kernelILi16EEEvPKt
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKf' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers
+"""
+
+
+def test_sass_counts_reads_the_hot_step(tmp_path):
+    """17a's SASS reading: opcodes with their first modifier (MUFU.EX2 apart
+    from MUFU.RCP), and the branch-free run with the most MUFU.EX2; the A/B
+    script's ptxas reading keeps only the bf16 kernels."""
+    from movae_tpu_torch.kernels.flash_ab import bf16_registers
+
+    listing = tmp_path / "lib.sass"
+    listing.write_text(SASS)
+    fake = tmp_path / "cuobjdump"
+    fake.write_text(f"#!/bin/sh\ncat {listing}\n")
+    fake.chmod(0o755)
+    ops = cs.sass_counts(str(fake), "lib.so")["flash_fwd_bf16_kernel<16>"]
+    assert (ops["all"], ops["MUFU"], ops["MUFU.EX2"], ops["HMMA"],
+            ops["LDSM"], ops["FFMA"]) == (12, 3, 2, 1, 1, 2)
+    assert ops["hot"] == [8, 2]  # 0x0020 .. the branch at 0x0090
+    whole, hot = cs.per_ex2(ops)
+    assert (whole, hot) == ((12 - 3) / 2, (8 - 2) / 2)
+    assert bf16_registers(PTXAS) == {"flash_bwd_dq_bf16_kernel": [64, 0, 0]}
