@@ -866,23 +866,25 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 // while it issues fewer than 8 other instructions per MUFU.EX2, and keeps
 // enough warps in flight to cover the chain logits -> max -> exp2 -> p v.
 //
-// flash_fwd_bf16_kernel and flash_bwd_dkv_bf16_kernel, built for that:
+// flash_fwd_bf16_kernel, flash_bwd_dkv_bf16_kernel and
+// flash_bwd_dq_bf16_kernel, built for that:
 //   * a block is 4 consumer warps and 1 producer warp. The producer's first
 //     lane streams the other side in stages of 64 rows by TMA
 //     (cp.async.bulk.tensor; K, then K and V, in the forward; q, do, lse2
-//     and di in dK/dV) into a ring of 4 stages (3 at D = 128), each with a
-//     "full" and an "empty" mbarrier: a consumer warp waits on full, runs
-//     only math and arrives on empty once it is done with the stage. No
-//     __syncthreads after the barriers are set up, no address arithmetic
-//     for the copies;
+//     and di in dK/dV; K and V in dQ) into a ring of 4 stages (3 at D =
+//     128), each with a "full" and an "empty" mbarrier: a consumer warp
+//     waits on full, runs only math and arrives on empty once it is done
+//     with the stage. No __syncthreads after the barriers are set up, no
+//     address arithmetic for the copies;
 //   * a staged tile is dense, laid out by the TMA box's swizzle (32-, 64- or
 //     128-byte rows; D = 128 in two boxes of 64 columns; D = 8 rows are 16
 //     bytes and need none), so that the 8 rows of every ldmatrix phase fall
 //     on distinct banks (BfTile). Rows past L arrive as zeros;
 //   * every B operand read from a staged tile is one ldmatrix: along the
-//     rows for the logits and dp (K; q and do), .trans down the rows for
-//     p v, p^T do and ds^T q. The A operands that stay (q in the forward, k
-//     and v in dK/dV) are loaded once from device memory;
+//     rows for the logits and dp (K; q and do; K and V), .trans down the
+//     rows for p v, p^T do and ds^T q, ds K. The A operands that stay (q in
+//     the forward, k and v in dK/dV, q and do in dQ) are loaded once from
+//     device memory;
 //   * only the steps that touch the diagonal (or, in dK/dV, pass L) are
 //     masked, each a warp-uniform choice between two instances of the step;
 //   * forward: a warp owns 16 query rows (32 at D = 8, two groups that share
@@ -909,15 +911,22 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     Past L, lse2 and di come from the next head and are masked; each of
 //     their boxes starts at the 16-byte boundary at or before the stage's
 //     first query (a TMA box must start 16-byte aligned);
+//   * dQ: a warp owns 32 query rows at D <= 32 (two groups of 16 that share
+//     every staged fragment), 16 above, in steps of 16 keys: the logits
+//     and dp along the K and V tiles, then dq += ds K .trans down the same
+//     K tile. A stage whose every key precedes every row of the warp runs
+//     its 4 steps unrolled, with no mask (at D <= 32). Each row's lse2 and
+//     di * scale are read once into registers; p and ds are dK/dV's, so the
+//     two kernels round one and the same bf16 ds. Keys past L are past
+//     every row before L, so the diagonal's mask covers them; rows past L
+//     are never stored. Per pair: one MUFU.EX2, 3 FP32 instructions, half
+//     a bf16 pack and 3/4 of an HMMA (against dK/dV's 1), so the exp2
+//     bounds dQ as it bounds the other two: 256.5 us at the prior shape,
+//     its 3 products 104.3;
 //   * ex2.approx.ftz.f32 is the MUFU.EX2 that exp2f compiles to, without
 //     exp2f's fix-up of results below 2^-126: those are flushed to 0,
 //     which no bf16 output can see. (The CUDA C++ programming guide bounds
 //     exp2f at 2 ulp.)
-// flash_bwd_dq_bf16_kernel keeps the first design: 4 warps own 64 query
-// rows, 16 a warp, and stream K and V in tiles of 64 rows double buffered
-// with cp.async, rows padded to D + 8 bf16; B operands as 32-bit pairs
-// along a staged row and as two 16-bit loads down the rows; p = exp2f(s c -
-// lse2), ds = (dp - di) p scale, masked element by element.
 //
 // Common to all three:
 //   * every product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
@@ -942,10 +951,11 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 // sum position by position alike); the three scale it by c in f32.
 //
 // Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9;
-// spill store/load bytes in brackets): D=8 120, 128 [4/4], 51; D=16 90,
-// 127, 64; D=32 121, 168, 72; D=64 147, 167, 125; D=128 191, 255, 215
+// spill store/load bytes in brackets): D=8 120, 128 [4/4], 128; D=16 90,
+// 127, 124; D=32 121, 168, 168; D=64 147, 167, 124; D=128 191, 255, 204
 // (before this design the forward and dK/dV took 80 and 67 at D=16, 125
-// and 165 at D=64, 168 and 254 at D=128, none spilling).
+// and 165 at D=64, 168 and 254 at D=128, and dQ 51, 64, 72, 125 and 215 at
+// D=8 .. 128, none spilling).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
@@ -955,32 +965,12 @@ namespace {
 using u16 = unsigned short;
 
 template <int D>
-constexpr int kBfStride = D + 8;  // bf16 a staged row
-template <int D>
-constexpr int kBfMat = kTile * kBfStride<D>;  // bf16 of one staged tile
-template <int D>
 constexpr int kBfSteps = D < 16 ? 1 : D / 16;  // k16 steps over D
-
-template <int D>
-constexpr int bf_tiles_bytes() {  // 2 double-buffered tiles
-  return 4 * kBfMat<D> * static_cast<int>(sizeof(u16));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16) |
          __bfloat16_as_ushort(v.x);
-}
-
-__device__ __forceinline__ uint32_t ld32(const u16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 a row apart (rows r and r + 1 of a staged tile) as one operand
-// register, the lower row in the low half
-template <int S>
-__device__ __forceinline__ uint32_t ld_pair(const u16* p) {
-  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[S]) << 16);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -990,23 +980,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + kTile) of an (L, D) bf16 matrix into a padded staged tile,
-// zeros past L
-template <int D>
-__device__ __forceinline__ void copy_tile_bf16(const u16* __restrict__ src,
-                                               u16* __restrict__ dst, int r0,
-                                               int L) {
-  constexpr int C = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
-    const int r = i / C, c = 8 * (i % C);
-    const bool in = r0 + r < L;
-    cp_async16(reinterpret_cast<float*>(dst + r * kBfStride<D> + c),
-               reinterpret_cast<const float*>(
-                   src + static_cast<int64_t>(in ? r0 + r : 0) * D + c),
-               in);
-  }
 }
 
 // the m16 x k16 A fragments over D of rows r0 (g) and r1 (g + 8) of an
@@ -1034,34 +1007,6 @@ __device__ __forceinline__ void load_a_bf16(const u16* __restrict__ m,
                         m + static_cast<int64_t>(r1) * D + c1))
                   : 0u;
   }
-}
-
-// c += a b^T over D for the 8 staged rows at `row` (b's rows are the
-// product's columns: the reduction runs along each staged row)
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&c)[4],
-                                         const uint32_t (&a)[kBfSteps<D>][4],
-                                         const u16* __restrict__ row) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const u16* p = row + g * kBfStride<D> + 2 * t;
-#pragma unroll
-  for (int s = 0; s < kBfSteps<D>; ++s)
-    mma_bf16(c, a[s], ld32(p + 16 * s),
-             16 * s + 8 < D ? ld32(p + 16 * s + 8) : 0u);
-}
-
-// c[n] += a x (16 staged rows from `rows`, columns 8n .. 8n + 7): the
-// reduction runs down the staged rows
-template <int D>
-__device__ __forceinline__ void mma_down(float (&c)[D / 8][4],
-                                         const uint32_t (&a)[4],
-                                         const u16* __restrict__ rows) {
-  constexpr int S = kBfStride<D>;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const u16* p = rows + 2 * t * S + g;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    mma_bf16(c[n], a, ld_pair<S>(p + 8 * n), ld_pair<S>(p + 8 * S + 8 * n));
 }
 
 // the A fragment of a 16 x 16 block from two 8-column accumulators, rounded
@@ -1097,7 +1042,7 @@ __device__ __forceinline__ void store_rows_bf16(u16* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward and dK/dV: TMA ring, one producer warp, ldmatrix
+// The bf16 kernels: TMA ring, one producer warp, ldmatrix
 // ---------------------------------------------------------------------------
 
 constexpr int kBfConsumers = 4;                      // math warps a block
@@ -1713,90 +1658,188 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// grid (B*H, ceil(L/64)); blockIdx.y = 0 is the LAST query tile
+// dQ's 16-row groups a warp owns (see kDkvGroups) and the blocks an SM must
+// hold at once (see kFwdMinBlocks). Two groups up to D = 32 (ptxas: 128,
+// 124, 168 registers at D = 8, 16, 32, no spill; on an H100 SXM at 700 W
+// and B=16, H=8, L=4096 411-436 us against one group's 468-477 at D = 16,
+// 633-693 against 824-845 at D = 32). At D = 64 two groups spill at 2
+// blocks an SM (168 registers, 144/196 bytes) and at 1 block (206) ran no
+// faster than one group (124)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
-                         const u16* __restrict__ v,
+constexpr int kDqGroups = D <= 32 ? 2 : 1;
+template <int D>
+constexpr int kDqMinBlocks = D <= 16 ? 3 : D == 32 ? 2 : 1;
+
+// one dQ step over the 16 staged keys from tile row c (key index key0) for
+// the warp's kDqGroups<D> groups of 16 rows from row0: the logits and dp, p,
+// ds, then dq += ds K from the same K tile. kMasked: the step holds a key
+// past some row of the warp (the diagonal; every key past L is past every
+// row before L)
+template <int D, bool kMasked>
+__device__ __forceinline__ void dq_bf16_step(
+    const uint32_t (&qa)[kDqGroups<D>][kBfSteps<D>][4],
+    const uint32_t (&da)[kDqGroups<D>][kBfSteps<D>][4],
+    const float (&lr)[kDqGroups<D>][2], const float (&dis)[kDqGroups<D>][2],
+    float (&dqa)[kDqGroups<D>][D / 8][4], uint32_t ktile, uint32_t vtile,
+    int c, int key0, int row0, float cl2, float scale) {
+  constexpr int G = kDqGroups<D>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // s[rg][j], dp[rg][j]: rows row0 + 16 rg + g (+8) by keys key0 + 8j + 2t
+  // (+1)
+  float s[G][2][4], dp[G][2][4];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[rg][j][i] = dp[rg][j][i] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kBfSteps<D>; ++st) {
+    uint32_t bk[4], bv[4];
+    ldsm_along<D>(ktile, c, st, bk);
+    ldsm_along<D>(vtile, c, st, bv);
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg) {
+      mma_bf16(s[rg][0], qa[rg][st], bk[0], bk[1]);
+      mma_bf16(s[rg][1], qa[rg][st], bk[2], bk[3]);
+      mma_bf16(dp[rg][0], da[rg][st], bv[0], bv[1]);
+      mma_bf16(dp[rg][1], da[rg][st], bv[2], bv[3]);
+    }
+  }
+  uint32_t dsa[G][4];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        float p = ex2(fmaf(s[rg][j][i], cl2, -lr[rg][r]));
+        if (kMasked &&
+            key0 + 8 * j + 2 * t + (i & 1) > row0 + 16 * rg + g + 8 * r)
+          p = 0.f;
+        dp[rg][j][i] = p * fmaf(dp[rg][j][i], scale, -dis[rg][r]);
+      }
+    // ds as the A operand: k = 2t (+1) of each 8 keys
+    acc_to_a(dp[rg][0], dp[rg][1], dsa[rg]);
+  }
+#pragma unroll
+  for (int n2 = 0; n2 < (D < 16 ? 1 : D / 16); ++n2) {
+    uint32_t b[4];
+    ldsm_down<D>(ktile, c, n2, b);
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg) {
+      mma_bf16(dqa[rg][2 * n2], dsa[rg], b[0], b[1]);
+      if constexpr (D >= 16)
+        mma_bf16(dqa[rg][2 * n2 + 1], dsa[rg], b[2], b[3]);
+    }
+  }
+}
+
+// grid (B*H, ceil(L / R)), R = 64 kDqGroups<D> query rows a block;
+// blockIdx.y = 0 is the LAST query block. Warp 4 streams K and V stages of
+// kStage keys up to the one that holds the block's last row; warps 0-3 own
+// 16 kDqGroups<D> rows each
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, kDqMinBlocks<D>)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const u16* __restrict__ q,
                          const u16* __restrict__ dout,
                          const float* __restrict__ lse2,
                          const float* __restrict__ di, u16* __restrict__ dq,
                          int L, float scale_log2, float scale) {
-  constexpr int M = kBfMat<D>, N8 = D / 8;
-  extern __shared__ __align__(16) u16 bsmem[];
-  u16* ks = bsmem;          // 2 buffers
-  u16* vs = bsmem + 2 * M;  // 2 buffers
-
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * L * D;
-  const int64_t lbase = static_cast<int64_t>(blockIdx.x) * L;
-  const int warp_first = qt * kTile + 16 * warp;
-  const int rows[2] = {warp_first + g, warp_first + g + 8};
-
-  copy_tile_bf16<D>(k + base, ks, 0, L);
-  copy_tile_bf16<D>(v + base, vs, 0, L);
-  cp_async_commit();
-
-  uint32_t qa[kBfSteps<D>][4], da[kBfSteps<D>][4];
-  load_a_bf16<D>(q + base, rows[0], rows[1], L, qa);
-  load_a_bf16<D>(dout + base, rows[0], rows[1], L, da);
-  float lr[2], dir[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = rows[r] < L;
-    lr[r] = in ? lse2[lbase + rows[r]] : 0.f;
-    dir[r] = in ? di[lbase + rows[r]] : 0.f;
-  }
-  float dqa[N8][4];
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int buf = (kt & 1) * M;
-    if (kt < qt) {
-      const int next = ((kt + 1) & 1) * M;
-      copy_tile_bf16<D>(k + base, ks + next, (kt + 1) * kTile, L);
-      copy_tile_bf16<D>(v + base, vs + next, (kt + 1) * kTile, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  constexpr int G = kDqGroups<D>, N8 = D / 8, S = kStages<D>;
+  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  extern __shared__ uint8_t bf_smem[];
+  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
+  const uint32_t full = tiles + S * 2 * TB, empty = full + 8 * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qb = gridDim.y - 1 - blockIdx.y, h = blockIdx.x;
+  const int n_tiles = (min(qb * R + R, L) - 1) / kStage + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBfConsumers);
     }
-    __syncthreads();
-    const int key0 = kt * kTile;
-    const int nb = min(8, (warp_first + 15 - key0) / 8 + 1);
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c) {
-      if (2 * c >= nb) break;
-      // s, dp: rows g, g+8 by keys key0 + 16c + 8jj + 2t (+1)
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
-        const int off = buf + (16 * c + 8 * jj) * kBfStride<D>;
-        mma_rows<D>(s[jj], qa, ks + off);
-        mma_rows<D>(dp[jj], da, vs + off);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int key = key0 + 16 * c + 8 * jj + 2 * t + (i & 1);
-          const float p = key <= rows[r] && rows[r] < L
-                              ? exp2f(s[jj][i] * scale_log2 - lr[r])
-                              : 0.f;
-          dp[jj][i] = (dp[jj][i] - dir[r]) * p * scale;
-        }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
+    if (lane == 0)
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % S;
+        const uint32_t at = tiles + s * 2 * TB;
+        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TB);
+        tma_rows<D>(at, &tk, full + 8 * s, i * kStage, h);
+        tma_rows<D>(at + TB, &tv, full + 8 * s, i * kStage, h);
       }
-      uint32_t dsa[4];
-      acc_to_a(dp[0], dp[1], dsa);
-      mma_down<D>(dqa, dsa, ks + buf + 16 * c * kBfStride<D>);
-    }
-    __syncthreads();  // before tile kt + 2 overwrites this buffer
+    return;
   }
-  store_rows_bf16<D>(dq + base, dqa, rows[0], rows[1], L, 1.f, 1.f);
+  const int g = lane >> 2;
+  const int64_t base = static_cast<int64_t>(h) * L * D;
+  const int64_t lbase = static_cast<int64_t>(h) * L;
+  const int row0 = qb * R + 16 * G * warp;
+  // the warp's last row before L; -1 when every row is past L (no work)
+  const int last = row0 < L ? min(row0 + 16 * G, L) - 1 : -1;
+
+  // the warp's q (logits) and do (dp) rows as A fragments, and each row's
+  // lse2 and di * scale, once
+  uint32_t qa[G][kBfSteps<D>][4], da[G][kBfSteps<D>][4];
+  float lr[G][2], dis[G][2];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg) {
+    const int r0 = row0 + 16 * rg + g;
+    load_a_bf16<D>(q + base, r0, r0 + 8, L, qa[rg]);
+    load_a_bf16<D>(dout + base, r0, r0 + 8, L, da[rg]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = r0 + 8 * r < L;
+      lr[rg][r] = in ? lse2[lbase + r0 + 8 * r] : 0.f;
+      dis[rg][r] = in ? di[lbase + r0 + 8 * r] * scale : 0.f;
+    }
+  }
+  float dqa[G][N8][4];
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dqa[rg][n][i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % S, k0 = i * kStage;
+    const uint32_t at = tiles + s * 2 * TB;
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    if (D <= 32 && k0 + kStage - 1 <= row0 && row0 <= last) {
+      // every key of the stage precedes every row of the warp: the four
+      // steps unrolled, no mask
+#pragma unroll
+      for (int c = 0; c < kStage; c += 16)
+        dq_bf16_step<D, false>(qa, da, lr, dis, dqa, at, at + TB, c, k0 + c,
+                               row0, scale_log2, scale);
+    } else {
+#pragma unroll 1
+      for (int c = 0; c < kStage; c += 16) {
+        const int key0 = k0 + c;
+        if (key0 > last) break;  // every key here is ahead of the warp
+        if (key0 + 15 <= row0)
+          dq_bf16_step<D, false>(qa, da, lr, dis, dqa, at, at + TB, c, key0,
+                                 row0, scale_log2, scale);
+        else
+          dq_bf16_step<D, true>(qa, da, lr, dis, dqa, at, at + TB, c, key0,
+                                row0, scale_log2, scale);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+#pragma unroll
+  for (int rg = 0; rg < G; ++rg) {
+    const int r0 = row0 + 16 * rg + g;
+    store_rows_bf16<D>(dq + base, dqa[rg], r0, r0 + 8, L, 1.f, 1.f);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1938,13 +1981,16 @@ extern "C" int movae_flash_bf16_bwd_dq(const void* q, const void* k,
                                        float scale, int device, void* stream) {
   int err = prologue(bh, L, d, device);
   if (err != 0) return err;
-  constexpr int smem = bf_tiles_bytes<kD>();
+  CUtensorMap tk, tv;
+  if ((err = rows_map<kD>(&tk, k, bh, L)) != 0) return err;
+  if ((err = rows_map<kD>(&tv, v, bh, L)) != 0) return err;
+  constexpr int smem = fwd_bf16_smem<kD>();  // the forward's K and V ring
   err = allow_smem(flash_bwd_dq_bf16_kernel<kD>, smem);
   if (err != 0) return err;
-  flash_bwd_dq_bf16_kernel<kD><<<grid_for(bh, L), kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u16*>(q), static_cast<const u16*>(k),
-      static_cast<const u16*>(v), static_cast<const u16*>(dout), lse2, di,
-      static_cast<u16*>(dq), L, scale * kLog2e, scale);
+  flash_bwd_dq_bf16_kernel<kD>
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kDqGroups<kD>), kBfThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          tk, tv, static_cast<const u16*>(q), static_cast<const u16*>(dout),
+          lse2, di, static_cast<u16*>(dq), L, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
 }

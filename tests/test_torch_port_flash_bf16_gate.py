@@ -8,9 +8,9 @@ keys: the first takes each row's maximum m of the raw logits, the second,
 in steps of 64 keys (32 at D = 128), p = 2^fma(s, c, -m c) (c = scale *
 log2(e), m c one float32 product, results below 2^-126 flushed to 0),
 rounded to bf16 before p v; the sum takes the unrounded p, and o =
-bf16(acc / sum), lse2 = m c + log2(sum). The dK/dV kernel recomputes p
-= 2^fma(s, c, -lse2) and ds = p fma(dp, scale, -di scale), the dQ kernel
-p = 2^(s c - lse2) and ds = (dp - di) p scale; both round p and ds to
+bf16(acc / sum), lse2 = m c + log2(sum). The dK/dV and dQ kernels both
+recompute p = 2^fma(s, c, -lse2) and ds = p fma(dp, scale, -di scale), so
+one and the same bf16 ds feeds dq and dk; the two round p and ds to
 bf16 before their products and sum in another order than torch's GEMMs,
 which the emulation models by summing in float64 (a float32 fma is a
 float64 sum rounded once). The plain version (``plain_fwd_bf16``/
@@ -88,8 +88,8 @@ def _kernel_fwd(q, k, v, scale):
 
 def _kernel_bwd(q, k, v, o, lse2, do, scale):
     """The backward kernels from the forward's o and lse2, summed in
-    float64: (dq, dk, dv); dQ's p and ds as that kernel computes them,
-    dK/dV's with one fma each."""
+    float64: (dq, dk, dv); p and ds with one fma each, as both kernels
+    compute them."""
     L = q.shape[2]
     c = torch.tensor(scale * LOG2E, dtype=torch.float32)
     sc = torch.tensor(scale, dtype=torch.float32)
@@ -97,16 +97,12 @@ def _kernel_bwd(q, k, v, o, lse2, do, scale):
     causal = torch.ones(L, L, dtype=torch.bool).tril()
     di = (o.float() * do.float()).sum(-1, keepdim=True)
     dp = (do.double() @ v.double().transpose(-1, -2)).float()
-    # dQ (flash_bwd_dq_bf16_kernel): exp2f(s c - lse2), ((dp - di) p) s
-    p_q = torch.exp2((s * c).masked_fill(~causal, -math.inf)
-                     - lse2[..., None])
-    ds_q = _bf((dp - di) * p_q * sc).double()
-    # dK/dV: 2^fma(s, c, -lse2), p fma(dp, s, -di s)
+    # 2^fma(s, c, -lse2), p fma(dp, s, -di s)
     p = _ex2(_fma(s, c, -lse2[..., None])).masked_fill(~causal, 0.0)
     ds = _bf(p * _fma(dp, sc, -(di * sc))).double()
     dv = _bf(p).double().transpose(-1, -2) @ do.double()
     return [t.to(torch.bfloat16) for t in
-            (ds_q @ k.double(), ds.transpose(-1, -2) @ q.double(), dv)]
+            (ds @ k.double(), ds.transpose(-1, -2) @ q.double(), dv)]
 
 
 def _inputs(shape, seed, sharp=1.0):
