@@ -147,6 +147,24 @@ Phases, each of which fails the run:
      single steps bit for bit across a NaN batch, an accumulating step
      against the microbatch mean, remat against no remat, a bf16 step
      against the CPU's.
+  18. (after 17) the standalone CLIs and the sphere encoders: 18a
+     ``train_prior_vqvae2`` on 15a's run (the HierarchicalPixelCNN, batch
+     128 as saved, 1 epoch, final/* over 256 generated images) and
+     ``train_prior_vqvae --prior_type pixelsnail`` on 15b's (L = 4096,
+     batch 16, 1 epoch), both re-extracting the codes, then both
+     generators from the checkpoints alone (CLI_18A_*), counts set to 0
+     just before and read just after each: nearest-code launches equal to
+     the extraction batches (two each for the VQ-VAE-2), 8 of each flash
+     kernel a PixelSNAIL step, none in a generator; files where the JAX
+     CLIs put them, finite images, the hierarchical generation run a
+     second time with its seed, bit for bit; 18b ``benchmark_workers`` over batch
+     64/128/256 and workers 1/2/0; 18c sphere_encoder_vit at its default
+     width (depth 24, dim 1024, 32 px, latent 2048; ~620 M parameters)
+     under sum and upgrad at batch 16 (3 untimed, 5 timed steps), then
+     ``sample`` at 1 and 4 steps; 18d the conv sphere_encoder through
+     ``main`` at main.py's widths to final/* (CLI_18D) and its bare step;
+     18e card vs CPU lockstep of a small ViT, 3 upgrad steps within 1e-4.
+     18b-18e reach no kernel of the port: their counts stay 0.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak; the bf16
@@ -163,13 +181,16 @@ MOVAE_INCEPTION_WEIGHTS or MOVAE_VGG16_WEIGHTS names a missing file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SLICE_N, SLICE_K, SLICE_D = 16384, 512, 64
@@ -387,6 +408,52 @@ LEVER_WARMUP, LEVER_TIMED = 2, 3
 # other orders on the two devices; the CPU tests hold the port to JAX
 # within 5e-2 the same way)
 ACCUM_TOL, REMAT_TOL, BF16_STEP_TOL = 1e-5, 1e-5, 5e-2
+# phase 18: the standalone CLIs and the sphere encoders. 18a runs the two
+# prior CLIs on phase 15's run trees: train_prior_vqvae2 on 15a's
+# celeba-hq vq_vae2/sum checkpoint (the HierarchicalPixelCNN of that run,
+# 15 layers of 128 channels, batch 128 as saved, 1 prior epoch of 15a's
+# synthetic-256-1024, final/* over 256 generated images) and
+# train_prior_vqvae --prior_type pixelsnail on 15b's imagenet vq_vae/sum
+# checkpoint (the default PixelSNAIL at L = 4096, 15b's batch 16 and 1
+# epoch); both re-extract the codes (the run's cache would skip the
+# nearest-code kernel); then both generators from the checkpoints alone,
+# the hierarchical one twice with one seed (bit for bit), the flat one with
+# the f32 KV cache (the faster cache on the card, PERF.md)
+CLI_18A_V2 = ["--pixelcnn_epochs", "1", "--prior_force_extract_codes",
+              "--max_gen_metrics_samples", "256", "--num_samples", "16"]
+CLI_18A_SNAIL = ["--prior_type", "pixelsnail", "--batch_size", "16",
+                 "--pixelcnn_epochs", "1", "--prior_force_extract_codes",
+                 "--max_gen_metrics_samples", "0", "--num_samples", "16"]
+CLI_18A_GEN = ["--num_samples", "16", "--batch_size", "16", "--seed", "3"]
+# 18b: benchmark_workers on the card machine's host
+CLI_18B = (["--batch_sizes", "64", "128", "256"],
+           ["--batch_size", "256", "--workers", "1", "2", "0"])
+CLI_18B_COMMON = ["--num_batches", "10", "--num_runs", "3", "--warmup", "2"]
+# 18c: sphere_encoder_vit at its registry's defaults (depth 24, dim 1024,
+# 16 heads, mixer depth 2, 32 px, patch 2) with latent 2048 (8 channels x
+# 256 patches), the VGG perceptual term on, adam 1e-3 (main.py's default);
+# batch 16, 3 untimed and 5 timed steps under sum and upgrad
+SPHERE_VIT_18C = dict(width=dict(arch="sphere_encoder_vit", latent_dim=2048,
+                                 batch_size=16),
+                      size=32, batch=16, warmup=3, timed=5,
+                      lr=(1e-3, None, 1, 8), uint8=False, vq=0)
+SPHERE_SAMPLE_STEPS = (1, 4)
+# 18d: the conv sphere_encoder through python -m movae_tpu_torch.main at
+# main.py's defaults (hidden 32-512, latent 128, batch 128, adam 1e-3) with
+# 16e's cuts (a synthetic set of 1024 32-px images, 2 epochs, 256
+# final-metric samples); its bare step at that width beside the CLI
+CLI_18D = ["--arch", "sphere_encoder", "--dataset", "synthetic-32-1024",
+           "--epochs", "2", "--save_freq", "1", "--eval_freq", "1",
+           "--max_fid_samples", "256", "--max_gen_metrics_samples", "256",
+           "--seed", "0"]
+SPHERE_CONV_18D = dict(width=dict(arch="sphere_encoder", batch_size=128),
+                       size=32, batch=128, warmup=3, timed=10,
+                       lr=(1e-3, None, 1, 13), uint8=False, vq=0)
+# 18e: card vs CPU lockstep of the ViT at a small width (16 px, depth 2,
+# dim 64, 4 heads, mixer depth 1, 64 patches of 8 channels), 3 upgrad steps
+SPHERE_VIT_18E = dict(arch="sphere_encoder_vit", vit_depth=2,
+                      vit_embed_dim=64, vit_num_heads=4, vit_mixer_depth=1,
+                      latent_dim=512)
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -1035,6 +1102,24 @@ def count_syncs(torch, fn) -> tuple:
     sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
              if "synchroniz" in str(w.message)]
     return len(sites), sorted(set(sites))
+
+
+@contextlib.contextmanager
+def deterministic_kernels(torch):
+    """Deterministic kernels (cuDNN's algorithms, index_add_ without
+    atomics) for a bit-for-bit comparison; the flags restored after."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.backends.cudnn.benchmark = flags[1]
+        torch.use_deterministic_algorithms(flags[2])
 
 
 class GraphedSolve:
@@ -2236,17 +2321,15 @@ def loader_ab(torch, dev, results, args) -> dict:
     return res
 
 
-def phase_cli(torch, dev, bare: dict) -> dict:
+def phase_cli(torch, dev, bare: dict, tmp: str) -> dict:
     """Phase 15: 15a runs CLI_15A through ``runner.yaml_to_args`` and
     ``main`` in-process (the wall time of each part, launch counts set to 0
     just before and read just after), checks the run tree and the final/*
     values, resumes from ``last_checkpoint.pth`` through ``python -m
     movae_tpu_torch.runner``, then the loader A/B and the port bench; 15b
     runs CLI_15B with the PixelSNAIL prior. ``bare`` carries this run's
-    bare-step numbers (phases 3 and 7)."""
-    import shutil
-    import tempfile
-
+    bare-step numbers (phases 3 and 7). The run trees stay under ``tmp``
+    (phase 18 reads them): ``res["roots"]``."""
     from scipy import linalg
 
     from movae_tpu_torch import main as main_mod
@@ -2259,7 +2342,6 @@ def phase_cli(torch, dev, bare: dict) -> dict:
     from movae_tpu_torch.train import prior as prior_mod
 
     here = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="movae_cli_")
     plain_calls = []
     plain = nc.nearest_code_plain
 
@@ -2398,8 +2480,8 @@ def phase_cli(torch, dev, bare: dict) -> dict:
             f" {json.dumps(res['15b'])}")
     finally:
         nc.nearest_code_plain = plain
-        shutil.rmtree(tmp, ignore_errors=True)
     res["launches"] = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    res["roots"] = {"15a": roots[0], "15b": roots_b[0], "tmp": tmp}
     return res
 
 
@@ -2436,13 +2518,15 @@ def vae_path(config: str, warmup: int = VAE_WARMUP,
 
 
 def vae_runs(torch, dev, path: dict, aggs, profile: bool, card: str,
-             init=None) -> tuple:
+             init=None, after=None) -> tuple:
     """``path`` under each of ``aggs`` from one init (its weights kept on
     the card and reloaded before each run): step ms (median), images/s,
     host synchronisations a step, peak device memory; with ``profile``
     the busy share and the top kernels. The init is ``init_model``'s from
     seed 0 (its wall time reported: on the host), or ``init``, a state
-    dict of the same layout. Returns the results and the init."""
+    dict of the same layout. ``after(model)``, given, runs on the model as
+    the last run left it and returns results to add. Returns the results
+    and the init."""
     from movae_tpu_torch.models import get_network, init_model
 
     t0 = time.perf_counter()
@@ -2480,6 +2564,8 @@ def vae_runs(torch, dev, path: dict, aggs, profile: bool, card: str,
     sum_ms = out["sum"]["median_step_ms"]
     for agg in aggs:
         out[agg]["over_sum"] = out[agg]["median_step_ms"] / sum_ms
+    if after is not None:
+        out.update(after(model))
     del model
     torch.cuda.empty_cache()
     return out, init
@@ -2551,8 +2637,6 @@ def phase_vae_cli(torch, dev) -> dict:
     the wall time of each part; the run tree, finite final/* values
     (precision and recall nan), no prior stage, and the generated images
     from ``model.sample``."""
-    import shutil
-    import tempfile
 
     from scipy import linalg
 
@@ -2688,20 +2772,24 @@ def bf16_agreement(torch, got, want, terms) -> dict:
                            / want.square().sum().clamp_min(1e-300)) / BF16_U}
 
 
-def bf16_terms(torch, fa, q, k, v, do, o, lse, scale) -> dict:
+def bf16_terms(torch, fa, q, k, v, do, o, lse2, scale, tensor_cores=False
+               ) -> dict:
     """The root-sum-square of the products the plain version sums into each
-    element (its backward from ``o`` and natural ``lse``): o = p v, dv =
-    p^T do, dq = ds k, dk = ds^T q, with p and ds rounded to bf16."""
+    element (its backward from ``o`` and base-2 ``lse2``): o = p v, dv =
+    p^T do, dq = ds k, dk = ds^T q, with p and ds rounded to bf16, p and
+    ds computed as the plain version computes them (``tensor_cores`` as
+    in ``fa._mm``)."""
     out = {n: torch.empty(q.shape, dtype=torch.float32, device=q.device)
            for n in ("o", "dq", "dk", "dv")}
+    c = fa.log2e_scale(scale)
     for i in range(0, q.shape[0], fa._PLAIN_CHUNK):
         sl = slice(i, i + fa._PLAIN_CHUNK)
-        p = torch.exp(fa._plain_logits(q[sl], k[sl], scale)
-                      - lse[sl][..., None])
+        p = fa.plain_p_bf16(fa._plain_logits(q[sl], k[sl], tensor_cores),
+                            c, lse2[sl][..., None])
         dof = do[sl].float()
         di = (o[sl].float() * dof).sum(-1, keepdim=True)
-        ds = fa._bf((dof @ v[sl].float().transpose(-1, -2) - di) * p
-                    * scale).square()
+        ds = fa.plain_ds_bf16(p, fa._mm(dof, v[sl].transpose(-1, -2),
+                                        tensor_cores), di, scale).square()
         p = fa._bf(p).square()
         out["o"][sl] = (p @ v[sl].float().square()).sqrt()
         out["dv"][sl] = (p.transpose(-1, -2) @ dof.square()).sqrt()
@@ -2711,15 +2799,19 @@ def bf16_terms(torch, fa, q, k, v, do, o, lse, scale) -> dict:
     return out
 
 
-def plain_bf16(fa, q, k, v, do, o, lse, scale, rounding=None):
+def plain_bf16(fa, q, k, v, do, o, lse2, scale, rounding=None,
+               tensor_cores=False):
     """The plain bf16 forward's o, and the plain backward's (dq, dk, dv)
-    from ``o`` and ``lse``; ``rounding`` stands in for the plain version's
-    bf16 rounding where given."""
+    from ``o`` and base-2 ``lse2``, their products summed in IEEE float32 or
+    on the tensor cores (``tensor_cores``, as in ``fa._mm``; bf16 operands
+    only); ``rounding`` stands in for the plain version's bf16 rounding
+    where given."""
     saved = fa._bf
     fa._bf = rounding or saved
     try:
-        return (fa.plain_fwd_bf16(q, k, v, scale)[0],
-                *fa.plain_bwd_bf16(q, k, v, o, lse, do, scale))
+        return (fa.plain_fwd_bf16(q, k, v, scale, tensor_cores)[0],
+                *fa.plain_bwd_bf16(q, k, v, o, lse2, do, scale,
+                                   tensor_cores))
     finally:
         fa._bf = saved
 
@@ -2739,11 +2831,13 @@ def bf16_as_close(kernel: dict, plain: dict) -> bool:
 
 def compare_flash_bf16(torch, fa, q, k, v, do) -> dict:
     """The bf16 kernels on (q, k, v) and cotangent ``do``: the forward, and
-    the dK/dV and dQ kernels from the forward's o and lse, each against the
-    plain version (its backward fed the same o and lse) and, as the port
-    runs them end to end, against float64 from the same bf16 inputs beside
-    the plain version's own distance from float64 (``bf16_agreement`` for
-    each), and the largest absolute difference from the plain version."""
+    the dK/dV and dQ kernels from the forward's o and lse2, each against the
+    plain version with its products summed on the tensor cores as the
+    kernels sum them (its backward fed the same o and lse2) and, as the
+    port runs them end to end, against float64 from the same bf16 inputs
+    beside the distance from float64 of the plain version summed in IEEE
+    float32, end to end (``bf16_agreement`` for each), and the largest
+    absolute difference from the plain version."""
     scale = q.shape[-1] ** -0.5
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     fa._check(q=q, k=k, v=v, do=do)
@@ -2752,12 +2846,15 @@ def compare_flash_bf16(torch, fa, q, k, v, do) -> dict:
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse2, di, scale)
     cuda = {"o": o, "dq": fa.flash_bwd_dq(q, k, v, do, lse2, di, scale),
             "dk": dk, "dv": dv}
-    o_p, lse = fa.plain_fwd_bf16(q, k, v, scale)
     keys = ("o", "dq", "dk", "dv")
-    lse_c = lse2 * math.log(2.0)
-    plain = dict(zip(keys, plain_bf16(fa, q, k, v, do, o, lse_c, scale)))
-    terms = bf16_terms(torch, fa, q, k, v, do, o, lse_c, scale)
-    e2e = dict(zip(keys, plain_bf16(fa, q, k, v, do, o_p, lse, scale)))
+    plain = dict(zip(keys, plain_bf16(fa, q, k, v, do, o, lse2, scale,
+                                      tensor_cores=True)))
+    terms = bf16_terms(torch, fa, q, k, v, do, o, lse2, scale,
+                       tensor_cores=True)
+    # the float64 half's yardstick sums in IEEE float32, so that a bias the
+    # tensor cores' sums share with the kernels shows there
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    e2e = dict(zip(keys, plain_bf16(fa, q, k, v, do, o_p, lse2_p, scale)))
     parts = []  # float64, the L x L intermediates two batch rows at a time
     for i in range(0, q.shape[0], 2):
         leaves = [t[i:i + 2].double().requires_grad_() for t in (q, k, v)]
@@ -2809,12 +2906,14 @@ def flash_bf16_controls(torch, fa, label: str, q, k, v, do) -> dict:
     power of two), the last quarter of o's rows zeroed, and dq with ds
     left unrounded; o with p left unrounded is reported, not required to
     fail (its rounding differs from the plain version's by about as much
-    as the forward kernel's running-maximum rounding does)."""
+    as the forward kernel's running-maximum rounding does). Faults and
+    plain version alike sum in IEEE float32, so that each fault differs
+    from the plain version in one thing only."""
     scale = q.shape[-1] ** -0.5
-    o, lse = fa.plain_fwd_bf16(q, k, v, scale)
-    plain = plain_bf16(fa, q, k, v, do, o, lse, scale)
-    terms = bf16_terms(torch, fa, q, k, v, do, o, lse, scale)
-    unrounded = plain_bf16(fa, q, k, v, do, o, lse, scale,
+    o, lse2 = fa.plain_fwd_bf16(q, k, v, scale)
+    plain = plain_bf16(fa, q, k, v, do, o, lse2, scale)
+    terms = bf16_terms(torch, fa, q, k, v, do, o, lse2, scale)
+    unrounded = plain_bf16(fa, q, k, v, do, o, lse2, scale,
                            rounding=lambda x: x)  # p and ds left in float32
     late = o.clone()
     late[:, :, 3 * q.shape[2] // 4:] = 0
@@ -3221,15 +3320,7 @@ def phase_locksteps_17e(torch, dev) -> dict:
                    for k in a)
 
     res = {}
-    # deterministic kernels (cuDNN algorithms, index_add_ without atomics)
-    # for the bit-for-bit comparisons; restored after
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic_kernels(torch):
         # scanned against single (twice: the run-to-run spread), a NaN
         # batch at position 2 of 4
         xb = imgs(4).to(dev)
@@ -3278,10 +3369,6 @@ def phase_locksteps_17e(torch, dev) -> dict:
             check(err <= REMAT_TOL, f"17e remat {label}: {err:.3e}")
             res[f"remat_{label}"] = {"max_abs_err": err,
                                      "bit_for_bit": err == 0.0}
-    finally:
-        torch.backends.cudnn.deterministic = flags[0]
-        torch.backends.cudnn.benchmark = flags[1]
-        torch.use_deterministic_algorithms(flags[2])
 
     # accumulation against the mean of the microbatch gradients (SGD lr 1)
     xa = imgs(2).to(dev)
@@ -3355,10 +3442,373 @@ def phase_item6(torch, fa, dev, peaks, sass: dict, f32_prior: dict,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the standalone CLIs and the sphere encoders
+# ---------------------------------------------------------------------------
+
+def counted_call(torch, fn, *a) -> tuple:
+    """``fn(*a)`` with the launch counts set to 0 just before and read just
+    after: (its result, wall seconds, counts)."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(LAUNCH_COUNTS)
+
+
+def image_stats(imgs) -> dict:
+    import numpy as np
+
+    imgs = np.asarray(imgs)
+    return {"shape": list(imgs.shape), "finite": bool(np.isfinite(imgs).all()),
+            "min": float(imgs.min()), "max": float(imgs.max())}
+
+
+def phase_prior_clis(torch, dev, roots: dict, profile: bool) -> dict:
+    """18a: train_prior_vqvae2 on 15a's run and train_prior_vqvae
+    (PixelSNAIL) on 15b's, then both generators from the checkpoints
+    alone, each through its ``main(argv)`` with the counts set to 0 just
+    before and read just after: nearest-code launches = the extraction
+    batches (two per batch for the VQ-VAE-2), 8 launches of each flash
+    kernel per PixelSNAIL step, none in a generator. The files land where
+    the JAX CLIs put them; every image is finite (these configs have no
+    output activation: the range is printed); the hierarchical generator,
+    run a second time with its seed, repeats its images bit for bit."""
+    from movae_tpu_torch import generate_samples_pixelcnn_vqvae as gen_mod
+    from movae_tpu_torch import generate_samples_pixelcnn_vqvae2 as gen2_mod
+    from movae_tpu_torch import train_prior_vqvae as tp_mod
+    from movae_tpu_torch import train_prior_vqvae2 as tp2_mod
+    from movae_tpu_torch.train import checkpoint as ckpt_lib
+
+    res = {}
+    none = dict.fromkeys(("nearest_code", *FLASH_KERNELS), 0)
+    launches = dict(none)
+
+    def need(*path):
+        check(os.path.exists(os.path.join(*path)),
+              f"18a: missing {os.path.join(*path)}")
+
+    for label, mod, root, argv, prior_dir in (
+            ("train_prior_vqvae2", tp2_mod, roots["15a"], CLI_18A_V2,
+             "pixelcnn_prior"),
+            ("train_prior_vqvae", tp_mod, roots["15b"], CLI_18A_SNAIL,
+             "pixelsnail_prior")):
+        ckpt = ckpt_lib.final_checkpoint_path(root)
+        out, secs, counts = counted_call(
+            torch, mod.main, ["--model_path", ckpt] + argv)
+        merged = out["merged"]
+        n = synthetic_count(merged.dataset)
+        batches = -(-n // merged.batch_size)
+        hier = out["prior"]["hierarchical"]
+        steps = batches  # one prior epoch: one step per full or tail batch
+        expect = dict(none, nearest_code=(2 if hier else 1) * batches)
+        if not hier:
+            blocks = merged.pixelsnail_num_blocks
+            expect.update({k: blocks * steps for k in FLASH_KERNELS})
+        check(counts == expect, f"18a {label}: launches {counts}, expected "
+              f"{expect} ({batches} extraction batches, {steps} steps)")
+        for name in ("best_prior", "final_prior", "last_prior"):
+            need(root, prior_dir, "checkpoints", f"{name}.pth")
+        for ext in ("pdf", "png"):
+            need(root, "figures", "generated", f"prior_samples.{ext}")
+        stats = image_stats(out["samples"])
+        check(stats["finite"], f"18a {label}: samples {stats}")
+        finals = out["finals"]  # the VQ-VAE-2 run asks for them
+        check(bool(finals) == hier, f"18a {label}: final/* {finals}")
+        for k, v in finals.items():
+            if k in ("precision", "recall"):
+                check(v != v, f"18a final/{k} is {v}, expected nan")
+            else:
+                check(v == v and abs(v) != float("inf"),
+                      f"18a final/{k} is {v}")
+        for k in counts:
+            launches[k] += counts[k]
+        res[label] = {"seconds": secs, "launches": counts,
+                      "steps": steps, "batch": merged.batch_size,
+                      "hierarchical": hier, "samples": stats,
+                      "final": finals}
+        log(f"phase 18a {label} on {root}: {json.dumps(res[label])}")
+
+    out_dir = tempfile.mkdtemp(prefix="movae_gen_", dir=roots["tmp"])
+    for label, mod, root, prior_dir, extra, rerun in (
+            ("generate_samples_pixelcnn_vqvae2", gen2_mod, roots["15a"],
+             "pixelcnn_prior", ["--individual"], True),
+            ("generate_samples_pixelcnn_vqvae", gen_mod, roots["15b"],
+             "pixelsnail_prior", ["--kv_cache_dtype", "f32"], False)):
+        argv = ["--model_path", ckpt_lib.final_checkpoint_path(root),
+                "--prior_path", os.path.join(root, prior_dir, "checkpoints",
+                                             "best_prior.pth"),
+                "--out_dir", os.path.join(out_dir, label)] + \
+            CLI_18A_GEN + extra
+        runs = [counted_call(torch, mod.main, argv)
+                for _ in range(2 if rerun else 1)]
+        for out, _, counts in runs:
+            check(counts == none, f"18a {label}: launches {counts}")
+        imgs = runs[0][0]["images"]
+        stats = image_stats(imgs)
+        n = int(CLI_18A_GEN[CLI_18A_GEN.index("--num_samples") + 1])
+        check(stats["finite"] and len(imgs) == n, f"18a {label}: {stats}")
+        files = sorted(os.listdir(os.path.join(out_dir, label)))
+        want = ([f"sample_{i:05d}.png" for i in range(n)]
+                if "--individual" in extra else ["samples.pdf",
+                                                 "samples.png"])
+        check(files == want, f"18a {label}: wrote {files[:4]}...")
+        res[label] = {"seconds": [r[1] for r in runs], "samples": stats,
+                      "files": len(files)}
+        if rerun:
+            check((runs[0][0]["images"] == runs[1][0]["images"]).all(),
+                  f"18a {label}: a second generation with one seed "
+                  f"differs")
+            res[label]["rerun_equal"] = True
+        log(f"phase 18a {label}: {json.dumps(res[label])}")
+        if profile and rerun:
+            profile_device(torch, f"18a {label} ({n} samples)",
+                           lambda: mod.main(argv), 1, runs[0][1] * 1e3)
+    res["launches"] = launches
+    return res
+
+
+def phase_benchmark_workers(torch) -> dict:
+    """18b: ``benchmark_workers`` on the card machine's host: the batch
+    sweep and the worker-thread sweep, images/s of each cell."""
+    from movae_tpu_torch import benchmark_workers as bw_mod
+
+    res = {}
+    for flags in CLI_18B:
+        axis = "workers" if "--workers" in flags else "batch"
+        t0 = time.perf_counter()
+        rows = bw_mod.main(flags + CLI_18B_COMMON)
+        check(all(r[3] > 0 for r in rows), f"18b {axis}: {rows}")
+        res[axis] = {"rows": [{axis: r[0], "s_per_batch": r[1],
+                               "std": r[2], "images_per_sec": r[3]}
+                              for r in rows],
+                     "seconds": time.perf_counter() - t0}
+    res["cpus"] = os.cpu_count()
+    log(f"phase 18b (benchmark_workers, synthetic-32): {json.dumps(res)}")
+    return res
+
+
+def phase_sphere_vit(torch, dev, profile: bool, card: str) -> dict:
+    """18c: sphere_encoder_vit at full width under sum and upgrad
+    (``vae_runs``: step ms, images/s, host syncs a step, peak memory; the
+    parameter count), then ``sample`` at 1 and 4 steps from the trained
+    weights: finite, in tanh's range."""
+    path = SPHERE_VIT_18C
+
+    def sample(model) -> dict:
+        res = {}
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for steps in SPHERE_SAMPLE_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs = model.sample(path["batch"], generator=gen, steps=steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            stats = image_stats(imgs.cpu().numpy())
+            check(stats["finite"] and -1 <= stats["min"]
+                  and stats["max"] <= 1
+                  and stats["shape"] == [path["batch"], path["size"],
+                                         path["size"], 3],
+                  f"18c sample at {steps} steps: {stats}")
+            res[f"sample_{steps}_steps"] = {"seconds": secs, **stats}
+        return res
+
+    out, _ = vae_runs(torch, dev, path, ("sum", "upgrad"), profile, card,
+                      after=sample)
+    torch.cuda.empty_cache()
+    out["latent_dim"] = path["width"]["latent_dim"]
+    log(f"phase 18c (sphere_encoder_vit, depth 24, dim 1024, batch "
+        f"{path['batch']}): {json.dumps(out)}")
+    return out
+
+
+def phase_sphere_cli(torch, dev, profile: bool, card: str) -> dict:
+    """18d: the conv sphere_encoder through ``python -m
+    movae_tpu_torch.main``'s ``main`` in-process at main.py's widths with
+    CLI_18D's cuts: the run tree, finite final/* values (precision and
+    recall nan), no prior stage, the wall time of each part; then its bare
+    step at that width under sum."""
+    from scipy import linalg
+
+    from movae_tpu_torch import main as main_mod
+    from movae_tpu_torch.train import checkpoint as ckpt_lib
+    from movae_tpu_torch.train import final_metrics as fm
+    from movae_tpu_torch.train import loop
+
+    tmp = tempfile.mkdtemp(prefix="movae_sphere_cli_")
+    try:
+        args = main_mod.parse_args(CLI_18D + ["--save_path", tmp])
+        parts = [("dataset", loop, "get_dataset", False),
+                 ("train_epochs", loop, "train_epoch", False),
+                 ("train_epochs", loop, "train_epoch_device", False),
+                 ("eval", loop, "evaluate", False),
+                 ("figures", loop, "_write_figures", False),
+                 ("checkpoint_writes", ckpt_lib, "save_checkpoint", False),
+                 ("final_metrics", fm, "run_final_metrics", False),
+                 ("final_metrics_generation", fm, "generate_samples", False),
+                 ("final_metrics_sqrtm", linalg, "sqrtm", False)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PartTimer(torch, parts) as timer:
+            results = main_mod.main(args)
+        wall = time.perf_counter() - t0
+        roots = run_tree(tmp)
+        check(len(roots) == 1, f"18d: run roots {roots}")
+        final = check_run_tree(roots[0], (1, 2), prior=False, finals=True)
+        check(not [d for d in os.listdir(roots[0]) if d.endswith("_prior")],
+              "18d: a prior stage ran")
+        secs = {k: sum(v) for k, v in timer.secs.items()}
+        secs["wall"] = wall
+        res = {"seconds": secs, "final": final,
+               "cli_train_images_per_sec": results["images_per_sec"],
+               "params": sum(p.numel() for p in
+                             results["model"].parameters())}
+        del results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["bare"], _ = vae_runs(torch, dev, SPHERE_CONV_18D, ("sum",), profile,
+                              card)
+    log(f"phase 18d (CLI, sphere_encoder, {' '.join(CLI_18D)}): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def phase_sphere_lockstep(torch, dev, steps: int = 3) -> dict:
+    """18e: ``steps`` upgrad steps of the small ViT from one init on the
+    CPU and on the card, each step's draws (angle, s, e) made once on the
+    host and given to both: the state_dict and the losses within 1e-4."""
+    import numpy as np
+
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.train.optim import build_optimizer
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import make_train_step
+
+    width, b = SPHERE_VIT_18E, 4
+    rng = np.random.default_rng(0)
+    batches = [torch.tensor(rng.uniform(-1, 1, (b, 16, 16, 3)).astype(
+        np.float32)) for _ in range(steps)]
+    noises = [{"angle_deg": torch.tensor((rng.uniform(size=(b, 1)) * 80.0)
+                                         .astype(np.float32)),
+               "s": torch.tensor((rng.uniform(size=(b, 1)) * 0.5).astype(
+                   np.float32)),
+               "e": torch.tensor(rng.standard_normal(
+                   (b, width["latent_dim"])).astype(np.float32))}
+              for _ in range(steps)]
+    runs = {}
+    for where in ("cpu", dev):
+        model = init_model(get_network(16, 3, width), seed=3, device=where)
+        cfg = AggregatorConfig(name="upgrad",
+                               num_objectives=len(model.objective_names))
+        state = TrainState.create(model, build_optimizer("adam", 1e-3,
+                                                         eps=1e-4),
+                                  init_state(cfg))
+        step = make_train_step(model, cfg)
+        losses = []
+        for xb, noise in zip(batches, noises):
+            state, met = step(state, xb, noise=noise)
+            losses.append([float(met[k]) for k in
+                           (*model.objective_names, "total_loss")])
+        runs[str(where)] = ({k: v.cpu() for k, v in
+                             model.state_dict().items()}, losses)
+    (cpu_sd, cpu_l), (dev_sd, dev_l) = runs["cpu"], runs[str(dev)]
+    delta = max(float((cpu_sd[k].double() - dev_sd[k].double()).abs().max())
+                for k in cpu_sd)
+    loss_delta = max(abs(x - y) / max(abs(x), 1.0)
+                     for ra, rb in zip(cpu_l, dev_l) for x, y in zip(ra, rb))
+    res = {"steps": steps, "max_state_delta": delta,
+           "max_loss_delta": loss_delta, "losses": dev_l}
+    log(f"phase 18e lockstep card vs cpu, sphere_encoder_vit {steps} upgrad "
+        f"steps: {json.dumps(res)}")
+    check(delta < 1e-4 and loss_delta < 1e-4,
+          f"18e: card and CPU differ by {delta:.3e} (state) and "
+          f"{loss_delta:.3e} (losses)")
+    return res
+
+
+def phase_standalone(torch, dev, roots: dict, profile: bool,
+                     card: str) -> dict:
+    """Phase 18 (18a-18e); returns 18a's launches, which join the kernel
+    rows. 18b-18e reach no kernel of the port: their counts must stay
+    0."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+
+    t0 = time.perf_counter()
+    res = {"18a": phase_prior_clis(torch, dev, roots, profile)}
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    res["18b"] = phase_benchmark_workers(torch)
+    res["18c"] = phase_sphere_vit(torch, dev, profile, card)
+    res["18d"] = phase_sphere_cli(torch, dev, profile, card)
+    res["18e"] = phase_sphere_lockstep(torch, dev)
+    check(not any(LAUNCH_COUNTS.values()),
+          f"18b-18e launched a kernel of the port: {dict(LAUNCH_COUNTS)}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 (standalone CLIs, sphere encoders; {card}): "
+        f"{res['seconds']:.1f} s")
+    return res["18a"]["launches"]
+
+def run_probes(torch, fa, dev) -> None:
+    """``--probe``: the measurements behind two entries of PERF.md §7, not
+    a smoke run (no contract line). (1) 17b trained twice in one process,
+    unprofiled then profiled, each trained prior's q/k/v through 17a's
+    gate, a failure printed, not raised. (2) The sampler path's layers
+    called three times on one input under the default cuDNN flags and
+    under deterministic ones: the largest difference from the first
+    call."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.train.prior import build_prior
+
+    ones = dict.fromkeys(("step_ms", "codes_per_sec", "peak_mem_gib"), 1.0)
+    for profile in (False, True):
+        try:
+            phase_prior_bf16(torch, fa, dev, ones, [], profile=profile)
+            log(f"probe 17a trained prior (profile {profile}): passed")
+        except SmokeFailure as e:
+            log(f"probe 17a trained prior (profile {profile}): failed: {e}")
+        torch.cuda.empty_cache()
+
+    vq = init_model(get_network(V2_SIZE, 3, V2_WIDTH), seed=0,
+                    device=dev).eval()
+    hp = build_prior(SimpleNamespace(**HPRIOR_ARGS), 512, True, 64)
+    hp.reset_parameters(torch.Generator().manual_seed(0))
+    hp = hp.to(dev).eval()
+    g = torch.Generator().manual_seed(1)
+    zt = torch.randint(0, 512, (16, 32, 32), generator=g).to(dev)
+    zb = torch.randint(0, 512, (16, 64, 64), generator=g).to(dev)
+    layers = {"condition_from_top": lambda: hp.condition_from_top(zt),
+              "prior_bottom_logits": lambda: hp.prior_bottom(
+                  zb, False, None, condition=hp.condition_from_top(zt)),
+              "decode_code": lambda: vq.decode_code(zt, zb)}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    for det in (False, True):
+        cudnn.deterministic = det
+        with torch.no_grad():
+            res = {}
+            for name, fn in layers.items():
+                outs = [fn().double() for _ in range(3)]
+                res[name] = [float((o - outs[0]).abs().max())
+                             for o in outs[1:]]
+        log(f"probe cuDNN deterministic={det}, sampler path at 15a's "
+            f"widths: {json.dumps(res)}")
+    cudnn.deterministic = saved
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
                    help="also print a torch.profiler breakdown per mode")
+    p.add_argument("--probe", action="store_true",
+                   help="only the probes behind PERF.md's open questions "
+                   "(run_probes); not a smoke run")
     args = p.parse_args()
 
     import torch
@@ -3401,7 +3851,13 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
 
+    if args.probe:
+        build.build(list(build.TARGETS))
+        run_probes(torch, fa, dev)
+        return 0
+
     start = time.perf_counter()
+    cli_tmp = None
     try:
         t0 = time.perf_counter()
         libs = build.build(list(build.TARGETS))
@@ -3524,8 +3980,9 @@ def main() -> int:
         del hprior, vq2
         torch.cuda.empty_cache()
 
-        # this slice's path: configs through the port's CLI
-        cli = phase_cli(torch, dev, bare)
+        # configs through the port's CLI; the run trees stay for phase 18
+        cli_tmp = tempfile.mkdtemp(prefix="movae_cli_")
+        cli = phase_cli(torch, dev, bare, cli_tmp)
         row["launches"] += cli["launches"]["nearest_code"]
         for r in flash_rows:
             r["launches"] += cli["launches"][r["name"]]
@@ -3537,9 +3994,20 @@ def main() -> int:
         # grad_accum, steps_per_dispatch, remat
         bf16_rows = phase_item6(torch, fa, dev, peaks, sass, prior,
                                 smi[0] if smi else name, args.profile)
+
+        # this slice's path: the standalone prior CLIs on phase 15's run
+        # trees, benchmark_workers and the sphere encoders
+        standalone = phase_standalone(torch, dev, cli["roots"],
+                                      args.profile, smi[0] if smi else name)
+        row["launches"] += standalone["nearest_code"]
+        for r in flash_rows:
+            r["launches"] += standalone[r["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if cli_tmp is not None:
+            shutil.rmtree(cli_tmp, ignore_errors=True)
 
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - start:.1f} s")

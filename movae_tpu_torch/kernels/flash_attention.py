@@ -12,7 +12,10 @@ At bfloat16 the kernels compute what the stock Pallas kernel computes on
 bf16 inputs: products of bf16 values summed in float32, the logits scaled
 in float32, p and ds rounded to bf16 before their products, outputs in
 bf16; the softmax statistics and di stay float32. The plain version rounds
-at the same points (:func:`flash_causal_attention_plain`).
+at the same points and computes p and ds as the kernels do, in base 2 with
+one float32 fma each (:func:`flash_causal_attention_plain`). It sums its
+products in IEEE float32; asked with ``tensor_cores=True``, on the card it
+sums its bf16 products on the tensor cores instead, as the kernels do.
 """
 
 from __future__ import annotations
@@ -42,9 +45,11 @@ _SIGNATURES = {
 # the bfloat16 instances take the same arguments
 _SIGNATURES.update({name.replace("movae_flash_", "movae_flash_bf16_"): sig
                     for name, sig in list(_SIGNATURES.items())})
-# bfloat16 plain version: rows of B*H computed at a time, so that the L x L
+# bfloat16 plain version: rows of B computed at a time, so that the L x L
 # float32 intermediates of the prior's shape stay a few GB
 _PLAIN_CHUNK = 8
+LOG2E = 1.4426950408889634
+_TINY = 2.0 ** -126  # ex2.approx.ftz flushes results below it to 0
 
 
 def dense_causal_attention(
@@ -64,11 +69,28 @@ def dense_causal_attention(
     return torch.matmul(weights, v)
 
 
-def _plain_logits(q: Tensor, k: Tensor, sm_scale: float) -> Tensor:
-    """Scaled float32 logits from bf16 q, k (their products are exact in
-    float32), the causal mask as -inf."""
+def _mm(a: Tensor, b: Tensor, tensor_cores: bool = False) -> Tensor:
+    """a @ b in float32, for (..., m, k) and (..., k, n) operands of one
+    batch shape, summed in IEEE float32. With ``tensor_cores`` and operands
+    on the card, the operands, which must hold bf16 values, go through
+    cuBLAS's bf16 GEMM with a float32 output instead: summed on the tensor
+    cores as the kernels' HMMA sums them (on a trained prior's sharp rows
+    the order of the logits' sum moves p's bf16 roundings)."""
+    if tensor_cores and a.is_cuda:
+        sa, sb = a.shape, b.shape
+        out = torch.bmm(a.to(torch.bfloat16).reshape(-1, *sa[-2:]),
+                        b.to(torch.bfloat16).reshape(-1, *sb[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*sa[:-1], sb[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def _plain_logits(q: Tensor, k: Tensor, tensor_cores: bool = False
+                  ) -> Tensor:
+    """The raw float32 logits q k^T from bf16 q, k, the causal mask as
+    -inf."""
     L = q.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = _mm(q, k.transpose(-1, -2), tensor_cores)
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     return s.masked_fill(~mask, float("-inf"))
 
@@ -78,45 +100,102 @@ def _bf(x: Tensor) -> Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def plain_fwd_bf16(q: Tensor, k: Tensor, v: Tensor, sm_scale: float):
-    """The bf16 forward kernel's arithmetic in plain PyTorch: f32 logits and
-    softmax statistics, p rounded to bf16 before p v, o in bf16. Returns
-    (o, lse), lse the natural log-sum-exp of the scaled logits, (B, H, L)
+def log2e_scale(sm_scale: float) -> float:
+    """The kernels' ``scale * kLog2e``: one float32 product (returned as the
+    Python float of that float32 value)."""
+    return float(torch.tensor(sm_scale, dtype=torch.float32)
+                 * torch.tensor(LOG2E, dtype=torch.float32))
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def fma_f32(a: Tensor, b: float, c: Tensor) -> Tensor:
+    """float32 ``fmaf(a, b, c)`` for float32 a, c and a float32 value b: the
+    product of two floats is exact in float64, so one float64 product and
+    sum rounded once to float32 is the fma. Computed a leading slice at a
+    time, to keep the float64 temporaries small."""
+    out = torch.empty(torch.broadcast_shapes(a.shape, c.shape),
+                      dtype=torch.float32, device=a.device)
+    c = c.expand(out.shape)
+    for i in range(out.shape[0]):
+        out[i] = (a[i].double() * b + c[i].double()).float()
+    return out
+
+
+def ex2_ftz(x: Tensor) -> Tensor:
+    """The kernels' ``ex2.approx.ftz.f32``, exactly rounded: 2^x with
+    results below 2^-126 flushed to 0."""
+    p = torch.exp2(x)
+    return p.masked_fill(p < _TINY, 0.0)
+
+
+def plain_p_bf16(s: Tensor, c: float, shift: Tensor) -> Tensor:
+    """p = 2^fma(s, c, -shift) from the raw logits ``s`` (-inf where
+    masked), c = :func:`log2e_scale` and a (..., L, 1) float32 ``shift``
+    (the row maximum of s c in the forward, lse2 in the backward), as the
+    bf16 kernels compute it; unrounded float32."""
+    return ex2_ftz(fma_f32(s, c, -shift))
+
+
+def plain_ds_bf16(p: Tensor, dp: Tensor, di: Tensor, sm_scale: float
+                  ) -> Tensor:
+    """ds = bf16(p fma(dp, scale, -di scale)), di scale one float32
+    product, as both bf16 backward kernels compute it (float32 holding the
+    bf16 values)."""
+    sc = _f32(sm_scale)
+    return _bf(p * fma_f32(dp, sc, -(di * sc)))
+
+
+def plain_fwd_bf16(q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
+                   tensor_cores: bool = False):
+    """The bf16 forward kernel's arithmetic in plain PyTorch, in base 2:
+    raw f32 logits s (:func:`_mm`, ``tensor_cores`` as there), each row's
+    maximum m2 of s c (c =
+    scale log2 e, one float32 product), p = 2^fma(s, c, -m2) rounded to
+    bf16 before p v, the row sum of the unrounded p, o in bf16. Returns
+    (o, lse2), lse2 the base-2 log-sum-exp of the scaled logits, (B, H, L)
     float32."""
+    c = log2e_scale(sm_scale)
     o = torch.empty_like(q)
-    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+    lse2 = q.new_empty(q.shape[:3], dtype=torch.float32)
     for i in range(0, q.shape[0], _PLAIN_CHUNK):
         sl = slice(i, i + _PLAIN_CHUNK)
-        s = _plain_logits(q[sl], k[sl], sm_scale)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
+        s = _plain_logits(q[sl], k[sl], tensor_cores)
+        m2 = s.amax(-1, keepdim=True) * c  # key 0 is in every row
+        p = plain_p_bf16(s, c, m2)
+        del s
         denom = p.sum(-1, keepdim=True)
-        o[sl] = (torch.matmul(_bf(p), v[sl].float()) / denom).to(o.dtype)
-        lse[sl] = (m + torch.log(denom))[..., 0]
-        del s, p
-    return o, lse
+        o[sl] = (_mm(_bf(p), v[sl], tensor_cores) / denom).to(o.dtype)
+        lse2[sl] = (m2 + torch.log2(denom))[..., 0]
+        del p
+    return o, lse2
 
 
-def plain_bwd_bf16(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
-                   do: Tensor, sm_scale: float):
+def plain_bwd_bf16(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse2: Tensor,
+                   do: Tensor, sm_scale: float, tensor_cores: bool = False):
     """The bf16 backward kernels' arithmetic in plain PyTorch from the
-    forward's ``o`` and natural ``lse``: di = sum(o do) in f32, dv =
-    bf16(p)^T do, ds = (dp - di) p s and dk = bf16(ds)^T q, dq = bf16(ds) k,
-    each in bf16. Returns (dq, dk, dv)."""
+    forward's ``o`` and base-2 ``lse2``: di = sum(o do) in f32, p =
+    2^fma(s, c, -lse2), dv = bf16(p)^T do, ds = bf16(p fma(dp, scale,
+    -di scale)), dk = ds^T q, dq = ds k, each in bf16, the products summed
+    as :func:`_mm` sums them. Returns (dq, dk, dv)."""
+    c = log2e_scale(sm_scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     for i in range(0, q.shape[0], _PLAIN_CHUNK):
         sl = slice(i, i + _PLAIN_CHUNK)
         dof = do[sl].float()
         di = (o[sl].float() * dof).sum(-1, keepdim=True)
-        p = torch.exp(_plain_logits(q[sl], k[sl], sm_scale)
-                      - lse[sl][..., None])
-        dv[sl] = torch.matmul(_bf(p).transpose(-1, -2), dof).to(dv.dtype)
-        dp = torch.matmul(dof, v[sl].float().transpose(-1, -2))
-        ds = _bf((dp - di) * p * sm_scale)
-        dk[sl] = torch.matmul(ds.transpose(-1, -2),
-                              q[sl].float()).to(dk.dtype)
-        dq[sl] = torch.matmul(ds, k[sl].float()).to(dq.dtype)
-        del p, dp, ds
+        p = plain_p_bf16(_plain_logits(q[sl], k[sl], tensor_cores), c,
+                         lse2[sl][..., None])
+        dv[sl] = _mm(_bf(p).transpose(-1, -2), dof, tensor_cores
+                     ).to(dv.dtype)
+        dp = _mm(dof, v[sl].transpose(-1, -2), tensor_cores)
+        ds = plain_ds_bf16(p, dp, di, sm_scale)
+        del p, dp
+        dk[sl] = _mm(ds.transpose(-1, -2), q[sl], tensor_cores).to(dk.dtype)
+        dq[sl] = _mm(ds, k[sl], tensor_cores).to(dq.dtype)
+        del ds
     return dq, dk, dv
 
 
@@ -127,15 +206,15 @@ class _PlainFlashBf16(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q: Tensor, k: Tensor, v: Tensor, sm_scale: float
                 ) -> Tensor:
-        o, lse = plain_fwd_bf16(q, k, v, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse2 = plain_fwd_bf16(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse2)
         ctx.sm_scale = sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do: Tensor):
-        q, k, v, o, lse = ctx.saved_tensors
-        return (*plain_bwd_bf16(q, k, v, o, lse, do, ctx.sm_scale), None)
+        q, k, v, o, lse2 = ctx.saved_tensors
+        return (*plain_bwd_bf16(q, k, v, o, lse2, do, ctx.sm_scale), None)
 
 
 def flash_causal_attention_plain(

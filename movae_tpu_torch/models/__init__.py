@@ -2,16 +2,16 @@
 family (``vae``, ``gg_vae`` / ``gg_vae_v2``, ``_v3``, ``_v5``, ``_v6``,
 ``betatc_vae`` / ``btc_vae``, ``cycle_vae``, ``recursive_kl_vae``,
 ``recursive_cyclic_vae`` / ``rc_vae``) and the VQ family (``vq_vae``,
-``vq_vae2``, ``gg_vq_vae`` / ``gg_vq_vae_v1..v8``, ``gg_vq_vae2``), with the
-JAX registry's lambda-weight rules, including its KL weight of
+``vq_vae2``, ``gg_vq_vae`` / ``gg_vq_vae_v1..v8``, ``gg_vq_vae2``) and the
+sphere encoders (``sphere_encoder``, ``sphere_encoder_vit``), with the JAX
+registry's lambda-weight rules, including its KL weight of
 ``batch_size / dataset_size``.
 
 The priors (flat and hierarchical) are not in this registry:
 ``movae_tpu_torch/train/prior.py:build_prior`` builds them, as in the JAX
-package. The sphere encoders raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them; any other name raises the JAX
-registry's ``ValueError`` (``gg_vae_v4`` among them: the JAX package builds
-no such model).
+package, and their names raise ``NotImplementedError`` pointing there; any
+other name raises the JAX registry's ``ValueError`` (``gg_vae_v4`` among
+them: the JAX package builds no such model).
 """
 
 from __future__ import annotations
@@ -30,12 +30,15 @@ from movae_tpu_torch.models.gg_vq_vae import GGVQVAE
 from movae_tpu_torch.models.gg_vq_vae2 import GGVQVAE2
 from movae_tpu_torch.models.recursive_cyclic_vae import RecursiveCyclicVAE
 from movae_tpu_torch.models.recursive_kl_vae import RecursiveKLVAE
+from movae_tpu_torch.models.sphere_encoder import SphereEncoder
+from movae_tpu_torch.models.sphere_encoder_vit import SphereEncoderViT
 from movae_tpu_torch.models.vae import VAE
 from movae_tpu_torch.models.vq_vae import VQVAE
 from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
 __all__ = ["BetaTCVAE", "CycleVAE", "GGVAE", "GGVQVAE", "GGVQVAE2",
-           "RecursiveCyclicVAE", "RecursiveKLVAE", "VAE", "VQVAE", "VQVAE2",
+           "RecursiveCyclicVAE", "RecursiveKLVAE", "SphereEncoder",
+           "SphereEncoderViT", "VAE", "VQVAE", "VQVAE2",
            "MOVAEModel", "get_network", "init_model",
            "resolve_compute_dtype"]
 
@@ -44,8 +47,6 @@ _NOT_PORTED = {
                 "movae_tpu_torch/train/prior.py:build_prior)",
     "pixelsnail": "Queue 1 item 8 (the flat priors are built by "
                   "movae_tpu_torch/train/prior.py:build_prior)",
-    "sphere_encoder": "Queue 1 item 11 (the sphere encoders)",
-    "sphere_encoder_vit": "Queue 1 item 11 (the sphere encoders)",
 }
 GG_VAE_ARCHS = ("gg_vae", "gg_vae_v2", "gg_vae_v3", "gg_vae_v5", "gg_vae_v6")
 
@@ -153,6 +154,54 @@ def _vae_family(arch: str, input_size: int, num_channels: int, args,
     return GGVAE(lambda_weights=lw, edge_matching_version=version, **kw)
 
 
+def _sphere(arch: str, input_size: int, num_channels: int, args,
+            common: dict) -> MOVAEModel:
+    """The two sphere-encoder branches of the JAX registry: the lambda_*
+    args (1.0 / 0.5 / 0.1) as the lambda weights, and the VGG perceptual
+    term unless ``use_perceptual`` is False."""
+    l_pr = _get(args, "lambda_pix_recon", 1.0)
+    l_pc = _get(args, "lambda_pix_con", 0.5)
+    l_lc = _get(args, "lambda_lat_con", 0.1)
+    use_perceptual = _get(args, "use_perceptual", True)
+    perceptual_fn = None
+    if use_perceptual:
+        from movae_tpu_torch.metrics.vgg import make_perceptual_fn
+        perceptual_fn = make_perceptual_fn()
+    kw = dict(sigma_max_angle_deg=_get(args, "sigma_max_angle_deg", 80.0),
+              sigma_mix_prob=_get(args, "sigma_mix_prob", 0.0),
+              sigma_mix_angle_min_deg=_get(args, "sigma_mix_angle_min_deg"),
+              sigma_mix_angle_max_deg=_get(args, "sigma_mix_angle_max_deg"),
+              lambda_pix_recon=l_pr, lambda_pix_con=l_pc, lambda_lat_con=l_lc,
+              lambda_weights=(("pix_recon", l_pr), ("pix_con", l_pc),
+                              ("lat_con", l_lc)),
+              use_perceptual=use_perceptual, perceptual_fn=perceptual_fn,
+              dtype=common["dtype"])
+    latent_dim = _get(args, "latent_dim", 128)
+    if arch == "sphere_encoder":
+        return SphereEncoder(
+            latent_dim=latent_dim,
+            hidden_dims=tuple(_get(args, "hidden_dims",
+                                   (32, 64, 128, 256, 512))),
+            input_size=input_size, in_channels=num_channels,
+            recons_objective=common["recons_objective"],
+            recons_activation=common["recons_activation"], **kw)
+    patch_size = _get(args, "patch_size", None) or (
+        2 if input_size <= 32 else 8)
+    num_patches = (input_size // patch_size) ** 2
+    if latent_dim % num_patches:
+        raise ValueError(
+            f"sphere_encoder_vit: latent_dim {latent_dim} must be "
+            f"divisible by num_patches {num_patches}")
+    return SphereEncoderViT(
+        img_size=input_size, patch_size=patch_size, in_channels=num_channels,
+        embed_dim=_get(args, "vit_embed_dim", 1024),
+        depth=_get(args, "vit_depth", 24),
+        num_heads=_get(args, "vit_num_heads", 16),
+        mixer_depth=_get(args, "vit_mixer_depth", 2),
+        latent_channels=latent_dim // num_patches,
+        num_classes=_get(args, "num_classes", 0), **kw)
+
+
 def get_network(input_size: int, num_channels: int = 3, args: Any = None
                 ) -> MOVAEModel:
     """Build a model from an args namespace/dict. The module's weights are
@@ -165,7 +214,8 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     vae_family = arch in (*GG_VAE_ARCHS, "vae", "betatc_vae", "btc_vae",
                           "cycle_vae", "recursive_kl_vae",
                           "recursive_cyclic_vae", "rc_vae")
-    if not (vae_family or arch in ("vq_vae", "vq_vae2")
+    sphere = arch in ("sphere_encoder", "sphere_encoder_vit")
+    if not (vae_family or sphere or arch in ("vq_vae", "vq_vae2")
             or arch.startswith("gg_vq_vae")):
         raise ValueError(f"Network architecture {arch} not supported")
     # the conv and dense layers' dtype; parameters stay float32
@@ -187,6 +237,10 @@ def get_network(input_size: int, num_channels: int = 3, args: Any = None
     recons_activation = _get(args, "recons_activation", None)
     if recons_activation is None:
         recons_activation = "sigmoid" if recons_objective == "bce" else "tanh"
+    if sphere:
+        return _sphere(arch, input_size, num_channels, args, dict(
+            recons_objective=recons_objective,
+            recons_activation=recons_activation, dtype=dtype))
     lambda_weights = (_get(args, "loss_weights", None)
                       or _get(args, "lambda_weights", None))
     if vae_family:

@@ -3,9 +3,9 @@
 The JAX package's flax trees come in as nested dicts of numpy arrays; they
 are mapped onto the reference-torch ``state_dict`` layout — the layout of
 ``movae_tpu/utils/torch_export.py:export_torch_state_dict``, of which this is
-a self-contained copy for the VAE family, ``betatc_vae``, ``vq_vae``,
-``vq_vae2``, ``pixelcnn``, ``pixelsnail`` and the hierarchical priors — and
-loaded strictly. No JAX needed.
+a self-contained copy for the VAE family, ``betatc_vae``, the sphere
+encoders, ``vq_vae``, ``vq_vae2``, ``pixelcnn``, ``pixelsnail`` and the
+hierarchical priors — and loaded strictly. No JAX needed.
 
 The metric towers' converted ``.npz`` files (the layout of
 ``movae_tpu/metrics/{inception,vgg}.py:convert_torch_weights``) load through
@@ -126,23 +126,20 @@ class _Mapper:
         return self.state
 
 
-def vae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
-                   ) -> Dict[str, np.ndarray]:
-    """flax ``vae`` / ``gg_vae*`` / ``cycle_vae`` / ``recursive_kl_vae`` /
-    ``recursive_cyclic_vae`` (params, batch_stats) -> reference-torch
-    state_dict (numpy values), in the key order of ``_export_vae``, at any
-    ``layer_norm``. The anneal counter ``num_iter`` is dropped, as the
-    exporter drops it."""
-    mp = _Mapper(params, batch_stats)
+def _vae_layout(mp: _Mapper, head: str) -> None:
+    """The VAE backbone's entries (``_export_vae``), the flattening read
+    by the dense layer ``head``; the mu / log_var heads where ``head`` is
+    ``mu``."""
     H = _count(mp.params, "enc_conv_{}/kernel")
     norm = "enc_norm_0/scale" in mp.params
-    c, s = mp.flat_geometry(f"enc_conv_{H - 1}", "mu")
+    c, s = mp.flat_geometry(f"enc_conv_{H - 1}", head)
     for i in range(H):
         mp.conv(f"encoder.{i}.0", f"enc_conv_{i}")
         if norm:
             mp.norm(f"encoder.{i}.1", f"enc_norm_{i}")
-    mp.dense_from_flat("mu", "mu", c, s)
-    mp.dense_from_flat("log_var", "log_var", c, s)
+    if head == "mu":
+        mp.dense_from_flat("mu", "mu", c, s)
+        mp.dense_from_flat("log_var", "log_var", c, s)
     mp.dense_to_flat("decoder_input", "decoder_input", c, s)
     for i in range(H - 1):
         mp.conv(f"decoder.{1 + i}.0", f"dec_deconv_{i}", transpose=True)
@@ -152,7 +149,77 @@ def vae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     if norm:
         mp.norm("final_layer.1", "final_norm_0")
     mp.conv("final_layer.3", "final_conv")
+    if head != "mu":
+        mp.dense_from_flat(head, head, c, s)
+
+
+def vae_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                   ) -> Dict[str, np.ndarray]:
+    """flax ``vae`` / ``gg_vae*`` / ``cycle_vae`` / ``recursive_kl_vae`` /
+    ``recursive_cyclic_vae`` (params, batch_stats) -> reference-torch
+    state_dict (numpy values), in the key order of ``_export_vae``, at any
+    ``layer_norm``. The anneal counter ``num_iter`` is dropped, as the
+    exporter drops it."""
+    mp = _Mapper(params, batch_stats)
+    _vae_layout(mp, "mu")
     mp.stats.pop("num_iter", None)
+    return mp.finish()
+
+
+def sphere_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                      ) -> Dict[str, np.ndarray]:
+    """flax ``sphere_encoder`` (params, batch_stats) -> reference-torch
+    state_dict (numpy values), in the key order of ``_export_sphere``: the
+    VAE backbone, then ``encoder_proj``."""
+    mp = _Mapper(params, batch_stats)
+    _vae_layout(mp, "encoder_proj")
+    return mp.finish()
+
+
+def _vit_block(mp: _Mapper, t: str, f: str) -> None:
+    mp.norm(f"{t}.norm1", f"{f}/norm1")
+    mp.dense(f"{t}.attn.qkv", f"{f}/attn/qkv")
+    mp.dense(f"{t}.attn.proj", f"{f}/attn/proj")
+    mp.norm(f"{t}.norm2", f"{f}/norm2")
+    # the MLP's second Linear is Sequential index 3 (GELU at 1, Dropout
+    # at 2)
+    mp.dense(f"{t}.mlp.0", f"{f}/mlp1")
+    mp.dense(f"{t}.mlp.3", f"{f}/mlp2")
+
+
+def _rms(mp: _Mapper, t: str, f: str) -> None:
+    mp.state[t + ".weight"] = mp.take(f + "/weight")
+
+
+def _mixer(mp: _Mapper, t: str, f: str) -> None:
+    for b in range(_count(mp.params, f + "/block_{}/norm1/weight")):
+        fb, tb = f"{f}/block_{b}", f"{t}.blocks.{b}"
+        _rms(mp, f"{tb}.norm1", f"{fb}/norm1")
+        mp.dense(f"{tb}.token_mix.0", f"{fb}/tok1")
+        mp.dense(f"{tb}.token_mix.2", f"{fb}/tok2")
+        _rms(mp, f"{tb}.norm2", f"{fb}/norm2")
+        mp.dense(f"{tb}.channel_mix.0", f"{fb}/ch1")
+        mp.dense(f"{tb}.channel_mix.2", f"{fb}/ch2")
+    _rms(mp, f"{t}.norm", f"{f}/norm")
+
+
+def sphere_vit_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``sphere_encoder_vit`` params -> reference-torch state_dict
+    (numpy values), in the key order of ``_export_sphere_vit``."""
+    mp = _Mapper(params, None)
+    mp.conv("patch_embed_enc.proj", "patch_embed_enc")
+    for i in range(_count(mp.params, "enc_block_{}/norm1/scale")):
+        _vit_block(mp, f"blocks_enc.{i}", f"enc_block_{i}")
+    _mixer(mp, "mixer_enc", "mixer_enc")
+    _rms(mp, "norm_enc", "norm_enc")
+    mp.dense("latent_proj_enc", "latent_proj_enc")
+    mp.dense("latent_proj_dec", "latent_proj_dec")
+    _rms(mp, "norm_dec_in", "norm_dec_in")
+    _mixer(mp, "mixer_dec", "mixer_dec")
+    for i in range(_count(mp.params, "dec_block_{}/norm1/scale")):
+        _vit_block(mp, f"blocks_dec.{i}", f"dec_block_{i}")
+    mp.norm("norm_dec_out", "norm_dec_out")
+    mp.dense("head_dec", "head_dec")
     return mp.finish()
 
 
@@ -357,10 +424,16 @@ def load_jax_params(model: MOVAEModel, params: Mapping,
     strictly; returns the model. An anneal counter ``num_iter`` comes from
     ``batch_stats`` (0 when absent)."""
     from movae_tpu_torch.models.betatc_vae import BetaTCVAE
+    from movae_tpu_torch.models.sphere_encoder import SphereEncoder
+    from movae_tpu_torch.models.sphere_encoder_vit import SphereEncoderViT
     from movae_tpu_torch.models.vae import VAE
     from movae_tpu_torch.models.vq_vae2 import VQVAE2
 
-    if isinstance(model, VQVAE2):
+    if isinstance(model, SphereEncoderViT):
+        state = sphere_vit_state_dict(params)
+    elif isinstance(model, SphereEncoder):
+        state = sphere_state_dict(params, batch_stats)
+    elif isinstance(model, VQVAE2):
         state = vqvae2_state_dict(params, batch_stats, ema_stats=model.vq_ema)
     elif isinstance(model, BetaTCVAE):
         state = betatc_state_dict(params, batch_stats)

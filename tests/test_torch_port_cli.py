@@ -309,14 +309,34 @@ def test_main_cli_runs_a_vae_to_the_jax_run_tree(tmp_path):
     (["--model_partitions", "2"], "item 13"),
     (["--context_parallel", "2"], "item 13"),
     (["--pipeline_parallel", "2"], "item 13"),
-    (["--fsdp"], "item 13"),
-    (["--arch", "sphere_encoder"], "item 11")])
+    (["--fsdp"], "item 13")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
     from movae_tpu_torch.train.loop import run_training
 
     args = tmain.parse_args(TINY + ["--save_path", str(tmp_path)] + flag)
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         run_training(args)
+
+
+def test_sphere_encoder_arch_builds_as_in_jax():
+    """``--arch sphere_encoder`` (once refused as not ported) parses to one
+    model in both packages: the same objectives, lambda weights and
+    parameter count."""
+    from movae_tpu.models import get_network as jget
+    from movae_tpu.models import init_model as jinit
+    from movae_tpu_torch.models import get_network
+
+    argv = TINY + ["--arch", "sphere_encoder", "--latent_dim", "8"]
+    jargs, targs = jmain.parse_args(argv), tmain.parse_args(argv)
+    jargs.use_perceptual = targs.use_perceptual = False
+    jm, tm = jget(32, 3, jargs), get_network(32, 3, targs)
+    assert tm.objective_names == jm.objective_names
+    assert tm.lambda_weights == tuple(jm.lambda_weights) == (
+        ("pix_recon", 1.0), ("pix_con", 0.5), ("lat_con", 0.1))
+    params, _ = jax.eval_shape(lambda key: jinit(jm, key, 32, 3),
+                               jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in tm.parameters()) == sum(
+        int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(params))
 
 
 @pytest.mark.parametrize("flag,steps", [

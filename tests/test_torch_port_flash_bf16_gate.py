@@ -15,7 +15,9 @@ bf16 before their products and sum in another order than torch's GEMMs,
 which the emulation models by summing in float64 (a float32 fma is a
 float64 sum rounded once). The plain version (``plain_fwd_bf16``/
 ``plain_bwd_bf16``) rounds at the same points against the row's final
-maximum.
+maximum, in base 2 with one float32 fma for p and one for ds, as the
+kernels compute them: on inputs whose sums are exact in any order its p
+and ds equal the emulation's element for element.
 
 The gate and the controls are chip_smoke.py's own functions, loaded from
 the checkout.
@@ -86,10 +88,9 @@ def _kernel_fwd(q, k, v, scale):
         ..., 0]
 
 
-def _kernel_bwd(q, k, v, o, lse2, do, scale):
-    """The backward kernels from the forward's o and lse2, summed in
-    float64: (dq, dk, dv); p and ds with one fma each, as both kernels
-    compute them."""
+def _kernel_p_ds(q, k, v, o, lse2, do, scale):
+    """The p and ds both backward kernels compute from the forward's o and
+    lse2, with one fma each (float32 holding ds's bf16 values)."""
     L = q.shape[2]
     c = torch.tensor(scale * LOG2E, dtype=torch.float32)
     sc = torch.tensor(scale, dtype=torch.float32)
@@ -99,7 +100,14 @@ def _kernel_bwd(q, k, v, o, lse2, do, scale):
     dp = (do.double() @ v.double().transpose(-1, -2)).float()
     # 2^fma(s, c, -lse2), p fma(dp, s, -di s)
     p = _ex2(_fma(s, c, -lse2[..., None])).masked_fill(~causal, 0.0)
-    ds = _bf(p * _fma(dp, sc, -(di * sc))).double()
+    return p, _bf(p * _fma(dp, sc, -(di * sc)))
+
+
+def _kernel_bwd(q, k, v, o, lse2, do, scale):
+    """The backward kernels from the forward's o and lse2, summed in
+    float64: (dq, dk, dv)."""
+    p, ds = _kernel_p_ds(q, k, v, o, lse2, do, scale)
+    ds = ds.double()
     dv = _bf(p).double().transpose(-1, -2) @ do.double()
     return [t.to(torch.bfloat16) for t in
             (ds @ k.double(), ds.transpose(-1, -2) @ q.double(), dv)]
@@ -133,11 +141,11 @@ def test_kernel_arithmetic_passes_the_bf16_gate(shape, sharp):
     got = dict(zip(("o", "dq", "dk", "dv"),
                    (o, *_kernel_bwd(q, k, v, o, lse2, do, scale))))
     keys = ("o", "dq", "dk", "dv")
-    lse = lse2 * math.log(2.0)
-    plain = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o, lse, scale)))
-    terms = cs.bf16_terms(torch, fa, q, k, v, do, o, lse, scale)
-    o_p, lse_p = fa.plain_fwd_bf16(q, k, v, scale)
-    e2e = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o_p, lse_p, scale)))
+    plain = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o, lse2, scale)))
+    terms = cs.bf16_terms(torch, fa, q, k, v, do, o, lse2, scale)
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    e2e = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o_p, lse2_p,
+                                       scale)))
     leaves = [t.double().requires_grad_() for t in (q, k, v)]
     out = fa.dense_causal_attention(*leaves, scale)
     f64 = dict(zip(("o", "dq", "dk", "dv"), (out.detach(), *torch.autograd
@@ -165,6 +173,95 @@ def test_planted_faults_fail_the_bf16_gate(shape, sharp):
     assert len(planted) == 3 + (shape[-1] == 32)
     assert all(not cs.bf16_agrees(res[n]) for n in planted)
     assert fa._bf(torch.tensor([1.0 + 2 ** -10])).item() == 1.0  # restored
+
+
+def _sharp_integer_inputs(shape, seed):
+    """bf16 q, k of integers in [-16, 16] and v, do of integers in [-4, 4]:
+    every product and every sum of D of them is exact in float32, so s and
+    dp do not depend on the order of summation; the logits s scale reach
+    1e2-1e3 and the rows are sharp. The keys of the first half come in
+    equal pairs: a row whose weight sits on such a pair has dq terms that
+    cancel to far less than themselves."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(hi):
+        return torch.randint(-hi, hi + 1, shape, generator=g).to(
+            torch.bfloat16)
+
+    q, k, v, do = ints(16), ints(16), ints(4), ints(4)
+    h = shape[2] // 4 * 2
+    k[:, :, 1:h:2] = k[:, :, 0:h:2]
+    return q, k, v, do
+
+
+SHARP = [(1, 2, 512, 16), (1, 2, 333, 32)]
+
+
+@pytest.mark.parametrize("shape", SHARP)
+def test_base2_plain_p_and_ds_equal_the_kernel_emulation(shape):
+    """On sharp rows: the plain version's p (forward and backward) and ds
+    equal the emulated kernels' element for element, and its lse2 is the
+    emulated forward's up to the order of the row sum."""
+    q, k, v, do = _sharp_integer_inputs(shape, seed=shape[2])
+    scale = shape[-1] ** -0.5
+    c = fa.log2e_scale(scale)
+    assert c == torch.tensor(scale * LOG2E, dtype=torch.float32).item()
+    o, lse2 = _kernel_fwd(q, k, v, scale)
+    s = fa._plain_logits(q, k)
+    logits = s[torch.isfinite(s)].abs() * scale
+    assert 1e2 <= float(logits.max()) <= 1e3, float(logits.max())
+    # the forward: p against each row's maximum of s c
+    mc = s.amax(-1, keepdim=True) * c
+    torch.testing.assert_close(fa.plain_p_bf16(s, c, mc),
+                               _ex2(_fma(s, c, -mc)), rtol=0, atol=0)
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    torch.testing.assert_close(lse2_p, lse2, rtol=1e-6, atol=1e-5)
+    # the backward from the emulated forward's o and lse2
+    p_k, ds_k = _kernel_p_ds(q, k, v, o, lse2, do, scale)
+    p = fa.plain_p_bf16(s, c, lse2[..., None])
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    ds = fa.plain_ds_bf16(p, do.float() @ v.float().transpose(-1, -2), di,
+                          scale)
+    torch.testing.assert_close(p, p_k, rtol=0, atol=0)
+    torch.testing.assert_close(ds, ds_k, rtol=0, atol=0)
+    # sharp rows: most rows put nearly all their weight on one key or on
+    # one pair of equal keys
+    top2 = p.topk(2, dim=-1).values.sum(-1)
+    assert float((top2 > 0.99).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("shape", SHARP)
+def test_sharp_rows_pass_the_gate_and_controls_fail(shape):
+    """On sharp rows whose dq terms cancel: the emulated kernels within the
+    gate of the base-2 plain version and, as the port runs them end to
+    end, of float64; every planted control refused."""
+    q, k, v, do = _sharp_integer_inputs(shape, seed=shape[2] + 1)
+    scale = shape[-1] ** -0.5
+    o, lse2 = _kernel_fwd(q, k, v, scale)
+    keys = ("o", "dq", "dk", "dv")
+    got = dict(zip(keys, (o, *_kernel_bwd(q, k, v, o, lse2, do, scale))))
+    plain = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o, lse2, scale)))
+    terms = cs.bf16_terms(torch, fa, q, k, v, do, o, lse2, scale)
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    e2e = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o_p, lse2_p,
+                                       scale)))
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    out = fa.dense_causal_attention(*leaves, scale)
+    f64 = dict(zip(keys, (out.detach(), *torch.autograd.grad(
+        out, leaves, do.double()))))
+    # rows where dq cancels to far less than the terms summed into it
+    rss = terms["dq"].double().norm(dim=-1)
+    row = f64["dq"].norm(dim=-1)[rss > 0] / rss[rss > 0]
+    assert float((row < 0.1).float().mean()) > 0.2, row
+    for key, g in got.items():
+        a = cs.bf16_agreement(torch, g, plain[key], terms[key])
+        assert cs.bf16_agrees(a), (key, a)
+        kf = cs.bf16_agreement(torch, g, f64[key], terms[key])
+        pf = cs.bf16_agreement(torch, e2e[key], f64[key], terms[key])
+        assert cs.bf16_as_close(kf, pf), (key, kf, pf)
+    res = cs.flash_bf16_controls(torch, fa, str(shape), q, k, v, do)
+    planted = [n for n in res if not n.endswith("_reported")]
+    assert all(not cs.bf16_agrees(res[n]) for n in planted), res
 
 
 def test_gate_refuses_a_bias_within_1e2_of_the_largest_value():

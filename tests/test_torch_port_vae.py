@@ -350,16 +350,28 @@ def test_registry_order_and_lambda_weights_match_jax(arch):
                 assert getattr(tm, attr) == getattr(jm, attr), attr
 
 
-def test_gg_vae_v4_raises_in_both_packages_and_sphere_encoders_name_item_11():
+def test_gg_vae_v4_raises_in_both_packages_and_sphere_encoders_build():
+    """gg_vae_v4 raises in both packages; the sphere encoders build in both
+    from this file's args, with the same objectives, lambda weights and
+    parameter count."""
     from movae_tpu.models import get_network as jget
+    from movae_tpu.models import init_model as jinit
     from movae_tpu_torch.models import get_network
 
     for get in (jget, get_network):
         with pytest.raises(ValueError, match="gg_vae_v4 not supported"):
             get(SIZE, 3, vae_args(arch="gg_vae_v4"))
     for arch in ("sphere_encoder", "sphere_encoder_vit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-            get_network(SIZE, 3, vae_args(arch=arch))
+        args = vae_args(arch=arch, latent_dim=64, use_perceptual=False,
+                        vit_depth=1, vit_embed_dim=32, vit_num_heads=2,
+                        vit_mixer_depth=1)
+        jm, tm = jget(SIZE, 3, args), get_network(SIZE, 3, args)
+        assert tm.objective_names == jm.objective_names
+        assert tm.lambda_weights == tuple(jm.lambda_weights)
+        params, _ = jax.eval_shape(lambda key: jinit(jm, key, SIZE, 3),
+                                   jax.random.PRNGKey(0))
+        assert sum(p.numel() for p in tm.parameters()) == sum(
+            int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(params))
 
 
 @pytest.mark.parametrize("arch,agg", [
