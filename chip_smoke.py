@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
+    python3 chip_smoke.py --probe [dkv cudnn timings] [--parent DIR]
+                                       # only the probes behind PERF.md
 
 Phases, each of which fails the run:
   1. build every CUDA kernel of the main paths from the sources in the
@@ -165,6 +167,19 @@ Phases, each of which fails the run:
      ``main`` at main.py's widths to final/* (CLI_18D) and its bare step;
      18e card vs CPU lockstep of a small ViT, 3 upgrad steps within 1e-4.
      18b-18e reach no kernel of the port: their counts stay 0.
+  19. (after 18) serving: phase 15's checkpoints exported through
+     ``serving.export_checkpoint`` in float32 and at int8 weights (KV
+     cache int8; the int8 artifact copies the float32 one's sampler
+     programs) and served by ``serve_artifacts`` on 127.0.0.1 in a
+     thread: /healthz, /manifest, reconstruct, encode_codes and
+     decode_codes at batch 1, 16 and 128 and one sample of 16 from each
+     artifact, each float32 answer equal to the live port model's (codes
+     but for near ties, images within SERVE_TOL of the largest value), the
+     sample equal to 18a's generator's on the same seed, 15a's seed
+     repeated, int8 within SERVE_INT8_TOL and under half the bytes; the
+     nearest-code kernel launched inside the exported graphs, counted per
+     request; export seconds per function, artifact bytes,
+     ``serving_ab``'s images/s live and artifact, sample seconds.
 
 A kernel's bound is the larger of three times: its float32 products over
 the split-TF32 tensor-core rate (a third of the dense TF32 peak; the bf16
@@ -192,6 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 SLICE_N, SLICE_K, SLICE_D = 16384, 512, 64
 FULL_WIDTH = dict(arch="vq_vae", embedding_dim=SLICE_D,
@@ -418,13 +434,18 @@ ACCUM_TOL, REMAT_TOL, BF16_STEP_TOL = 1e-5, 1e-5, 5e-2
 # epoch); both re-extract the codes (the run's cache would skip the
 # nearest-code kernel); then both generators from the checkpoints alone,
 # the hierarchical one twice with one seed (bit for bit), the flat one with
-# the f32 KV cache (the faster cache on the card, PERF.md)
+# the int8 KV cache (the serving artifacts' default: both generators' images
+# are phase 19's live samples; the f32 cache runs at L = 4096 in phases 9
+# and 15b)
 CLI_18A_V2 = ["--pixelcnn_epochs", "1", "--prior_force_extract_codes",
               "--max_gen_metrics_samples", "256", "--num_samples", "16"]
 CLI_18A_SNAIL = ["--prior_type", "pixelsnail", "--batch_size", "16",
                  "--pixelcnn_epochs", "1", "--prior_force_extract_codes",
                  "--max_gen_metrics_samples", "0", "--num_samples", "16"]
-CLI_18A_GEN = ["--num_samples", "16", "--batch_size", "16", "--seed", "3"]
+# (seed and count as phase 19's sample, whose live reference these are)
+GEN_SEED = 3
+CLI_18A_GEN = ["--num_samples", "16", "--batch_size", "16", "--seed",
+               str(GEN_SEED)]
 # 18b: benchmark_workers on the card machine's host
 CLI_18B = (["--batch_sizes", "64", "128", "256"],
            ["--batch_size", "256", "--workers", "1", "2", "0"])
@@ -454,6 +475,19 @@ SPHERE_CONV_18D = dict(width=dict(arch="sphere_encoder", batch_size=128),
 SPHERE_VIT_18E = dict(arch="sphere_encoder_vit", vit_depth=2,
                       vit_embed_dim=64, vit_num_heads=4, vit_mixer_depth=1,
                       latent_dim=512)
+# phase 19: serving. Phase 15's two checkpoints exported in float32 and at
+# int8 weights (KV cache int8), each answering reconstruct, encode_codes and
+# decode_codes over HTTP at these batches and one sample of 16 images, seed
+# GEN_SEED; against the live model: images within SERVE_TOL of the largest
+# value, codes but for near ties (the live model's sample: 18a's generator
+# on the same checkpoint and seed, int8 KV cache); int8 against float32
+# within SERVE_INT8_TOL of the largest value (the JAX package's serving
+# test allows 0.02); the live and artifact reconstruct interleaved
+# (serving_ab) at SERVE_AB_BATCHES. The int8 artifact copies the float32
+# one's sampler programs (prior weights stay float)
+SERVE_BATCHES, SERVE_SAMPLE_BATCH, SERVE_SEED = (1, 16, 128), 16, GEN_SEED
+SERVE_TOL, SERVE_INT8_TOL = 1e-4, 0.02
+SERVE_AB_BATCHES, SERVE_AB = (16, 128), dict(rounds=3, reps=5)
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -467,6 +501,10 @@ BF16_SXM = 989e12
 # exp2 on the MUFU units: 16 a clock per SM against 128 fp32 FMA lanes, so
 # 1/8 of the FMA rate (132 SMs x 16 x 1.98 GHz = 4.18e12/s on the SXM part)
 MUFU_PER_FMA = 1 / 8
+
+
+# --probe's probes (probe_dkv, probe_cudnn, probe_timings)
+PROBES = ("dkv", "cudnn", "timings")
 
 
 class SmokeFailure(RuntimeError):
@@ -633,20 +671,19 @@ def graph_ms(torch, fn, reps: int = 100) -> float:
 # phase 2: nearest-code kernel vs its plain version
 # ---------------------------------------------------------------------------
 
-def compare_nearest(torch, nc, z, cb) -> dict:
-    """Kernel vs plain on the same inputs. Indices must match except where a
-    row's top-two distance gap, recomputed in float64, is below
-    1e-5 * (1 + |d|) (a near tie that float32 summation order may flip)."""
-    got = nc.nearest_code_cuda(z, cb)
-    want = nc.nearest_code_plain(z, cb)
-    torch.cuda.synchronize()
+def codes_agree(torch, z, cb, got, want) -> dict:
+    """Two code assignments of the rows ``z`` (N, D) against the codebook
+    ``cb``: they must match except where a row's top-two distance gap,
+    recomputed in float64, is below 1e-5 * (1 + |d|) (a near tie that
+    float32 summation order may flip)."""
     z64, cb64 = z.double(), cb.double()
     dist = (cb64 * cb64).sum(1)[None, :] - 2.0 * z64 @ cb64.T
     top2 = dist.topk(2, dim=1, largest=False).values
     near_tie = (top2[:, 1] - top2[:, 0]) < 1e-5 * (1.0 + top2[:, 0].abs())
+    got, want = got.reshape(-1).long(), want.reshape(-1).long()
     mismatch = got != want
-    d_got = dist.gather(1, got.long()[:, None])[:, 0]
-    d_want = dist.gather(1, want.long()[:, None])[:, 0]
+    d_got = dist.gather(1, got[:, None])[:, 0]
+    d_want = dist.gather(1, want[:, None])[:, 0]
     return {
         "rows": int(z.shape[0]),
         "mismatch": int(mismatch.sum()),
@@ -654,8 +691,16 @@ def compare_nearest(torch, nc, z, cb) -> dict:
         "bad": int((mismatch & ~near_tie).sum()),
         # float64 distance between the two picks (0 where they agree)
         "max_abs_err": float((d_got - d_want).abs().max()),
-        "in_range": bool(((got >= 0) & (got < cb.shape[0])).all()),
     }
+
+
+def compare_nearest(torch, nc, z, cb) -> dict:
+    """Kernel vs plain on the same inputs, by ``codes_agree``'s rule."""
+    got = nc.nearest_code_cuda(z, cb)
+    want = nc.nearest_code_plain(z, cb)
+    torch.cuda.synchronize()
+    return dict(codes_agree(torch, z, cb, got, want),
+                in_range=bool(((got >= 0) & (got < cb.shape[0])).all()))
 
 
 def check_nearest_ties(torch, nc, dev, gen) -> float:
@@ -3030,14 +3075,16 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
 
 
 def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list,
-                     profile: bool = False) -> dict:
+                     profile: bool = False, hold=None) -> dict:
     """17b: the stage-2 PixelSNAIL in bf16 at phase 5's width and cut
     (256-px VQ-VAE extraction, L = 4096, 8 blocks of 128 channels and 8
     heads of 16, batch 16), every flash launch recorded with its dtype:
     8 bf16 launches of each kernel a step and none at float32; the step
     ms, codes/s and peak memory beside phase 5's float32 numbers; the
     kernels on the trained bf16 prior's last-layer q, k, v; then
-    train_prior with grad_accum 2 and with steps_per_dispatch 8."""
+    train_prior with grad_accum 2 and with steps_per_dispatch 8.
+    ``hold(q, k, v, do, label)``, where given, takes the trained prior's
+    q/k/v in place of 17a's check and controls (``--probe``)."""
     from types import SimpleNamespace
 
     from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
@@ -3079,8 +3126,11 @@ def phase_prior_bf16(torch, fa, dev, f32_prior: dict, rows: list,
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     label = f"trained bf16 prior q/k/v {tuple(q.shape)}"
     q, k, v = (t.contiguous() for t in (q, k, v))
-    check_flash_bf16(torch, fa, label, q, k, v, do, worst)
-    flash_bf16_controls(torch, fa, label, q, k, v, do)
+    if hold is not None:
+        hold(q, k, v, do, label)
+    else:
+        check_flash_bf16(torch, fa, label, q, k, v, do, worst)
+        flash_bf16_controls(torch, fa, label, q, k, v, do)
     for r in rows:
         r["max_abs_err"] = max(r["max_abs_err"],
                                worst[r["name"][:-len("_bf16")]])
@@ -3476,7 +3526,8 @@ def phase_prior_clis(torch, dev, roots: dict, profile: bool) -> dict:
     kernel per PixelSNAIL step, none in a generator. The files land where
     the JAX CLIs put them; every image is finite (these configs have no
     output activation: the range is printed); the hierarchical generator,
-    run a second time with its seed, repeats its images bit for bit."""
+    run a second time with its seed, repeats its images bit for bit. The
+    generators' images, by run tree, are ``res["live_samples"]``."""
     from movae_tpu_torch import generate_samples_pixelcnn_vqvae as gen_mod
     from movae_tpu_torch import generate_samples_pixelcnn_vqvae2 as gen2_mod
     from movae_tpu_torch import train_prior_vqvae as tp_mod
@@ -3533,11 +3584,12 @@ def phase_prior_clis(torch, dev, roots: dict, profile: bool) -> dict:
         log(f"phase 18a {label} on {root}: {json.dumps(res[label])}")
 
     out_dir = tempfile.mkdtemp(prefix="movae_gen_", dir=roots["tmp"])
+    live = {}  # each run tree's generated images, phase 19's live samples
     for label, mod, root, prior_dir, extra, rerun in (
             ("generate_samples_pixelcnn_vqvae2", gen2_mod, roots["15a"],
              "pixelcnn_prior", ["--individual"], True),
             ("generate_samples_pixelcnn_vqvae", gen_mod, roots["15b"],
-             "pixelsnail_prior", ["--kv_cache_dtype", "f32"], False)):
+             "pixelsnail_prior", ["--kv_cache_dtype", "int8"], False)):
         argv = ["--model_path", ckpt_lib.final_checkpoint_path(root),
                 "--prior_path", os.path.join(root, prior_dir, "checkpoints",
                                              "best_prior.pth"),
@@ -3558,6 +3610,7 @@ def phase_prior_clis(torch, dev, roots: dict, profile: bool) -> dict:
         check(files == want, f"18a {label}: wrote {files[:4]}...")
         res[label] = {"seconds": [r[1] for r in runs], "samples": stats,
                       "files": len(files)}
+        live[root] = imgs
         if rerun:
             check((runs[0][0]["images"] == runs[1][0]["images"]).all(),
                   f"18a {label}: a second generation with one seed "
@@ -3568,6 +3621,7 @@ def phase_prior_clis(torch, dev, roots: dict, profile: bool) -> dict:
             profile_device(torch, f"18a {label} ({n} samples)",
                            lambda: mod.main(argv), 1, runs[0][1] * 1e3)
     res["launches"] = launches
+    res["live_samples"] = live
     return res
 
 
@@ -3732,9 +3786,10 @@ def phase_sphere_lockstep(torch, dev, steps: int = 3) -> dict:
 
 
 def phase_standalone(torch, dev, roots: dict, profile: bool,
-                     card: str) -> dict:
+                     card: str) -> tuple:
     """Phase 18 (18a-18e); returns 18a's launches, which join the kernel
-    rows. 18b-18e reach no kernel of the port: their counts must stay
+    rows, and its generators' images by run tree (phase 19's live
+    samples). 18b-18e reach no kernel of the port: their counts must stay
     0."""
     from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
 
@@ -3751,29 +3806,350 @@ def phase_standalone(torch, dev, roots: dict, profile: bool,
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 18 (standalone CLIs, sphere encoders; {card}): "
         f"{res['seconds']:.1f} s")
-    return res["18a"]["launches"]
+    return res["18a"]["launches"], res["18a"]["live_samples"]
 
-def run_probes(torch, fa, dev) -> None:
-    """``--probe``: the measurements behind two entries of PERF.md §7, not
-    a smoke run (no contract line). (1) 17b trained twice in one process,
-    unprofiled then profiled, each trained prior's q/k/v through 17a's
-    gate, a failure printed, not raised. (2) The sampler path's layers
-    called three times on one input under the default cuDNN flags and
-    under deterministic ones: the largest difference from the first
-    call."""
+def serving_rows(torch, model, xf) -> list:
+    """The quantizers' inputs on the preprocessed images ``xf`` with their
+    codebooks: one level (``vq_vae``) or two (``vq_rows``)."""
+    if hasattr(model, "quantize_t"):
+        return vq_rows(torch, model, xf)
+    with torch.no_grad():
+        z = model.encode(xf).reshape(-1, model.embedding_dim)
+    return [(z.contiguous(), model.vq_layer().detach())]
+
+
+def http(base: str, path: str, body: Optional[bytes] = None) -> bytes:
+    """One request to the artifact server (``body`` None: a GET)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.read()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    import numpy as np
+
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def serve_artifact(torch, label: str, art: str, live: dict, nc: int,
+                   ref: Optional[dict] = None) -> dict:
+    """19: the artifact ``art`` behind ``movae_tpu_torch.serve_artifacts``
+    on 127.0.0.1 in a thread: /healthz, /manifest, then ``reconstruct``,
+    ``encode_codes`` and ``decode_codes`` at each of SERVE_BATCHES and one
+    ``sample`` of SERVE_SAMPLE_BATCH images (seed SERVE_SEED). A float32
+    artifact (``ref`` None) answers as the live port model in ``live`` does
+    on the same inputs: codes but for near ties, images within SERVE_TOL
+    of the largest value. An int8 artifact is held within SERVE_INT8_TOL
+    of the largest value against float32 weights: its ``decode_codes``
+    against the float32 artifact's answer ``ref`` on the same codes, its
+    ``reconstruct`` against the live decoder on its own codes (int8
+    weights move a few codes: their agreement with the float32 codes is
+    reported). ``reconstruct`` and ``encode_codes`` launch ``nc``
+    nearest-code kernels in the server, ``decode_codes`` and ``sample``
+    none (the counts set to 0 just before each request, read after)."""
+    import threading
+
+    import numpy as np
+
+    from movae_tpu_torch import serve_artifacts
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.serve_artifacts import load_body, npy_bytes as npy
+    from movae_tpu_torch.train.step import preprocess_batch
+
+    model, size = live["model"], live["size"]
+    dev = next(model.parameters()).device
+    httpd = serve_artifacts.serve(art, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = {"answers": {}, "launches": 0, "seconds": {}}
+
+    def post(path, body, launches):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = load_body(http(base, path, body))
+        secs = time.perf_counter() - t0
+        check(LAUNCH_COUNTS["nearest_code"] == launches,
+              f"19 {label} {path}: {LAUNCH_COUNTS['nearest_code']} "
+              f"nearest-code launches, expected {launches}")
+        out["launches"] += launches
+        return got, secs
+
+    try:
+        health = json.loads(http(base, "/healthz"))
+        man = json.loads(http(base, "/manifest"))
+        check(health["ok"] and sorted(health["functions"]) == [
+            "decode_codes", "encode_codes", "reconstruct", "sample"],
+            f"19 {label}: /healthz {health}")
+        check(man["device"] == str(dev) and man["prior"],
+              f"19 {label}: manifest device {man['device']}, prior "
+              f"{man['prior']}")
+        gen = torch.Generator(device=dev)
+        worst = {"reconstruct": 0.0, "decode_codes": 0.0, "code_rows": 0,
+                 "code_mismatch": 0, "code_bad": 0}
+        for b in SERVE_BATCHES:
+            x = torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                              generator=gen.manual_seed(b), device=dev)
+            xn = x.cpu().numpy()
+            (recon,), t_rec = post("/reconstruct", npy(xn), nc)
+            codes, t_enc = post("/encode_codes", npy(xn), nc)
+            dec_in = codes if ref is None else ref[b]["codes"]
+            (dec,), t_dec = post("/decode_codes", npy(*dec_in), 0)
+            out["answers"][b] = {"reconstruct": recon, "codes": codes,
+                                 "decode_codes": dec}
+            out["seconds"][b] = [t_rec, t_enc, t_dec]
+            check(np.isfinite(recon).all() and np.isfinite(dec).all()
+                  and recon.shape == dec.shape == (b, size, size, 3),
+                  f"19 {label} batch {b}: {recon.shape}, {dec.shape}")
+            if ref is not None:
+                # int8 weights move the encoder's latents, and a few codes
+                # with them: reconstruct is held against the float32
+                # decoder on the int8 artifact's own codes, decode_codes on
+                # the float32 artifact's
+                with torch.no_grad():
+                    own = model.decode_code(*(torch.from_numpy(c).to(dev)
+                                              for c in codes)).float()
+                worst["reconstruct"] = max(worst["reconstruct"], rel_err(
+                    recon, own.cpu().numpy()))
+                worst["decode_codes"] = max(worst["decode_codes"], rel_err(
+                    dec, ref[b]["decode_codes"]))
+                worst["code_rows"] += sum(c.size for c in codes)
+                worst["code_mismatch"] += sum(int((c != r).sum()) for c, r
+                                              in zip(codes, ref[b]["codes"]))
+                continue
+            xf = preprocess_batch(x, live["normalize"])
+            with torch.no_grad():
+                want_rec = model(xf, train=False)["recons"].float()
+                want_dec = model.decode_code(
+                    *(torch.from_numpy(c).to(dev) for c in codes)).float()
+                want_codes = (model.get_code_indices_pair(xf)
+                              if hasattr(model, "quantize_t")
+                              else (model.get_code_indices(xf),))
+            for (z, cb), g, w in zip(serving_rows(torch, model, xf), codes,
+                                     want_codes):
+                agree = codes_agree(torch, z, cb,
+                                    torch.from_numpy(g).to(dev), w)
+                worst["code_rows"] += agree["rows"]
+                worst["code_mismatch"] += agree["mismatch"]
+                worst["code_bad"] += agree["bad"]
+            worst["reconstruct"] = max(worst["reconstruct"], rel_err(
+                recon, want_rec.cpu().numpy()))
+            worst["decode_codes"] = max(worst["decode_codes"], rel_err(
+                dec, want_dec.cpu().numpy()))
+        (s,), t_s = post(f"/sample?seed={SERVE_SEED}", b"", 0)
+        check(np.isfinite(s).all() and s.shape == (
+            SERVE_SAMPLE_BATCH, size, size, 3),
+            f"19 {label}: sample {s.shape}")
+        out.update(sample=s, sample_seconds=t_s)
+        out.update(worst=worst, manifest=man)
+        tol = SERVE_TOL if ref is None else SERVE_INT8_TOL
+        check(worst["code_bad"] == 0 and worst["reconstruct"] <= tol
+              and worst["decode_codes"] <= tol,
+              f"19 {label}: {worst} against the "
+              f"{'live model' if ref is None else 'float32 artifact'} "
+              f"(images within {tol} of the largest value; codes but for "
+              f"near ties)")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    return out
+
+
+def phase_serving(torch, dev, roots: dict, live_samples: dict,
+                  card: str) -> dict:
+    """Phase 19: serving at full width. Phase 15's checkpoints (15a's
+    celeba-hq VQ-VAE-2 at 256 px with its HierarchicalPixelCNN, 15b's
+    imagenet vq_vae with its PixelSNAIL at L = 4096) exported through
+    ``serving.export_checkpoint`` on the card, in float32 and at int8
+    weights (KV cache int8; the int8 artifact copies the float32 one's
+    sampler programs), each served over HTTP (``serve_artifact``); the
+    float32 artifact's ``sample`` against the live model's on the same
+    seed (``live_samples``: 18a's generators, by run tree), the int8
+    one's within SERVE_INT8_TOL of it and, for 15a, the seed repeated
+    through a second load; the int8 image artifacts under half the float32
+    ones' bytes; ``serving_ab``'s live and artifact ``reconstruct`` at
+    SERVE_AB_BATCHES. Returns the nearest-code launches."""
+    import numpy as np
+
+    from movae_tpu_torch import serving, serving_ab
+    from movae_tpu_torch.device import deterministic_cudnn
+    from movae_tpu_torch.train import checkpoint as ckpt_lib
+    from movae_tpu_torch.train.prior import find_prior
+    from movae_tpu_torch.train.step import preprocess_batch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="movae_serving_", dir=roots["tmp"])
+    res = {"launches": 0}
+    for label in ("15a", "15b"):
+        ckpt = ckpt_lib.final_checkpoint_path(roots[label])
+        model, args, size = serving._model_from_checkpoint(ckpt, None, dev)
+        prior = find_prior(ckpt, model, args)
+        check(prior is not None, f"19 {label}: no prior beside {ckpt}")
+        live = {"model": model, "prior": prior, "size": size,
+                "normalize": bool(getattr(args, "normalize_inputs", False))}
+        nc = 2 if hasattr(model, "quantize_t") else 1
+        r = {}
+        for quant in (None, "int8"):
+            key = quant or "f32"
+            art = os.path.join(tmp, f"{label}_{key}")
+            t0 = time.perf_counter()
+            man = serving.export_checkpoint(
+                ckpt, art, device=dev, sample_batch=SERVE_SAMPLE_BATCH,
+                quantize=quant,
+                sampler_from=None if quant is None else r["f32"]["dir"])
+            export_s = time.perf_counter() - t0
+            copied = [p["copied"] for p in
+                      man["functions"]["sample"]["programs"].values()]
+            check(all(copied) if quant else not any(copied),
+                  f"19 {label} {key}: sampler programs copied {copied}")
+            with deterministic_cudnn():
+                served = serve_artifact(
+                    torch, f"{label} {key}", art, live, nc,
+                    None if quant is None else r["f32"]["answers"])
+            res["launches"] += served["launches"]
+            r[key] = dict(served, export_seconds=export_s, dir=art,
+                          bytes={f: e["bytes"]
+                                 for f, e in man["functions"].items()},
+                          function_export_seconds={
+                              f: e["export_seconds"]
+                              for f, e in man["functions"].items()})
+        ratio = {f: r["int8"]["bytes"][f] / r["f32"]["bytes"][f]
+                 for f in ("reconstruct", "encode_codes", "decode_codes")}
+        check(all(v < 0.5 for v in ratio.values()),
+              f"19 {label}: int8 artifacts at {ratio} of float32's bytes")
+        want = live_samples[roots[label]]
+        sample_err = rel_err(r["f32"]["sample"], want)
+        check(sample_err <= SERVE_TOL,
+              f"19 {label}: the float32 artifact's sample is {sample_err} "
+              f"of the largest value from the live model's (seed "
+              f"{SERVE_SEED})")
+        int8_sample_err = rel_err(r["int8"]["sample"], r["f32"]["sample"])
+        check(int8_sample_err <= SERVE_INT8_TOL,
+              f"19 {label}: the int8 artifact's sample is {int8_sample_err} "
+              f"of the largest value from the float32 one's")
+        fns = serving.load_serving(r["f32"]["dir"])
+        repeat = None
+        if prior["hierarchical"]:  # the seed again, through a second load
+            with deterministic_cudnn():
+                again = fns["sample"](SERVE_SEED).cpu().numpy()
+            repeat = bool((again == r["f32"]["sample"]).all())
+            check(repeat, f"19 {label}: seed {SERVE_SEED} sampled twice "
+                  f"differs")
+
+        def live_rec(x, model=model, norm=live["normalize"]):
+            with torch.no_grad():
+                return model(preprocess_batch(x, norm),
+                             train=False)["recons"].float()
+
+        ab = {}
+        for b in SERVE_AB_BATCHES:
+            x = torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                              device=dev, generator=torch.Generator(
+                                  device=dev).manual_seed(b))
+            med = serving_ab.interleaved(
+                {"live": live_rec, "artifact": fns["reconstruct"]}, x,
+                **SERVE_AB)
+            ab[b] = {f"{k}_images_per_sec": b / v for k, v in med.items()}
+        summary = {
+            "export_seconds": {k: r[k]["export_seconds"] for k in r},
+            "function_export_seconds": {
+                k: r[k]["function_export_seconds"] for k in r},
+            "bytes": {k: r[k]["bytes"] for k in r},
+            "int8_over_f32_bytes": ratio,
+            "worst": {k: r[k]["worst"] for k in r},
+            "request_seconds": {k: r[k]["seconds"] for k in r},
+            "sample_seconds": {k: r[k]["sample_seconds"] for k in r},
+            "sample_vs_live": sample_err,
+            "int8_sample_vs_f32": int8_sample_err, "seed_repeats": repeat,
+            "serving_ab_reconstruct": ab,
+            "sample_range": [float(np.min(r["f32"]["sample"])),
+                             float(np.max(r["f32"]["sample"]))]}
+        log(f"phase 19 {label} ({type(prior['model']).__name__}; {card}): "
+            f"{json.dumps(summary)}")
+        res[label] = summary
+        del model, prior, live, fns, r
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 (serving; {card}): {res['seconds']:.1f} s, "
+        f"{res['launches']} nearest-code launches")
+    return res
+
+
+def probe_dkv(torch, fa, dev, parent: Optional[str]) -> None:
+    """17b trained twice in one process, unprofiled then profiled, and each
+    trained prior's q/k/v through 17a's comparison (``compare_flash_bf16``)
+    on every build: whether each output passes 17a's gate against the
+    plain version (``bf16_agrees``) and against float64 (``bf16_as_close``),
+    printed, not raised. With ``parent`` (another checkout's root) its
+    ``flash_attention.cu`` is built too, and the priors train through that
+    build's kernels: the inputs on which the parent's dk was measured, held
+    against this checkout's build on the same q/k/v/do."""
+    from pathlib import Path
+
+    from movae_tpu_torch.kernels import flash_ab
+
+    own = fa._library
+    builds = {"this": own}
+    if parent is not None:
+        d = FLASH_SLICE[-1]
+        lib = flash_ab.compile_libs({"parent": Path(parent) / "movae_tpu_torch"
+                                     / "kernels" / "flash_attention.cu"},
+                                    d)["parent"]
+
+        def parent_library(dd: int, lib=lib, d=d):
+            check(dd == d, f"probe: the parent's build is for D = {d}, "
+                  f"asked for {dd}")
+            return lib
+
+        builds["parent"] = parent_library
+    trainer = builds["parent" if parent is not None else "this"]
+
+    def hold(q, k, v, do, label):
+        for name, library in builds.items():
+            fa._library = library
+            try:
+                res = compare_flash_bf16(torch, fa, q, k, v, do)
+            finally:
+                fa._library = trainer
+            verdict = {key: {"plain": bf16_agrees(r["plain"]),
+                             "f64": bf16_as_close(r["f64"],
+                                                  r["plain_vs_f64"])}
+                       for key, r in res.items()}
+            passed = all(v for r in verdict.values() for v in r.values())
+            log(f"probe 17a {label}, {name}'s build: "
+                f"{'passed' if passed else 'failed'} {json.dumps(verdict)}; "
+                f"scale from float64 (u): " + json.dumps(
+                    {key: [r["f64"]["scale"], r["plain_vs_f64"]["scale"]]
+                     for key, r in res.items()}) + f"; {json.dumps(res)}")
+
+    ones = dict.fromkeys(("step_ms", "codes_per_sec", "peak_mem_gib"), 1.0)
+    try:
+        for profile in (False, True):
+            fa._library = trainer
+            phase_prior_bf16(torch, fa, dev, ones, [], profile=profile,
+                             hold=lambda *a, p=profile: hold(
+                                 *a[:4], f"{a[4]}, trained through "
+                                 f"{'the parent' if parent else 'this'} "
+                                 f"build (profile {p})"))
+            torch.cuda.empty_cache()
+    finally:
+        fa._library = own
+
+
+def probe_cudnn(torch, dev) -> None:
+    """The sampler path's layers called three times on one input under the
+    default cuDNN flags and under deterministic ones: the largest
+    difference from the first call."""
     from types import SimpleNamespace
 
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.train.prior import build_prior
-
-    ones = dict.fromkeys(("step_ms", "codes_per_sec", "peak_mem_gib"), 1.0)
-    for profile in (False, True):
-        try:
-            phase_prior_bf16(torch, fa, dev, ones, [], profile=profile)
-            log(f"probe 17a trained prior (profile {profile}): passed")
-        except SmokeFailure as e:
-            log(f"probe 17a trained prior (profile {profile}): failed: {e}")
-        torch.cuda.empty_cache()
 
     vq = init_model(get_network(V2_SIZE, 3, V2_WIDTH), seed=0,
                     device=dev).eval()
@@ -3802,13 +4178,93 @@ def run_probes(torch, fa, dev) -> None:
     cudnn.deterministic = saved
 
 
+def probe_timings(torch, dev) -> dict:
+    """The port's stage-1 step and cached samplers, timed on the card with
+    this script's configurations and random weights from fixed seeds (for
+    an A/B, run ``--probe`` of two checkouts in one call, in turns, the
+    other one's package through ``--root``):
+
+      * ``stage1_step_ms``: phase 3's full-width ``vq_vae`` sum step (32
+        px, batch 256; median of 20 after 3);
+      * ``snail_int8_s`` / ``snail_f32_s``: ``sample_fast_snail`` on phase
+        9's default PixelSNAIL, batch 16, int8 KV cache at 64x64 and
+        float32 at 32x32;
+      * ``wavefront_b16_s`` / ``wavefront_b128_s``: ``sample_wavefront``
+        on phase 14's HierarchicalPixelCNN bottom prior at 64x64,
+        conditioned, batch 16 and 128; ``raster_top_s``: ``sample_fast``
+        on its top prior at 32x32, batch 16.
+
+    Each sampler run is timed once after a warm-up run of a 4x4 grid, with
+    a card synchronisation at each end."""
+    from types import SimpleNamespace
+
+    import movae_tpu_torch
+    from movae_tpu_torch.models import pixelcnn as pc
+    from movae_tpu_torch.train.prior import build_prior
+
+    out = {"package": os.path.dirname(os.path.abspath(
+        movae_tpu_torch.__file__))}
+    res, _ = train_mode(torch, "sum", dev, STAGE1)
+    out["stage1_step_ms"] = res["median_step_ms"]
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    b = SAMPLE_BATCH
+    snail = build_prior(SimpleNamespace(**PRIOR_ARGS), SLICE_K, False,
+                        SLICE_D)
+    snail.reset_parameters(torch.Generator().manual_seed(0))
+    snail = snail.to(dev).eval()
+    gen = torch.Generator(device=dev)
+    for key, dtype, grid in (("snail_int8_s", torch.int8, 64),
+                             ("snail_f32_s", torch.float32, 32)):
+        pc.sample_fast_snail(snail, gen.manual_seed(1), b, 4, 4,
+                             cache_dtype=dtype)
+        out[key] = timed(lambda: pc.sample_fast_snail(
+            snail, gen.manual_seed(1), b, grid, grid, cache_dtype=dtype))
+    del snail
+    hp = build_prior(SimpleNamespace(**HPRIOR_ARGS), SLICE_K, True, SLICE_D)
+    hp.reset_parameters(torch.Generator().manual_seed(0))
+    hp = hp.to(dev).eval()
+    for bb in (b, S3_BATCH):
+        zt = torch.randint(0, SLICE_K, (bb, 32, 32), device=dev,
+                           generator=gen.manual_seed(2))
+        with torch.no_grad():
+            cond = hp.condition_from_top(zt)
+        pc.sample_wavefront(hp.prior_bottom, gen.manual_seed(3), bb, 4, 4,
+                            condition=cond[:, :4, :4])
+        out[f"wavefront_b{bb}_s"] = timed(lambda: pc.sample_wavefront(
+            hp.prior_bottom, gen.manual_seed(3), bb, 64, 64,
+            condition=cond))
+    pc.sample_fast(hp.prior_top, gen.manual_seed(4), b, 4, 4)
+    out["raster_top_s"] = timed(lambda: pc.sample_fast(
+        hp.prior_top, gen.manual_seed(4), b, 32, 32))
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--profile", action="store_true",
                    help="also print a torch.profiler breakdown per mode")
-    p.add_argument("--probe", action="store_true",
-                   help="only the probes behind PERF.md's open questions "
-                   "(run_probes); not a smoke run")
+    p.add_argument("--probe", nargs="*", default=None,
+                   choices=PROBES, metavar="NAME",
+                   help="only the probes behind PERF.md's findings, each "
+                   f"of {', '.join(PROBES)} named (all when none is): "
+                   "probe_dkv, probe_cudnn, probe_timings; not a smoke "
+                   "run")
+    p.add_argument("--parent", default=None, metavar="DIR",
+                   help="--probe: another checkout's root, whose "
+                   "flash_attention.cu trains probe_dkv's priors and is "
+                   "held beside this build on them")
+    p.add_argument("--root", default=None, metavar="DIR",
+                   help="import movae_tpu_torch from DIR (another "
+                   "checkout, for an A/B of --probe's timings) instead of "
+                   "from beside this script")
     args = p.parse_args()
 
     import torch
@@ -3817,7 +4273,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.root) if args.root
+                    else os.path.dirname(os.path.abspath(__file__)))
     try:
         from movae_tpu_torch.device import resolve_device
         from movae_tpu_torch.kernels import (LAUNCH_COUNTS, build,
@@ -3851,11 +4308,21 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
 
-    if args.probe:
+    if args.probe is not None:
         build.build(list(build.TARGETS))
-        run_probes(torch, fa, dev)
+        probes = args.probe or PROBES
+        try:
+            if "dkv" in probes:
+                probe_dkv(torch, fa, dev, args.parent)
+            if "cudnn" in probes:
+                probe_cudnn(torch, dev)
+            if "timings" in probes:
+                log(f"probe timings ({smi[0] if smi else name}): "
+                    + json.dumps(probe_timings(torch, dev)))
+        except SmokeFailure as e:
+            print(f"chip_smoke: probe FAILED: {e}", file=sys.stderr)
+            return 1
         return 0
-
     start = time.perf_counter()
     cli_tmp = None
     try:
@@ -3997,11 +4464,18 @@ def main() -> int:
 
         # this slice's path: the standalone prior CLIs on phase 15's run
         # trees, benchmark_workers and the sphere encoders
-        standalone = phase_standalone(torch, dev, cli["roots"],
-                                      args.profile, smi[0] if smi else name)
+        standalone, live = phase_standalone(
+            torch, dev, cli["roots"], args.profile, smi[0] if smi else name)
         row["launches"] += standalone["nearest_code"]
         for r in flash_rows:
             r["launches"] += standalone[r["name"]]
+
+        # this slice's path: serving, phase 15's checkpoints exported and
+        # served over HTTP; the nearest-code launches the server makes
+        reset_launch_counts()
+        serve = phase_serving(torch, dev, cli["roots"], live,
+                              smi[0] if smi else name)
+        row["launches"] += serve["launches"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -19,7 +19,6 @@ does: the generation runs under cuDNN's deterministic algorithms
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 from types import SimpleNamespace
 from typing import Optional, Sequence
@@ -27,7 +26,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from movae_tpu_torch.device import DeviceLike, resolve_device
+from movae_tpu_torch.device import (DeviceLike, deterministic_cudnn,
+                                    resolve_device)
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.figures import (_png_bytes, _to_display,
                                            save_sample_grid)
@@ -57,23 +57,6 @@ def load_models(model_path: str, prior_path: str, dataset=None,
     prior = {"model": prior_model.to(dev), "params": state,
              "hierarchical": hierarchical, "args": merged}
     return model, vq_args, prior
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms, no autotuning; the flags restored
-    after. The hierarchical prior's top-to-bottom upsampling and the
-    VQ-VAE-2 decoder are transposed convolutions, which cuDNN may otherwise
-    run with an algorithm that sums in no fixed order (on an H100, two
-    calls on one input part by ~3e-8): enough to flip a Gumbel-max near a
-    tie, so that a seed would not repeat its images."""
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,9 +10,13 @@ inputs by CUDA-graph replay, the builds in turns (A B B A per round), beside
 autograd calls (the yardstick; the port never calls either). Every build's
 outputs are checked against this checkout's first: the same function, so
 within a few bf16 roundings. Also samples the SM clock and power draw while
-each of this checkout's kernels replays back to back. Prints the bf16
-kernels' ptxas reports, then one JSON line with the card's name and power
-limit. Needs a CUDA card; nothing here runs at import.
+each of this checkout's kernels replays back to back. ``--gate B H L D``
+also holds each build's dk and dv against float64 on random inputs and on
+``sink_inputs`` (long runs of same-signed products a key), beside the
+IEEE-summed plain version, and each against the plain version summed on
+the tensor cores (:func:`dkv_gate`). Prints the bf16 kernels' ptxas
+reports, then one JSON line with the card's name and power limit. Needs a
+CUDA card; nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -173,7 +177,7 @@ def launchers(lib: ctypes.CDLL, q, k, v, do, scale: float) -> Dict:
     dqk()
     torch.cuda.synchronize()
     return {"fns": dict(zip(KERNELS, (fwd, dkv, dqk))),
-            "out": {"o": o, "dq": dq, "dk": dk, "dv": dv}}
+            "out": {"o": o, "dq": dq, "dk": dk, "dv": dv}, "lse2": lse2}
 
 
 def sdpa_ms(q, k, v, do, scale: float, reps: int):
@@ -194,6 +198,84 @@ def sdpa_ms(q, k, v, do, scale: float, reps: int):
     return fwd, bwd
 
 
+def sink_inputs(shape, gen: torch.Generator, alpha: float = 2.0,
+                sinks: int = 64):
+    """bf16 (q, k, v, do) on which each key's dk and dv sum long runs of
+    same-signed products: every query attends about equally to the first
+    ``sinks`` keys (their k lie along q's all-positive direction, scaled by
+    ``alpha``; the other keys' logits are near 0), q is positive with
+    magnitudes spread over several octaves, and do points about one way,
+    so that a sink key's ds keeps its sign down all L queries. A sum that
+    drifts one way at each add (the tensor core's own accumulator, chained
+    over the queries) shows as a scale bias of dk and dv from float64."""
+    dev = gen.device
+    d = shape[-1]
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    q = randn(*shape).exp()
+    k = randn(*shape) * 0.05
+    k[..., :sinks, :] = alpha * d ** -0.5 + 0.1 * randn(sinks, d)
+    do = randn(d) + 0.05 * randn(*shape)
+    return tuple(t.to(torch.bfloat16) for t in (q, k, randn(*shape), do))
+
+
+def scale_rms(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
+    """The best-fit scale's distance from 1, sum((got - want) want) /
+    sum(want^2), and the rms of got - want over want's, both in bf16
+    roundings (u = 2^-8), as chip_smoke.py's 17a gate reads them."""
+    got, want = got.double(), want.double()
+    diff = got - want
+    u = 2.0 ** -8
+    return {"scale": float((diff * want).sum() / want.square().sum()) / u,
+            "rms": float(diff.square().mean().sqrt()
+                         / want.square().mean().sqrt()) / u}
+
+
+def float64_grads(q, k, v, do, scale: float):
+    """dk and dv of the dense causal attention in float64 from the bf16
+    inputs, two batch rows at a time."""
+    parts = []
+    for i in range(0, q.shape[0], 2):
+        leaves = [t[i:i + 2].double().requires_grad_() for t in (q, k, v)]
+        out = fa.dense_causal_attention(*leaves, scale)
+        parts.append(torch.autograd.grad(out, leaves[1:],
+                                         do[i:i + 2].double()))
+        del leaves, out
+        torch.cuda.empty_cache()
+    return {"dk": torch.cat([p[0] for p in parts]),
+            "dv": torch.cat([p[1] for p in parts])}
+
+
+def dkv_gate(libs: Dict[str, ctypes.CDLL], q, k, v, do) -> Dict:
+    """Each build's dk and dv (from its own forward) against float64, beside
+    the plain version's summed in IEEE float32 end to end (17a's float64
+    half), and each build's largest difference from the plain version fed
+    that build's o and lse2 with its products summed on the tensor cores
+    (as the kernels sum them)."""
+    scale = q.shape[-1] ** -0.5
+    f64 = float64_grads(q, k, v, do, scale)
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    _, dk_p, dv_p = fa.plain_bwd_bf16(q, k, v, o_p, lse2_p, do, scale)
+    out = {"plain_ieee": {"dk": scale_rms(dk_p, f64["dk"]),
+                          "dv": scale_rms(dv_p, f64["dv"])}}
+    del o_p, lse2_p, dk_p, dv_p
+    for name, lib in libs.items():
+        run = launchers(lib, q, k, v, do, scale)
+        got = run["out"]
+        res = {key: scale_rms(got[key], f64[key]) for key in ("dk", "dv")}
+        _, dk_t, dv_t = fa.plain_bwd_bf16(q, k, v, got["o"], run["lse2"], do,
+                                          scale, tensor_cores=True)
+        res["max_abs_diff_tc"] = {
+            "dk": float((got["dk"].float() - dk_t.float()).abs().max()),
+            "dv": float((got["dv"].float() - dv_t.float()).abs().max())}
+        out[name] = res
+        del run, got, dk_t, dv_t
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--lib", action="append", default=[],
@@ -202,6 +284,13 @@ def main() -> int:
                    metavar=("B", "H", "L", "D"))
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--gate", type=int, nargs=4, default=None,
+                   metavar=("B", "H", "L", "D"),
+                   help="also hold each build's dk and dv against float64 "
+                   "on random and on sink_inputs of this shape (D as "
+                   "--shape's)")
+    p.add_argument("--alpha", type=float, nargs="+", default=[2.0],
+                   help="sink_inputs' alpha, one gate case each")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: no CUDA device")
@@ -230,6 +319,18 @@ def main() -> int:
     sdpa = [sdpa_ms(q, k, v, do, scale, args.reps) for _ in range(2)]
     clocks = {kern: clocks_during(runs["this"]["fns"][kern], args.reps)
               for kern in KERNELS}
+    gate = {}
+    if args.gate:
+        gshape = tuple(args.gate)
+        cases = {"random": tuple(
+            torch.randn(gshape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(4))}
+        for alpha in args.alpha:
+            cases[f"sinks_alpha{alpha:g}"] = sink_inputs(gshape, gen, alpha)
+        gate = {"shape": gshape}
+        for case, inputs in cases.items():
+            gate[case] = dkv_gate(libs, *inputs)
+            print(json.dumps({"gate": case, **gate[case]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -241,7 +342,7 @@ def main() -> int:
         "us": times, "max_abs_diff_from_this": diff,
         "sdpa_fwd_us": [f * 1e3 for f, _ in sdpa],
         "sdpa_bwd_us": [b * 1e3 for _, b in sdpa],
-        "this_clocks_under_load": clocks}))
+        "this_clocks_under_load": clocks, "dkv_gate": gate}))
     return 0
 
 

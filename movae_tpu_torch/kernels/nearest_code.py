@@ -5,6 +5,8 @@ index of the codebook row (K, D) minimising ``||e_k||^2 - 2 z.e_k`` (the
 per-row constant ``||z||^2`` is dropped), the lowest index winning ties —
 the function of ``movae_tpu/ops/vq.py:_inds_kernel``. A CPU tensor takes the
 plain PyTorch version; a CUDA tensor launches ``nearest_code.cu`` or raises.
+Both are registered as the operator ``movae::nearest_code``
+(:func:`nearest_code_op`), so that an exported graph can hold the kernel.
 """
 
 from __future__ import annotations
@@ -75,11 +77,31 @@ def nearest_code_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """(N, D) latents + (K, D) codebook -> (N,) int32 nearest-code indices.
-
-    CPU tensors take :func:`nearest_code_plain`; CUDA tensors launch the
-    kernel, which raises on anything it does not take (no fallback)."""
-    if z.device.type == "cpu" and codebook.device.type == "cpu":
-        return nearest_code_plain(z, codebook)
+@torch.library.custom_op("movae::nearest_code", mutates_args=(),
+                         device_types="cuda")
+def nearest_code_op(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """``movae::nearest_code``: the kernel on CUDA tensors
+    (:func:`nearest_code_cuda`), the plain version on CPU tensors. As an
+    operator, a graph that ``torch.export`` captures holds it by name, and
+    the exported program launches the kernel on the card."""
     return nearest_code_cuda(z, codebook)
+
+
+@nearest_code_op.register_kernel("cpu")
+def _nearest_code_cpu(z: torch.Tensor, codebook: torch.Tensor
+                      ) -> torch.Tensor:
+    return nearest_code_plain(z, codebook)
+
+
+@nearest_code_op.register_fake
+def _nearest_code_fake(z: torch.Tensor, codebook: torch.Tensor
+                       ) -> torch.Tensor:
+    return z.new_empty((z.shape[0],), dtype=torch.int32)
+
+
+def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, D) latents + (K, D) codebook -> (N,) int32 nearest-code indices,
+    through ``movae::nearest_code``: CPU tensors take
+    :func:`nearest_code_plain`; CUDA tensors launch the kernel, which
+    raises on anything it does not take (no fallback)."""
+    return nearest_code_op(z, codebook)

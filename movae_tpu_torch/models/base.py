@@ -22,8 +22,9 @@ the JAX package (not ``nn.Module.train()``), and randomness comes from an
 explicit ``torch.Generator``. ``restart_rows`` maps an EMA codebook's module
 name to the (K,) latent rows its dead-code restart reads, in place of a draw
 from ``generator`` (so a test can give both frameworks the same rows);
-``noise`` does the same for the VAE family's N(0, I) draws, by name
-(``eps``, ``z_prior``: ``models/vae.py:draw_normal``).
+``noise`` does the same for every other draw, by name (the VAE family's
+``eps``, ``z_prior``; ``sample``'s ``z`` or uniform ``codes``: :func:`draw`).
+A :class:`DrawLog` passed as ``noise`` records the draws a call makes.
 """
 
 from __future__ import annotations
@@ -112,6 +113,48 @@ def resolve_activation(name: Optional[str]) -> Callable[[Tensor], Tensor]:
     raise ValueError(f"recons_activation {name} not supported")
 
 
+_DRAW_DTYPES = {"randn": torch.float32, "rand": torch.float32,
+                "randint": torch.int64}
+
+
+class DrawLog(dict):
+    """A ``noise`` mapping that records the draws asked of it: a draw site
+    (:func:`draw`) whose name it does not hold draws from ``generator``
+    and appends ``{"name", "op", "shape", "high"}`` to ``log``, in call
+    order (how serving learns the draws a function makes, which become
+    inputs of its exported program)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.generator = generator
+        self.log: list = []
+
+
+def draw(name: str, op: str, shape: Sequence[int],
+         generator: Optional[torch.Generator], noise: Noise,
+         device: torch.device, high: Optional[int] = None) -> Tensor:
+    """``noise[name]`` when given (float32 for ``randn`` / ``rand``, int64
+    for ``randint``), else one ``torch.<op>`` draw of ``shape`` from
+    ``generator``: ``randn`` N(0, I), ``rand`` U[0, 1), ``randint``
+    integers in [0, ``high``)."""
+    shape = tuple(shape)
+    if noise is not None and name in noise:
+        value = torch.as_tensor(noise[name], dtype=_DRAW_DTYPES[op],
+                                device=device)
+        if tuple(value.shape) != shape:
+            raise ValueError(f"noise[{name!r}] must be {shape}, got "
+                             f"{tuple(value.shape)}")
+        return value
+    if isinstance(noise, DrawLog):
+        noise.log.append({"name": name, "op": op,
+                          "shape": [int(d) for d in shape], "high": high})
+        generator = noise.generator
+    if op == "randint":
+        return torch.randint(0, high, shape, generator=generator,
+                             device=device)
+    return getattr(torch, op)(shape, generator=generator, device=device)
+
+
 class MOVAEModel(nn.Module):
     """Abstract base (see module docstring for the contract)."""
 
@@ -175,7 +218,8 @@ class MOVAEModel(nn.Module):
                           restart_rows=restart_rows, noise=noise))
 
     def sample(self, num_samples: int,
-               generator: Optional[torch.Generator] = None) -> Tensor:
+               generator: Optional[torch.Generator] = None,
+               noise: Noise = None) -> Tensor:
         raise NotImplementedError
 
     # --- state updated in-step without gradients (flax ``batch_stats``) -----

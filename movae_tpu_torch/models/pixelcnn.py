@@ -42,6 +42,7 @@ from torch import nn
 from movae_tpu_torch.ops.attention import (DENSE_ATTENTION_MAX_L,
                                            causal_attention,
                                            dense_causal_attention)
+from movae_tpu_torch.device import replay_steps
 from movae_tpu_torch.models.base import compute_region, resolve_compute_dtype
 from movae_tpu_torch.ops.vq import gather_rows
 
@@ -580,159 +581,140 @@ def _w1x1(conv: nn.Conv2d) -> Tensor:
     return conv.weight[:, :, 0, 0].T
 
 
-class _CachedGatedRes:
-    """One ``GatedResBlock`` at one pixel: conv1 into a padded cache of its
-    output plane, the masked k3 conv over the cached 3x3 neighbourhood, and
-    the gate and feature 1x1 convs fused into one product (each output
+class _GatedStep(nn.Module):
+    """One ``GatedResBlock`` at a front's cells over a padded NHWC cache of
+    its conv1 output plane: conv1 is written at the cells' cache positions,
+    then each cell reads its 3x3 neighbourhood for the masked k3 conv; the
+    gate and feature 1x1 convs are fused into one product (each output
     column keeps its own reduction, so the fusion changes no number)."""
 
-    def __init__(self, blk: GatedResBlock, batch_size: int, height: int,
-                 width: int):
-        self.w1, self.b1 = _w1x1(blk.conv1), blk.conv1.bias
-        self.w2, self.b2 = _flat_masked(blk.conv2), blk.conv2.bias
-        self.wgf = torch.cat([_w1x1(blk.conv_gate), _w1x1(blk.conv_feature)],
-                             dim=1)
-        self.bgf = torch.cat([blk.conv_gate.bias, blk.conv_feature.bias])
+    def __init__(self, blk: GatedResBlock):
+        super().__init__()
+        self.register_buffer("w1", _w1x1(blk.conv1).contiguous())
+        self.register_buffer("b1", blk.conv1.bias.detach())
+        self.register_buffer("w2", _flat_masked(blk.conv2).contiguous())
+        self.register_buffer("b2", blk.conv2.bias.detach())
+        self.register_buffer("wgf", torch.cat(
+            [_w1x1(blk.conv_gate), _w1x1(blk.conv_feature)], dim=1))
+        self.register_buffer("bgf", torch.cat(
+            [blk.conv_gate.bias, blk.conv_feature.bias]).detach())
         self.hc = blk.conv_gate.out_channels
-        self.cache = self.w1.new_zeros((batch_size, height + 2, width + 2,
-                                        self.w1.shape[1]))
 
-    def __call__(self, x: Tensor, i: int, j: int) -> Tensor:
-        b = x.shape[0]
-        self.cache[:, i + 1, j + 1] = F.relu(torch.addmm(self.b1, x, self.w1))
-        nb = self.cache[:, i:i + 3, j:j + 3].reshape(b, -1)
-        return self._gate(x, nb)
+    def cache_shape(self, batch_size: int, height: int, width: int):
+        return (batch_size, height + 2, width + 2, self.w1.shape[1])
 
-    def _gate(self, x: Tensor, nb: Tensor) -> Tensor:
+    def forward(self, cache: Tensor, x: Tensor, c1_at: Tensor,
+                c1_win: Tensor) -> Tensor:
+        """x (B * C, hc), rows batch-major, for the C cells of ``c1_at``;
+        ``c1_win`` (C, 9) their 3x3 windows in the flattened cache."""
+        b, c = cache.shape[0], c1_at.shape[0]
+        flat = cache.view(b, -1, cache.shape[-1])
+        flat.index_copy_(1, c1_at, F.relu(torch.addmm(
+            self.b1, x, self.w1)).view(b, c, -1))
+        nb = flat.index_select(1, c1_win.reshape(-1)).view(b * c, -1)
         c2 = F.relu(torch.addmm(self.b2, nb, self.w2))
         gf = torch.addmm(self.bgf, c2, self.wgf)
         return x + torch.sigmoid(gf[:, :self.hc]) * torch.tanh(gf[:, self.hc:])
 
-    def front(self, x: Tensor, front: "_Front") -> Tensor:
-        """The block at one front's C cells: x (B * C, hc), rows batch-major.
-        conv1's outputs are written at the cells' cache positions first, then
-        each cell reads its 3x3 neighbourhood (the same reduction as
-        ``__call__``)."""
-        b, c = self.cache.shape[0], front.c1_at.numel()
-        flat = self.cache.view(b, -1, self.cache.shape[-1])
-        flat.index_copy_(1, front.c1_at, F.relu(torch.addmm(
-            self.b1, x, self.w1)).view(b, c, -1))
-        nb = flat.index_select(1, front.c1_win).view(b * c, -1)
-        return self._gate(x, nb)
+
+class _AttentionStep(nn.Module):
+    """One ``CausalAttention`` at one pixel with a key/value cache: the
+    pixel's (k, v) rows are written at its raster position t and its query
+    attends over the whole cache with the keys past t masked out, so that
+    every step has the same shapes (a step is captured once and replayed:
+    ``device.py:replay_steps``), as the JAX package's static-shape
+    ``SNAIL_KV_SEGMENTS`` prefixes are masked. A ``cache_dtype`` of the
+    model's own dtype (float32, or float64 for a reference) keeps the rows
+    exact; bfloat16 rounds them (and the query and probabilities) to
+    bfloat16; int8 stores each row as int8 with a per-(batch, head) max-abs
+    scale, which factors out of both products (logit_j = (q . k8_j) s^k_j,
+    out = sum_j (p_j s^v_j) v8_j), the query and the scaled probabilities
+    rounded to bfloat16. The products run in the model's dtype on the exact
+    upcast values, so they accumulate in float32 as the JAX package's
+    ``preferred_element_type`` does."""
+
+    def __init__(self, att: CausalAttention, cache_dtype: torch.dtype):
+        super().__init__()
+        self.nh, self.hd = att.num_heads, att.head_dim
+        self.register_buffer("wqkv", torch.cat(
+            [_w1x1(att.q_proj), _w1x1(att.k_proj), _w1x1(att.v_proj)],
+            dim=1))
+        self.register_buffer("bqkv", torch.cat(
+            [att.q_proj.bias, att.k_proj.bias, att.v_proj.bias]).detach())
+        self.register_buffer("wo", _w1x1(att.out_proj).contiguous())
+        self.register_buffer("bo", att.out_proj.bias.detach())
+        self.scale = 1.0 / math.sqrt(self.hd)
+        self.dtype = cache_dtype
+        self.int8 = cache_dtype == torch.int8
+        self.lossy = cache_dtype in (torch.bfloat16, torch.int8)
+        self.num_caches = 4 if self.int8 else 2
+
+    def cache_specs(self, batch_size: int, length: int) -> list:
+        """(shape, dtype) of k, v (and their int8 scales)."""
+        shape = (batch_size, self.nh, length, self.hd)
+        specs = [(shape, self.dtype), (shape, self.dtype)]
+        if self.int8:
+            specs += [(shape[:3], self.wqkv.dtype)] * 2
+        return specs
+
+    def _lossy(self, x: Tensor) -> Tensor:
+        """What the products see of an operand: itself, or its bfloat16
+        rounding for the bfloat16 and int8 caches."""
+        return x.to(torch.bfloat16).to(x.dtype) if self.lossy else x
+
+    def _store(self, cache: Tensor, scales: Optional[Tensor], row: Tensor,
+               t: Tensor) -> None:
+        if self.int8:
+            s = row.abs().amax(-1).clamp_min(1e-8) / 127.0
+            scales.index_copy_(2, t, s[..., None])
+            row = torch.clamp(torch.round(row / s[..., None]), -127, 127)
+        cache.index_copy_(2, t, row.to(self.dtype)[:, :, None])
+
+    def forward(self, x: Tensor, caches, t: Tensor) -> Tensor:
+        """``x`` (B, C) at the pixel of raster position ``t`` (1,)."""
+        b = x.shape[0]
+        kc, vc = caches[0], caches[1]
+        ks, vs = (caches[2], caches[3]) if self.int8 else (None, None)
+        qkv = torch.addmm(self.bqkv, x, self.wqkv).reshape(b, 3, self.nh,
+                                                           self.hd)
+        self._store(kc, ks, qkv[:, 1], t)
+        self._store(vc, vs, qkv[:, 2], t)
+        q = self._lossy(qkv[:, 0])
+        logits = torch.einsum("bnd,bnld->bnl", q, kc.to(q.dtype)) * self.scale
+        if self.int8:
+            logits = logits * ks
+        later = torch.arange(kc.shape[2], device=t.device) > t
+        probs = torch.softmax(logits.masked_fill(later, float("-inf")),
+                              dim=-1)
+        if self.int8:
+            probs = probs * vs
+        out = torch.einsum("bnl,bnld->bnd", self._lossy(probs),
+                           vc.to(probs.dtype))
+        # dim-major flatten (channel d * heads + head), as CausalAttention
+        return torch.addmm(self.bo, out.transpose(1, 2).reshape(b, -1),
+                           self.wo)
 
 
-class _CachedInput:
-    """The mask-A input conv at one pixel over a padded NHWC cache of its
-    input plane: code embeddings are written as they are drawn; ``fixed``
-    channels (coordinates, condition) are written up front."""
-
-    def __init__(self, model: _Prior, fixed: Optional[Tensor],
-                 batch_size: int, height: int, width: int):
-        k = model.conv_in.kernel_size[0]
-        self.k, self.pad, self.e = k, k // 2, model.embedding_dim
-        self.table = model.embedding.weight
-        self.w, self.b = _flat_masked(model.conv_in), model.conv_in.bias
-        cin = model.conv_in.in_channels
-        self.cache = self.w.new_zeros(
-            (batch_size, height + 2 * self.pad, width + 2 * self.pad, cin))
-        if fixed is not None:
-            p = self.pad
-            self.cache[:, p:p + height, p:p + width, self.e:] = fixed
-
-    def __call__(self, i: int, j: int) -> Tensor:
-        nb = self.cache[:, i:i + self.k, j:j + self.k]
-        return torch.addmm(self.b, nb.reshape(nb.shape[0], -1), self.w)
-
-    def write(self, code: Tensor, i: int, j: int) -> None:
-        self.cache[:, i + self.pad, j + self.pad, :self.e] = self.table[code]
-
-    def _flat(self) -> Tensor:
-        return self.cache.view(self.cache.shape[0], -1, self.cache.shape[-1])
-
-    def front(self, front: "_Front") -> Tensor:
-        """The input conv at one front's C cells -> (B * C, hc)."""
-        b = self.cache.shape[0]
-        nb = self._flat().index_select(1, front.in_win)
-        return torch.addmm(self.b, nb.view(b * front.in_at.numel(), -1),
-                           self.w)
-
-    def write_front(self, code: Tensor, front: "_Front") -> None:
-        """Write the embeddings of one front's codes (B, C)."""
-        self._flat()[:, front.in_at, :self.e] = self.table[code]
+# a sampler step's index columns, in the order the step takes them: the
+# cells' raster positions, their positions in the padded input cache and
+# conv1 caches, and their k x k and 3 x 3 windows there
+FRONT_COLUMNS = ("t", "in_at", "in_win", "c1_at", "c1_win")
 
 
-def _fixed_channels(model: _Prior, batch_size: int, height: int, width: int,
-                    condition: Optional[Tensor]) -> Optional[Tensor]:
-    """NHWC planes that follow the code embedding in conv_in's input:
-    PixelSNAIL's coordinates, then the condition."""
-    w = model.conv_in.weight
-    planes = []
-    if isinstance(model, PixelSNAIL):
-        pos = torch.from_numpy(_pos_encoding(height, width)).to(w)
-        planes.append(pos.expand(batch_size, -1, -1, -1))
-    if condition is not None:
-        planes.append(condition.to(w))
-    return torch.cat(planes, dim=-1) if planes else None
-
-
-def _head(model: _Prior, h: Tensor, temperature: float) -> Tensor:
-    """The 1x1 output head at one pixel: (B, hc) -> (B, K) logits / T."""
-    head = model.conv_out
-    h = F.relu(torch.addmm(head[1].bias, F.relu(h), _w1x1(head[1])))
-    return torch.addmm(head[3].bias, h, _w1x1(head[3])) / temperature
-
-
-@torch.no_grad()
-def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
-                batch_size: int, height: int, width: int,
-                condition: Optional[Tensor] = None, temperature: float = 1.0,
-                gumbel: Optional[Tensor] = None) -> Tensor:
-    """Cached raster sampler for PixelCNN: at each pixel every layer
-    computes one output vector from its cached k x k neighbourhood instead
-    of a full-plane convolution. The caches are padded, so no bounds are
-    checked. Draws the codes of :func:`sample_naive` from the same noise."""
-    g = _noise(gumbel, generator, model, batch_size, height * width)
-    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
-                                              width, condition),
-                       batch_size, height, width)
-    layers = [_CachedGatedRes(blk, batch_size, height, width)
-              for blk in model.res_blocks]
-    samples = torch.zeros((batch_size, height, width), dtype=torch.int32,
-                          device=g.device)
-    for t in range(height * width):
-        i, j = divmod(t, width)
-        x = inp(i, j)
-        for layer in layers:
-            x = layer(x, i, j)
-        code = (_head(model, x, temperature) + g[t]).argmax(-1)
-        samples[:, i, j] = code.to(torch.int32)
-        inp.write(code, i, j)
-    return samples
-
-
-class _Front:
-    """One skew-diagonal front's cells as index tensors: their raster
-    positions ``t``, their positions in the padded input cache (``in_at``)
-    and conv1 caches (``c1_at``), and their k x k and 3 x 3 windows there
-    (``in_win``, ``c1_win``: C * k * k and C * 9 positions, cell by cell,
-    row by row)."""
-
-    def __init__(self, t, in_at, in_win, c1_at, c1_win):
-        self.t, self.in_at, self.in_win = t, in_at, in_win
-        self.c1_at, self.c1_win = c1_at, c1_win
-
-
-def _wavefronts(height: int, width: int, k: int, device) -> list:
-    """The fronts d = s * i + j, s = k // 2 + 1 (at least 2), in order:
-    every pixel that a pixel's masked convolutions see lies on an earlier
-    front (the mask-A input conv's last tap (i - 1, j + k // 2) on front
-    d - 1, the mask-B 3x3 taps on d - 1 and earlier), so a front's cells
-    are drawn in one step. All fronts' indices are built on the host and
-    copied to ``device`` once; each front holds views of them."""
+def front_table(height: int, width: int, k: int, raster: bool = False):
+    """The cells of every front, front by front, as int64 numpy columns
+    (:data:`FRONT_COLUMNS`; the windows (cells, k * k) and (cells, 9)), and
+    each front's [start, stop) rows, (S, 2). Wavefront (``raster`` False):
+    the fronts d = s * i + j, s = k // 2 + 1 (at least 2), in order: every
+    pixel that a pixel's masked convolutions see lies on an earlier front
+    (the mask-A input conv's last tap (i - 1, j + k // 2) on front d - 1,
+    the mask-B 3x3 taps on d - 1 and earlier), so a front's cells are drawn
+    in one step. Raster: one pixel a front, in raster order."""
     pad, s = k // 2, max(k // 2 + 1, 2)
     ii, jj = np.divmod(np.arange(height * width), width)
-    order = np.lexsort((ii, s * ii + jj))          # by front, then row
-    ii, jj = ii[order], jj[order]
+    key = ii * width + jj if raster else s * ii + jj
+    order = np.lexsort((ii, key))  # by front, then row
+    ii, jj, key = ii[order], jj[order], key[order]
     wp, w1 = width + 2 * pad, width + 2
     ak, a3 = np.arange(k), np.arange(3)
     in_win = ((ii[:, None, None] + ak[None, :, None]) * wp
@@ -740,45 +722,228 @@ def _wavefronts(height: int, width: int, k: int, device) -> list:
     c1_win = ((ii[:, None, None] + a3[None, :, None]) * w1
               + jj[:, None, None] + a3[None, None, :])
     cols = {"t": ii * width + jj, "in_at": (ii + pad) * wp + jj + pad,
-            "in_win": in_win.reshape(-1), "c1_at": (ii + 1) * w1 + jj + 1,
-            "c1_win": c1_win.reshape(-1)}
-    on_dev = {n: torch.from_numpy(v.astype(np.int64)).to(device)
-              for n, v in cols.items()}
-    ends = np.cumsum(np.bincount(s * ii + jj))
-    fronts, lo = [], 0
-    for hi in ends.tolist():
-        if hi == lo:  # no cell on this front (a grid narrower than s)
-            continue
-        fronts.append(_Front(
-            on_dev["t"][lo:hi], on_dev["in_at"][lo:hi],
-            on_dev["in_win"][lo * k * k:hi * k * k], on_dev["c1_at"][lo:hi],
-            on_dev["c1_win"][lo * 9:hi * 9]))
-        lo = hi
-    return fronts
+            "in_win": in_win.reshape(-1, k * k), "c1_at": (ii + 1) * w1 + jj + 1,
+            "c1_win": c1_win.reshape(-1, 9)}
+    ends = np.cumsum(np.bincount(key))
+    starts = np.concatenate([[0], ends[:-1]])
+    keep = ends > starts  # no cell on a front of a grid narrower than s
+    return ({n: v.astype(np.int64) for n, v in cols.items()},
+            np.stack([starts[keep], ends[keep]], axis=1).astype(np.int64))
+
+
+class SamplerStep(nn.Module):
+    """One step of the cached samplers as a function of tensors alone, so
+    that ``torch.export`` can hold it: ``forward(state, idx, gumbel)``
+    draws the codes of one front's C cells (B, C) and writes them into
+    ``state`` in place.
+
+    ``state`` (:meth:`state_specs`, zeros, then :meth:`init_state`): the
+    padded NHWC cache of the mask-A input conv's input plane (the code
+    embeddings as they are drawn; PixelSNAIL's coordinates and the
+    condition written up front), one padded cache of each gated block's
+    conv1 plane, PixelSNAIL's key/value caches, and the (B, H, W) int32
+    codes, last. ``idx``: the front's :data:`FRONT_COLUMNS`, slices of
+    :meth:`tables`. ``gumbel`` (L, B, K):
+    pixel t draws argmax(logits / T + gumbel[t]). Each layer computes its
+    output at the front's cells from its cached k x k or 3 x 3
+    neighbourhood, so every sampler here draws the codes of
+    :func:`sample_naive` from the same noise. PixelCNN runs raster fronts
+    (:func:`sample_fast`) or skew-diagonal ones (:func:`sample_wavefront`);
+    PixelSNAIL raster fronts only (a raster-earlier key can lie on a later
+    front), attending over its key/value caches in ``cache_dtype``."""
+
+    def __init__(self, model: "_Prior", batch_size: int, height: int,
+                 width: int, temperature: float = 1.0,
+                 cache_dtype: torch.dtype = torch.int8,
+                 raster: bool = True):
+        super().__init__()
+        self.snail = isinstance(model, PixelSNAIL)
+        self.batch_size, self.height, self.width = batch_size, height, width
+        self.temperature = temperature
+        self.raster = raster or self.snail
+        k = model.conv_in.kernel_size[0]
+        self.k, self.pad, self.e = k, k // 2, model.embedding_dim
+        self.cin = model.conv_in.in_channels
+        self.register_buffer("table", model.embedding.weight.detach())
+        self.register_buffer("w_in", _flat_masked(model.conv_in).contiguous())
+        self.register_buffer("b_in", model.conv_in.bias.detach())
+        head = model.conv_out
+        self.register_buffer("wh1", _w1x1(head[1]).contiguous())
+        self.register_buffer("bh1", head[1].bias.detach())
+        self.register_buffer("wh2", _w1x1(head[3]).contiguous())
+        self.register_buffer("bh2", head[3].bias.detach())
+        self.pos = None
+        if self.snail:
+            self.pos = torch.from_numpy(_pos_encoding(height, width))
+            self.blocks = nn.ModuleList(
+                nn.ModuleList([nn.ModuleList(_GatedStep(r)
+                                             for r in blk.res_blocks),
+                               _AttentionStep(blk.attention, cache_dtype),
+                               _OutConv(blk.out_conv)])
+                for blk in model.blocks)
+        else:
+            self.layers = nn.ModuleList(_GatedStep(r)
+                                        for r in model.res_blocks)
+
+    def _gated(self):
+        if self.snail:
+            return [r for res, _, _ in self.blocks for r in res]
+        return list(self.layers)
+
+    def state_specs(self) -> list:
+        """(shape, dtype) of each state tensor, in order."""
+        b, h, w = self.batch_size, self.height, self.width
+        dt = self.w_in.dtype
+        specs = [((b, h + 2 * self.pad, w + 2 * self.pad, self.cin), dt)]
+        if self.snail:
+            for res, att, _ in self.blocks:
+                specs += [(r.cache_shape(b, h, w), dt) for r in res]
+                specs += att.cache_specs(b, h * w)
+        else:
+            specs += [(r.cache_shape(b, h, w), dt) for r in self.layers]
+        return specs + [((b, h, w), torch.int32)]
+
+    def new_state(self, condition: Optional[Tensor] = None) -> list:
+        """Zeroed state on the model's device, initialised
+        (:meth:`init_state`)."""
+        dev = self.w_in.device
+        state = [torch.zeros(s, dtype=d, device=dev)
+                 for s, d in self.state_specs()]
+        self.init_state(state, condition)
+        return state
+
+    def init_state(self, state: list, condition: Optional[Tensor] = None
+                   ) -> None:
+        """Write the planes that follow the code embedding in conv_in's
+        input (PixelSNAIL's coordinates, then the NHWC ``condition``) into
+        the input cache."""
+        planes = []
+        if self.pos is not None:
+            planes.append(self.pos.to(self.w_in).expand(
+                self.batch_size, -1, -1, -1))
+        if condition is not None:
+            planes.append(condition.to(self.w_in))
+        if planes:
+            p, h, w = self.pad, self.height, self.width
+            state[0][:, p:p + h, p:p + w, self.e:] = torch.cat(planes, -1)
+
+    def tables(self):
+        """Each step's index tensors as slices of int64 columns: ``(cols,
+        bounds)``, ``bounds[name]`` (S, 2) the [start, stop) rows of
+        ``cols[name]`` at each step; the columns in the order ``idx`` takes
+        them."""
+        cols, fronts = front_table(self.height, self.width, self.k,
+                                   self.raster)
+        out = {n: torch.from_numpy(cols[n]) for n in FRONT_COLUMNS}
+        return out, {n: fronts for n in FRONT_COLUMNS}
+
+    def steps(self) -> list:
+        """Every step's ``idx``, slices of :meth:`tables` on the model's
+        device."""
+        cols, bounds = self.tables()
+        dev = self.w_in.device
+        cols = {n: c.to(dev) for n, c in cols.items()}
+        rows = {n: b.tolist() for n, b in bounds.items()}
+        return [[cols[n][rows[n][s][0]:rows[n][s][1]] for n in cols]
+                for s in range(len(rows["t"]))]
+
+    def logits(self, state: list, idx: list) -> Tensor:
+        """The front's logits over the temperature, (B, C, K)."""
+        t, in_at, in_win, c1_at, c1_win = idx
+        inp = state[0]
+        b, c = inp.shape[0], t.shape[0]
+        flat = inp.view(b, -1, inp.shape[-1])
+        nb = flat.index_select(1, in_win.reshape(-1)).view(b * c, -1)
+        x = torch.addmm(self.b_in, nb, self.w_in)
+        i = 1
+        if self.snail:
+            h = x
+            for res, att, out_conv in self.blocks:
+                x = h
+                for r in res:
+                    x = r(state[i], x, c1_at, c1_win)
+                    i += 1
+                na = att.num_caches
+                h = h + out_conv(torch.cat([x, att(x, state[i:i + na], t)],
+                                           dim=1)) + x
+                i += na
+        else:
+            for r in self.layers:
+                x = r(state[i], x, c1_at, c1_win)
+                i += 1
+            h = x
+        h = F.relu(torch.addmm(self.bh1, F.relu(h), self.wh1))
+        return (torch.addmm(self.bh2, h, self.wh2)
+                / self.temperature).view(b, c, -1)
+
+    def write(self, state: list, idx: list, code: Tensor) -> None:
+        """Write the front's codes (B, C) into the codes and the input
+        cache."""
+        t, in_at = idx[0], idx[1]
+        inp, samples = state[0], state[-1]
+        b = inp.shape[0]
+        samples.view(b, -1).index_copy_(1, t, code.to(torch.int32))
+        inp.view(b, -1, inp.shape[-1])[:, in_at, :self.e] = self.table[code]
+
+    def forward(self, state: list, idx: list, gumbel: Tensor) -> Tensor:
+        g = gumbel.index_select(0, idx[0]).transpose(0, 1)
+        code = (self.logits(state, idx) + g).argmax(-1)
+        self.write(state, idx, code)
+        return code
+
+
+class _OutConv(nn.Module):
+    """PixelSNAIL's 1x1 merge conv at a front's cells."""
+
+    def __init__(self, conv: nn.Conv2d):
+        super().__init__()
+        self.register_buffer("w", _w1x1(conv).contiguous())
+        self.register_buffer("b", conv.bias.detach())
+
+    def forward(self, x: Tensor) -> Tensor:
+        return torch.addmm(self.b, x, self.w)
+
+
+def run_sampler(step: SamplerStep, gumbel: Tensor,
+                condition: Optional[Tensor] = None) -> Tensor:
+    """The cached sampling loop: ``step`` over every front of its tables
+    from a fresh state (``device.py:replay_steps``: on the card, raster
+    steps replay one captured CUDA graph); returns the (B, H, W) int32
+    codes."""
+    state = step.new_state(condition)
+    replay_steps(step, state, step.steps(), gumbel)
+    return state[-1]
+
+
+@torch.no_grad()
+def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
+                batch_size: int, height: int, width: int,
+                condition: Optional[Tensor] = None, temperature: float = 1.0,
+                gumbel: Optional[Tensor] = None) -> Tensor:
+    """Cached raster sampler for PixelCNN (:class:`SamplerStep` over raster
+    fronts): at each pixel every layer computes one output vector from its
+    cached k x k neighbourhood instead of a full-plane convolution. The
+    caches are padded, so no bounds are checked. Draws the codes of
+    :func:`sample_naive` from the same noise."""
+    g = _noise(gumbel, generator, model, batch_size, height * width)
+    step = SamplerStep(model, batch_size, height, width, temperature,
+                       raster=True)
+    return run_sampler(step, g, condition)
 
 
 def _sample_fronts(model: PixelCNN, batch_size: int, height: int,
                    width: int, condition: Optional[Tensor],
                    temperature: float, draw) -> Tensor:
-    """The wavefront loop: ``draw(logits (B, C, K), t (C,)) -> codes (B,
-    C)`` picks each front's codes from its logits over the temperature."""
-    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
-                                              width, condition),
-                       batch_size, height, width)
-    layers = [_CachedGatedRes(blk, batch_size, height, width)
-              for blk in model.res_blocks]
-    samples = torch.zeros((batch_size, height * width), dtype=torch.int32,
-                          device=inp.w.device)
-    for front in _wavefronts(height, width, inp.k, inp.w.device):
-        x = inp.front(front)
-        for layer in layers:
-            x = layer.front(x, front)
-        logits = _head(model, x, temperature).view(batch_size,
-                                                   front.t.numel(), -1)
-        code = draw(logits, front.t)
-        samples.index_copy_(1, front.t, code.to(torch.int32))
-        inp.write_front(code, front)
-    return samples.view(batch_size, height, width)
+    """The wavefront loop with ``draw(logits (B, C, K), t (C,)) -> codes (B,
+    C)`` picking each front's codes from its logits over the temperature
+    (:meth:`SamplerStep.logits` and :meth:`SamplerStep.write`, the two
+    halves of the sampler's step)."""
+    step = SamplerStep(model, batch_size, height, width, temperature,
+                       raster=False)
+    state = step.new_state(condition)
+    for idx in step.steps():
+        step.write(state, idx, draw(step.logits(state, idx), idx[0]))
+    return state[-1]
 
 
 @torch.no_grad()
@@ -799,76 +964,9 @@ def sample_wavefront(model: PixelCNN, generator: Optional[torch.Generator],
     noise. Attention rules it out for PixelSNAIL: a raster-earlier key can
     lie on a later front."""
     g = _noise(gumbel, generator, model, batch_size, height * width)
-    return _sample_fronts(
-        model, batch_size, height, width, condition, temperature,
-        lambda logits, t: (logits + g.index_select(0, t).transpose(0, 1)
-                           ).argmax(-1))
-
-
-class _CachedAttention:
-    """One ``CausalAttention`` at one pixel with a key/value cache: the
-    pixel's (k, v) rows are appended and its query attends over the live
-    prefix 0..t. A ``cache_dtype`` of the model's own dtype (float32, or
-    float64 for a reference) keeps the rows exact; bfloat16 rounds them
-    (and the query and probabilities) to bfloat16; int8 stores each row as
-    int8 with a per-(batch, head) max-abs scale, which factors out of both
-    products (logit_j = (q . k8_j) s^k_j, out = sum_j (p_j s^v_j) v8_j),
-    the query and the scaled probabilities rounded to bfloat16. The
-    products run in the model's dtype on the exact upcast values, so they
-    accumulate in float32 as the JAX package's ``preferred_element_type``
-    does."""
-
-    def __init__(self, att: CausalAttention, batch_size: int, length: int,
-                 cache_dtype: torch.dtype):
-        self.nh, self.hd = att.num_heads, att.head_dim
-        self.wqkv = torch.cat([_w1x1(att.q_proj), _w1x1(att.k_proj),
-                               _w1x1(att.v_proj)], dim=1)
-        self.bqkv = torch.cat([att.q_proj.bias, att.k_proj.bias,
-                               att.v_proj.bias])
-        self.wo, self.bo = _w1x1(att.out_proj), att.out_proj.bias
-        self.scale = 1.0 / math.sqrt(self.hd)
-        self.dtype = cache_dtype
-        self.int8 = cache_dtype == torch.int8
-        self.lossy = cache_dtype in (torch.bfloat16, torch.int8)
-        shape = (batch_size, self.nh, length, self.hd)
-        self.k = self.wqkv.new_zeros(shape, dtype=cache_dtype)
-        self.v = self.wqkv.new_zeros(shape, dtype=cache_dtype)
-        if self.int8:
-            self.ks = self.wqkv.new_zeros(shape[:3])
-            self.vs = self.wqkv.new_zeros(shape[:3])
-
-    def _lossy(self, x: Tensor) -> Tensor:
-        """What the products see of an operand: itself, or its bfloat16
-        rounding for the bfloat16 and int8 caches."""
-        return x.to(torch.bfloat16).to(x.dtype) if self.lossy else x
-
-    def _store(self, cache: Tensor, scales: Optional[Tensor], row: Tensor,
-               t: int) -> None:
-        if self.int8:
-            s = row.abs().amax(-1).clamp_min(1e-8) / 127.0
-            scales[:, :, t] = s
-            row = torch.clamp(torch.round(row / s[..., None]), -127, 127)
-        cache[:, :, t] = row.to(self.dtype)
-
-    def __call__(self, x: Tensor, t: int) -> Tensor:
-        b = x.shape[0]
-        qkv = torch.addmm(self.bqkv, x, self.wqkv).reshape(b, 3, self.nh,
-                                                           self.hd)
-        self._store(self.k, self.ks if self.int8 else None, qkv[:, 1], t)
-        self._store(self.v, self.vs if self.int8 else None, qkv[:, 2], t)
-        q = self._lossy(qkv[:, 0])
-        keys = self.k[:, :, :t + 1].to(q.dtype)
-        logits = torch.einsum("bnd,bnld->bnl", q, keys) * self.scale
-        if self.int8:
-            logits = logits * self.ks[:, :, :t + 1]
-        probs = torch.softmax(logits, dim=-1)
-        if self.int8:
-            probs = probs * self.vs[:, :, :t + 1]
-        out = torch.einsum("bnl,bnld->bnd", self._lossy(probs),
-                           self.v[:, :, :t + 1].to(probs.dtype))
-        # dim-major flatten (channel d * heads + head), as CausalAttention
-        return torch.addmm(self.bo, out.transpose(1, 2).reshape(b, -1),
-                           self.wo)
+    step = SamplerStep(model, batch_size, height, width, temperature,
+                       raster=False)
+    return run_sampler(step, g, condition)
 
 
 @torch.no_grad()
@@ -880,12 +978,13 @@ def sample_fast_snail(model: PixelSNAIL, generator: Optional[torch.Generator],
                       forced: Optional[Tensor] = None,
                       return_logits: bool = False,
                       gumbel: Optional[Tensor] = None):
-    """Cached raster sampler for PixelSNAIL: :func:`sample_fast`'s
-    activation caches plus a key/value cache per attention block, so each
-    pixel's attention reads the live prefix 0..t once (the JAX package's
-    static-shape ``SNAIL_KV_SEGMENTS`` prefixes reduce to this in eager
-    PyTorch). ``cache_dtype`` (the model's dtype, bfloat16 or int8, see
-    ``_CachedAttention``): float32 draws the codes of :func:`sample_naive`.
+    """Cached raster sampler for PixelSNAIL (:class:`SamplerStep`):
+    :func:`sample_fast`'s activation caches plus a key/value cache per
+    attention block, each pixel's attention reading the whole cache with
+    the keys past it masked (as the JAX package masks its static-shape
+    ``SNAIL_KV_SEGMENTS`` prefixes). ``cache_dtype`` (the model's dtype,
+    bfloat16 or int8, see ``_AttentionStep``): float32 draws the codes of
+    :func:`sample_naive`.
 
     ``forced`` (B, H, W) teacher-forces the sequence: each pixel's code is
     read from it instead of drawn. ``return_logits`` also returns the
@@ -893,44 +992,31 @@ def sample_fast_snail(model: PixelSNAIL, generator: Optional[torch.Generator],
     dtype, as ``(samples, logits)``."""
     L = height * width
     dev = _device(model)
+    step = SamplerStep(model, batch_size, height, width, temperature,
+                       cache_dtype)
+    if forced is None and not return_logits:
+        return run_sampler(step, _noise(gumbel, generator, model, batch_size,
+                                        L), condition)
     if forced is not None:
         forced, g = torch.as_tensor(forced, device=dev).long(), None
     else:
         g = _noise(gumbel, generator, model, batch_size, L)
-    inp = _CachedInput(model, _fixed_channels(model, batch_size, height,
-                                              width, condition),
-                       batch_size, height, width)
-    blocks = [([_CachedGatedRes(r, batch_size, height, width)
-                for r in blk.res_blocks],
-               _CachedAttention(blk.attention, batch_size, L, cache_dtype),
-               _w1x1(blk.out_conv), blk.out_conv.bias)
-              for blk in model.blocks]
-    samples = torch.zeros((batch_size, height, width), dtype=torch.int32,
-                          device=dev)
-    logits_buf = (inp.w.new_zeros((batch_size, height, width,
-                                   model.num_embeddings))
+    state = step.new_state(condition)
+    logits_buf = (step.w_in.new_zeros((batch_size, L, model.num_embeddings))
                   if return_logits else None)
-    for t in range(L):
-        i, j = divmod(t, width)
-        h = inp(i, j)
-        for res, att, woc, boc in blocks:
-            x = h
-            for layer in res:
-                x = layer(x, i, j)
-            merged = torch.addmm(boc, torch.cat([x, att(x, t)], dim=1), woc)
-            h = h + merged + x
-        logits = _head(model, h, temperature)
+    for idx in step.steps():
+        logits = step.logits(state, idx)
         if return_logits:
-            logits_buf[:, i, j] = logits
+            logits_buf[:, idx[0]] = logits
         if forced is not None:
-            code = forced[:, i, j]
+            code = forced.view(batch_size, -1)[:, idx[0]]
         else:
-            code = (logits + g[t]).argmax(-1)
-        samples[:, i, j] = code.to(torch.int32)
-        inp.write(code, i, j)
+            code = (logits + g.index_select(0, idx[0]).transpose(0, 1)
+                    ).argmax(-1)
+        step.write(state, idx, code)
     if return_logits:
-        return samples, logits_buf
-    return samples
+        return state[-1], logits_buf.view(batch_size, height, width, -1)
+    return state[-1]
 
 
 def wavefront_steps(kernel_size: int, height: int, width: int) -> int:

@@ -38,7 +38,7 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, Noise, RestartRows,
-                                         compute_region)
+                                         compute_region, draw)
 from movae_tpu_torch.models.vae import VAE, Stats, _nchw, draw_normal
 
 Tensor = torch.Tensor
@@ -124,19 +124,19 @@ class SphereMixin:
         draws them."""
         angle = given_draw("angle_deg", (b, 1), noise, device)
         if angle is None:
-            angle = torch.rand((b, 1), generator=generator, device=device) \
-                * self.sigma_max_angle_deg
+            angle = draw("angle_u", "rand", (b, 1), generator, noise,
+                         device) * self.sigma_max_angle_deg
             lo, hi = self.sigma_mix_angle_min_deg, self.sigma_mix_angle_max_deg
             if (self.sigma_mix_prob > 0 and lo is not None and hi is not None
                     and hi > lo):
-                mask = torch.rand((b, 1), generator=generator,
-                                  device=device) < self.sigma_mix_prob
-                mix = lo + torch.rand((b, 1), generator=generator,
-                                      device=device) * (hi - lo)
+                mask = draw("mix_u", "rand", (b, 1), generator, noise,
+                            device) < self.sigma_mix_prob
+                mix = lo + draw("mix_angle_u", "rand", (b, 1), generator,
+                                noise, device) * (hi - lo)
                 angle = torch.where(mask, mix, angle)
         s = given_draw("s", (b, 1), noise, device)
         if s is None:
-            s = torch.rand((b, 1), generator=generator, device=device) * 0.5
+            s = draw("s_u", "rand", (b, 1), generator, noise, device) * 0.5
         return angle, s
 
     def forward(self, x: Tensor, train: bool = False,

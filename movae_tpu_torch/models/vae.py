@@ -37,7 +37,7 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
-                                         RestartRows, compute_region,
+                                         RestartRows, compute_region, draw,
                                          resolve_activation,
                                          resolve_compute_dtype)
 from movae_tpu_torch.models.vq_vae import (_TRUNC_STD_CORRECTION,
@@ -52,15 +52,8 @@ def draw_normal(name: str, shape: Sequence[int],
                 generator: Optional[torch.Generator], noise: Noise,
                 device: torch.device) -> Tensor:
     """A float32 N(0, I) draw of ``shape``: ``noise[name]`` when given, else
-    a draw from ``generator``."""
-    if noise is not None and name in noise:
-        value = torch.as_tensor(noise[name], dtype=torch.float32,
-                                device=device)
-        if tuple(value.shape) != tuple(shape):
-            raise ValueError(f"noise[{name!r}] must be {tuple(shape)}, got "
-                             f"{tuple(value.shape)}")
-        return value
-    return torch.randn(tuple(shape), generator=generator, device=device)
+    a draw from ``generator`` (:func:`models.base.draw`)."""
+    return draw(name, "randn", shape, generator, noise, device)
 
 
 class TorchBatchNorm(nn.Module):
@@ -351,8 +344,10 @@ class VAE(MOVAEModel):
 
     # --- generation ----------------------------------------------------------
     def sample(self, num_samples: int,
-               generator: Optional[torch.Generator] = None) -> Tensor:
-        """Decode N(0, I) latents in eval mode."""
-        z = draw_normal("z", (num_samples, self.latent_dim), generator, None,
+               generator: Optional[torch.Generator] = None,
+               noise: Noise = None) -> Tensor:
+        """Decode N(0, I) latents (``noise["z"]`` where given) in eval
+        mode."""
+        z = draw_normal("z", (num_samples, self.latent_dim), generator, noise,
                         self.decoder_input.weight.device)
         return self.decode(z, train=False)

@@ -28,7 +28,7 @@ from torch import nn
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
                                          Noise, RestartRows,
-                                         compute_region,
+                                         compute_region, draw,
                                          resolve_activation,
                                          resolve_compute_dtype)
 from movae_tpu_torch.ops import vq as vq_ops
@@ -311,11 +311,11 @@ class VQVAE(MOVAEModel):
         return self.decode(self.vq_layer.embed_code(code), train=False)
 
     def sample(self, num_samples: int,
-               generator: Optional[torch.Generator] = None) -> Tensor:
-        """Uniform-random codebook sampling (a trained prior samples
-        properly)."""
+               generator: Optional[torch.Generator] = None,
+               noise: Noise = None) -> Tensor:
+        """Uniform-random codebook sampling (``noise["codes"]`` where
+        given; a trained prior samples properly)."""
         s = self.latent_spatial_dim
-        code = torch.randint(0, self.num_embeddings, (num_samples, s, s),
-                             generator=generator,
-                             device=self.vq_layer().device)
+        code = draw("codes", "randint", (num_samples, s, s), generator, noise,
+                    self.vq_layer().device, high=self.num_embeddings)
         return self.decode_code(code)

@@ -33,7 +33,7 @@ from torch import nn
 
 from movae_tpu_torch import objectives as obj_lib
 from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
-                                         RestartRows, compute_region,
+                                         RestartRows, compute_region, draw,
                                          resolve_activation,
                                          resolve_compute_dtype)
 from movae_tpu_torch.models.vq_vae import Codebook, reset_conv_parameters
@@ -298,13 +298,16 @@ class VQVAE2(MOVAEModel):
                            self.quantize_b.embed_code(code_b))
 
     def sample(self, num_samples: int,
-               generator: Optional[torch.Generator] = None) -> Tensor:
-        """Uniform-random codes at both levels (a trained hierarchical prior
+               generator: Optional[torch.Generator] = None,
+               noise: Noise = None) -> Tensor:
+        """Uniform-random codes at both levels (``noise["codes_top"]`` and
+        ``noise["codes_bottom"]`` where given; a trained hierarchical prior
         samples properly)."""
         dev = self.quantize_t().device
         st, sb = self.latent_spatial_dim_top, self.latent_spatial_dim_bottom
-        ct = torch.randint(0, self.num_embeddings, (num_samples, st, st),
-                           generator=generator, device=dev)
-        cb = torch.randint(0, self.num_embeddings, (num_samples, sb, sb),
-                           generator=generator, device=dev)
+        k = self.num_embeddings
+        ct = draw("codes_top", "randint", (num_samples, st, st), generator,
+                  noise, dev, high=k)
+        cb = draw("codes_bottom", "randint", (num_samples, sb, sb), generator,
+                  noise, dev, high=k)
         return self.decode_code(ct, cb)

@@ -2,7 +2,8 @@
 
 The nearest-code indices come from the hand-written CUDA kernel on the card
 (``movae_tpu_torch/kernels/nearest_code.cu``) and from its plain PyTorch
-version on the CPU. The quantized rows are a row gather of the codebook
+version on the CPU, both through the operator ``movae::nearest_code``, so
+that an exported graph holds the kernel by name. The quantized rows are a row gather of the codebook
 whose gradient is the scatter-add of the output cotangent into the codebook
 (``index_add_``) and nothing for the latents; the straight-through
 estimator and the commitment/embedding MSEs are built around it.

@@ -321,3 +321,18 @@ def test_sass_counts_reads_the_hot_step(tmp_path):
     whole, hot = cs.per_ex2(ops)
     assert (whole, hot) == ((12 - 3) / 2, (8 - 2) / 2)
     assert bf16_registers(PTXAS) == {"flash_bwd_dq_bf16_kernel": [64, 0, 0]}
+
+
+def test_cpu_plain_backward_ignores_the_tensor_core_order():
+    """On CPU tensors the plain bf16 backward sums in IEEE float32 whether or
+    not it is asked for the kernels' tensor-core sums: every output is
+    unchanged by ``tensor_cores=True``."""
+    q, k, v, do = _inputs((1, 2, 96, 16), seed=4)
+    scale = 16 ** -0.5
+    o, lse2 = fa.plain_fwd_bf16(q, k, v, scale)
+    ieee = fa.plain_bwd_bf16(q, k, v, o, lse2, do, scale)
+    tc = fa.plain_bwd_bf16(q, k, v, o, lse2, do, scale, tensor_cores=True)
+    for a, b in zip(ieee, tc):
+        assert torch.equal(a, b)
+    x, y = torch.randn(2, 8, 96), torch.randn(2, 96, 16)
+    assert torch.equal(fa._mm(x, y, True), fa._mm(x, y))

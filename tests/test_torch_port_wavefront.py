@@ -89,14 +89,15 @@ def test_fronts_cover_the_grid_in_dependency_order():
     an earlier front."""
     for k, (h, w) in ((7, (6, 9)), (3, (4, 4)), (7, (5, 2))):
         s = max(k // 2 + 1, 2)
-        fronts = tpc._wavefronts(h, w, k, torch.device("cpu"))
-        ts = torch.cat([f.t for f in fronts])
+        cols, bounds = tpc.front_table(h, w, k)
+        fronts = [cols["t"][lo:hi] for lo, hi in bounds.tolist()]
+        ts = np.concatenate(fronts)
         assert sorted(ts.tolist()) == list(range(h * w))
         if w >= s:
             assert len(fronts) == tpc.wavefront_steps(k, h, w) == s * (h - 1) + w
         front_of = {}
         for d, f in enumerate(fronts):
-            for t in f.t.tolist():
+            for t in f.tolist():
                 front_of[divmod(t, w)] = d
         p = k // 2
         for (i, j), d in front_of.items():
