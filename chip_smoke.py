@@ -207,7 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 SLICE_N, SLICE_K, SLICE_D = 16384, 512, 64
 FULL_WIDTH = dict(arch="vq_vae", embedding_dim=SLICE_D,
@@ -411,6 +411,11 @@ BF16_F64_FACTOR = 1.25
 # the shape of 17a's planted controls: D = 32, where 1/sqrt(D) is not a
 # power of two, so that q pre-scaled in bf16 rounds differently
 FLASH_BF16_CONTROL = (1, 2, 1600, 32)
+# 17a's trained-prior case (kernels/fixtures/dkv_sharp_prior.pt: q, k, v, do
+# and the dk of the kernel that summed the logits on the tensor cores)
+DKV_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "movae_tpu_torch", "kernels", "fixtures",
+                           "dkv_sharp_prior.pt")
 # 17c: bench steps a run (5 rounds of 16 steps: 2 dispatches of 8 at k = 8)
 # and the cifar100 vae/mgda steps a run
 BENCH_17C_STEPS, VAE_17C_STEPS = 80, 48
@@ -488,6 +493,23 @@ SPHERE_VIT_18E = dict(arch="sphere_encoder_vit", vit_depth=2,
 SERVE_BATCHES, SERVE_SAMPLE_BATCH, SERVE_SEED = (1, 16, 128), 16, GEN_SEED
 SERVE_TOL, SERVE_INT8_TOL = 1e-4, 0.02
 SERVE_AB_BATCHES, SERVE_AB = (16, 128), dict(rounds=3, reps=5)
+# phase 20: the data axis on the one card. P20_WORLD ranks spawned on it,
+# gloo (NCCL refuses two ranks on one GPU). Each holds the global batch's
+# rows p, p + P, ... (the loaders' interleave); one data-parallel step from
+# one init against the one-rank step on the whole batch in rank 0, at
+# tests/test_parallel.py's bounds (loss rtol 1e-5; parameters rtol 1e-4,
+# atol 1e-6): phase 3's full-width VQ-VAE at batch BATCH (sum, upgrad, and
+# under --fsdp), SGD with momentum as the JAX test steps (float32, TF32
+# off); phase 5's full-width PixelSNAIL at L = 4096 and batch PRIOR_BATCH
+# (float32 and bf16, Adam eps 1e-4 as the locksteps); then sample-parallel
+# sample_fast_snail at 64x64 (float32 cache, seed GEN_SEED) against one
+# rank's codes. Each rank's launch counts show its kernels on every step
+P20_WORLD, P20_LR, P20_MOMENTUM, P20_TIMED = 2, 1e-3, 0.9, 3
+P20_LOSS_RTOL, P20_PARAM_RTOL, P20_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# bf16 prior: the share of all parameters, and the least share of any one
+# entry's elements, within those bounds (the rest within one Adam step:
+# see p20_bf16_close)
+P20_BF16_SHARE, P20_BF16_LEAF_SHARE = 0.99, 0.9
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -840,14 +862,19 @@ def flash_bounds(shape, peaks, elem_bytes: int = 4,
     """:func:`bound` per kernel: the products of the causal half (2, 4 and
     3 of them: 4, 8 and 6 flops per pair element), one exp2 per causal pair,
     and each input read and output written once (``elem_bytes`` an element
-    of a (.., D) tensor; the log-sum-exp and di stay float32)."""
+    of a (.., D) tensor; the log-sum-exp and di stay float32).
+    ``fma_logits_ms``, beside the bound and not in it: the logits' 2 flops
+    per pair element on the fp32 CUDA cores, where the bf16 kernels sum
+    them as one IEEE fma chain (the least time of that design's choice)."""
     b, h, L, d = shape
     pairs = b * h * L * (L + 1) / 2
     mat, row = elem_bytes * b * h * L * d, 4.0 * b * h * L
     work = {"flash_attention_fwd": (4, 4 * mat + row),
             "flash_attention_bwd_dkv": (8, 6 * mat + 2 * row),
             "flash_attention_bwd_dq": (6, 5 * mat + 2 * row)}
-    return {name: bound(per * pairs * d, pairs, nbytes, peaks, tensor_sxm)
+    fma_logits_ms = 2 * pairs * d / peaks[0] * 1e3
+    return {name: {**bound(per * pairs * d, pairs, nbytes, peaks,
+                           tensor_sxm), "fma_logits_ms": fma_logits_ms}
             for name, (per, nbytes) in work.items()}
 
 
@@ -2237,6 +2264,36 @@ def phase_stage3(torch, dev, vq, hprior, raster_chunk_s: float) -> dict:
           and runs.get("lpips") == metric_batches
           and runs.get("pixel") == 2 * metric_batches,
           f"stage 3 parts ran {runs} times")
+    # one seed repeats its generated images (generate_samples samples
+    # under deterministic cuDNN)
+    twice = [fm.generate_samples(vq, args, prior, torch.Generator(
+        device=dev).manual_seed(GEN_SEED), SAMPLE_BATCH, SAMPLE_BATCH)
+        for _ in range(2)]
+    res["seed_repeats"] = bool(np.array_equal(*twice))
+    log(f"stage 3: generate_samples twice from seed {GEN_SEED} "
+        f"({SAMPLE_BATCH} images): equal {res['seed_repeats']}")
+    check(res["seed_repeats"], "stage 3: one seed gave two different sets "
+          "of generated images")
+    # the generation of stage 3's chunk as it was (default cuDNN) against
+    # as it is (deterministic cuDNN), in turns
+    default = fm.deterministic_cudnn
+    ab = {"default_cudnn_s": [], "deterministic_cudnn_s": []}
+    for arm in ("deterministic_cudnn_s", "default_cudnn_s",
+                "default_cudnn_s", "deterministic_cudnn_s"):
+        fm.deterministic_cudnn = (contextlib.nullcontext
+                                  if arm == "default_cudnn_s" else default)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fm.generate_samples(vq, args, prior, torch.Generator(
+                device=dev).manual_seed(GEN_SEED), S3_BATCH, S3_BATCH)
+            torch.cuda.synchronize()
+            ab[arm].append(time.perf_counter() - t0)
+        finally:
+            fm.deterministic_cudnn = default
+    res["generation_cudnn_ab"] = ab
+    log(f"stage 3: one generated chunk of {S3_BATCH}, default against "
+        f"deterministic cuDNN (s): {json.dumps(ab)}")
     return res
 
 
@@ -3019,6 +3076,12 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
     q, k, v, do = (randn(FLASH_SLICE) for _ in range(4))
     check_flash_bf16(torch, fa, str(FLASH_SLICE), q, k, v, do, worst)
     torch.cuda.empty_cache()
+    # a trained prior's sharp head on which the logits' tensor-core sums
+    # put dk past the float64 half (Queue 3 item 1; kernels/fixtures/)
+    fix = torch.load(DKV_FIXTURE, weights_only=False)
+    check_flash_bf16(torch, fa, "fixture dkv_sharp_prior (1, 1, 4096, 16)",
+                     *(fix[n].to(dev) for n in ("q", "k", "v", "do")), worst)
+    del fix
 
     scale = FLASH_SLICE[-1] ** -0.5
     o, lse2 = fa.flash_fwd(q, k, v, scale)
@@ -3054,7 +3117,9 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
                     f"us, {b['by']}: products at bf16 "
                     f"{b['products_ms'] * 1e3:.1f} us, exp2 "
                     f"{b['exp2_ms'] * 1e3:.1f} us, bytes "
-                    f"{b['bytes_ms'] * 1e3:.1f} us)"
+                    f"{b['bytes_ms'] * 1e3:.1f} us; beside it, the fma-chain "
+                    f"logits on the fp32 cores "
+                    f"{b['fma_logits_ms'] * 1e3:.1f} us)"
                     for n, b in bounds.items())
         + f"; plain forward {plain_fwd:.3f} ms, plain backward "
           f"{plain_bwd:.3f} ms; scaled_dot_product_attention bf16 forward "
@@ -4081,7 +4146,362 @@ def phase_serving(torch, dev, roots: dict, live_samples: dict,
     return res
 
 
-def probe_dkv(torch, fa, dev, parent: Optional[str]) -> None:
+# ---------------------------------------------------------------------------
+# phase 20: the data axis (DDP, fsdp, sample-parallel) over ranks of one card
+# ---------------------------------------------------------------------------
+
+def _p20_close(torch, got: dict, want: dict) -> dict:
+    """The largest |got - want| / (atol + rtol |want|) over every state
+    entry (<= 1 passes) and that entry's name, the largest |got - want|,
+    the share of elements within the bound, and the least share within it
+    of any one entry (``leaf_within``) and that entry's name."""
+    worst, name, diff, inside, total = 0.0, None, 0.0, 0, 0
+    leaf_within, leaf = 1.0, None
+    for k, w in want.items():
+        if not w.numel():
+            continue
+        g, w = got[k].double(), w.double()
+        d = (g - w).abs()
+        r = d / (P20_PARAM_ATOL + P20_PARAM_RTOL * w.abs())
+        n_in = int((r <= 1).sum())
+        inside += n_in
+        total += r.numel()
+        diff = max(diff, float(d.max()))
+        if float(r.max()) > worst:
+            worst, name = float(r.max()), k
+        if n_in / r.numel() < leaf_within:
+            leaf_within, leaf = n_in / r.numel(), k
+    return {"worst": worst, "at": name, "max_abs": diff,
+            "share_within": inside / max(total, 1),
+            "leaf_within": leaf_within, "leaf": leaf}
+
+
+def p20_bf16_close(p: dict) -> bool:
+    """Phase 20's bf16 prior check on a ``_p20_close`` result: at least
+    P20_BF16_SHARE of all parameters and P20_BF16_LEAF_SHARE of every
+    entry's elements within test_parallel.py's bounds, and no element off
+    by more than one Adam step (the learning rate). Each rank's bf16
+    weight gradients leave the bf16 convolutions rounded to bf16 before
+    the all-reduce, where one device rounds the whole batch's sum once;
+    where a gradient's halves cancel, the Adam step can differ by up to
+    its size (a bias of 128 has 8 such elements on this data). A fault in
+    one entry (left unchanged, or from one rank's rows) moves nearly every
+    element of it (``_p20_planted``)."""
+    return (p["share_within"] >= P20_BF16_SHARE
+            and p["leaf_within"] >= P20_BF16_LEAF_SHARE
+            and p["max_abs"] <= PRIOR_ARGS["pixelcnn_lr"])
+
+
+def _p20_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _p20_stage1(torch, dev, dp, agg: str, fsdp: bool) -> dict:
+    """One data-parallel step (then P20_TIMED timed ones) of phase 3's
+    VQ-VAE; rank 0 holds the first step against the one-rank step on the
+    whole batch."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.models import get_network, init_model
+    from movae_tpu_torch.moo import AggregatorConfig, init_state
+    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.train.optim import build_optimizer
+    from movae_tpu_torch.train.state import TrainState
+    from movae_tpu_torch.train.step import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+               * 2 - 1 for _ in range(2)]
+
+    def build():
+        model = init_model(get_network(SIZE, 3, FULL_WIDTH), seed=0,
+                           device=dev)
+        cfg = AggregatorConfig(name=agg,
+                               num_objectives=len(model.objective_names))
+        return model, cfg, build_optimizer("sgd", P20_LR,
+                                           momentum=P20_MOMENTUM)
+
+    model, cfg, tx = build()
+    par = mesh.DataParallel(dp.mesh, fsdp=fsdp)
+    shards = par.shard_params(model) if fsdp else None
+    state = TrainState.create(model, tx, init_state(cfg), fsdp=shards)
+    step = make_train_step(model, cfg, parallel=par)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    state, met = step(state, mesh.local_rows(batches[0]))
+    counts = dict(LAUNCH_COUNTS)
+    if shards is not None:
+        shards.gather()
+    got = _p20_state(model)
+    rest = (shards.rest_bytes(state.optimizer) if shards is not None else
+            {"params": sum(p.numel() * 4 for p in state.params),
+             "moments": sum(t.numel() * t.element_size()
+                            for st in state.optimizer.state.values()
+                            for t in st.values() if torch.is_tensor(t)
+                            and t.dim() > 0)})
+    if shards is not None:
+        shards.release()
+    times = []
+    for i in range(P20_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, mesh.local_rows(batches[1]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"loss": float(met["total_loss"]), "launches": counts,
+           "step_ms": statistics.median(times) * 1e3, "rest_bytes": rest}
+    if mesh.process_index() == 0:
+        ref, rcfg, rtx = build()
+        rstate = TrainState.create(ref, rtx, init_state(rcfg))
+        rstate, rmet = make_train_step(ref, rcfg)(rstate, batches[0])
+        res["ref_loss"] = float(rmet["total_loss"])
+        res["params"] = _p20_close(torch, got, _p20_state(ref))
+        del ref, rstate
+    del model, state, step, shards
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p20_prior(torch, dev, dp, dtype: str) -> dict:
+    """One data-parallel step of phase 5's PixelSNAIL (L = 4096) on
+    PRIOR_BATCH random code grids; rank 0 holds it against the one-rank
+    step on the whole batch."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.train.prior import build_prior, train_prior
+
+    grid = PRIOR_SIZE // 4
+    codes = torch.randint(0, FULL_WIDTH["num_embeddings"],
+                          (PRIOR_BATCH, grid, grid), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(4)).numpy()
+    args = SimpleNamespace(**PRIOR_ARGS, compute_dtype=dtype,
+                           pixelcnn_adam_eps=1e-4)
+    meta = SimpleNamespace(num_embeddings=FULL_WIDTH["num_embeddings"],
+                           embedding_dim=FULL_WIDTH["embedding_dim"])
+
+    def fresh():
+        prior = build_prior(args, meta.num_embeddings, False,
+                            meta.embedding_dim)
+        prior.reset_parameters(torch.Generator().manual_seed(0))
+        return prior
+
+    trace = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_prior({"codes": codes}, meta, args, device=dev,
+                      step_trace=trace, prior=fresh(), parallel=dp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = {"ce": trace, "launches": dict(LAUNCH_COUNTS),
+           "seconds_with_init": secs}
+    if mesh.process_index() == 0:
+        got = _p20_state(out["model"])
+        ref_trace = []
+        ref = train_prior({"codes": codes}, meta, args, device=dev,
+                          step_trace=ref_trace, prior=fresh())
+        want = _p20_state(ref["model"])
+        res["ref_ce"] = ref_trace
+        res["params"] = _p20_close(torch, got, want)
+        del ref
+        if dtype == "bfloat16":
+            res["planted"] = _p20_planted(torch, dev, got, want, fresh,
+                                          codes, meta, args)
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p20_planted(torch, dev, got: dict, want: dict, fresh, codes, meta,
+                 args) -> dict:
+    """Controls of the bf16 prior's check (``p20_bf16_close``): the
+    2-rank state with its smallest entry that the step moves (a leaf of
+    under 1% of the parameters) left at its init, and with that entry
+    from a one-rank step on rank 0's rows alone (rows 0, 2, ..: half the
+    batch), each held against the one-rank step on the whole batch as
+    the real state is. The check must refuse both."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.train.prior import train_prior
+
+    init = {k: v.to(dev) for k, v in fresh().state_dict().items()}
+    moved = [k for k, w in want.items() if w.is_floating_point()
+             and w.numel() and not torch.equal(w, init[k])]
+    leaf = min(moved, key=lambda k: want[k].numel())
+    half = SimpleNamespace(**{**vars(args), "batch_size": PRIOR_BATCH // 2})
+    one = train_prior({"codes": codes[0::2]}, meta, half, device=dev,
+                      prior=fresh())
+    half_leaf = _p20_state(one["model"])[leaf]
+    del one
+    return {"leaf": leaf, "numel": want[leaf].numel(),
+            "share": want[leaf].numel() / sum(w.numel() for w in
+                                               want.values()),
+            "leaf_unchanged": _p20_close(torch, {**got, leaf: init[leaf]},
+                                         want),
+            "half_batch": _p20_close(torch, {**got, leaf: half_leaf}, want)}
+
+
+def _p20_sample(torch, dev, dp) -> dict:
+    """sample_fast_snail at 64x64 (float32 cache) from phase 5's
+    full-width PixelSNAIL at random weights, batch SAMPLE_BATCH: sharded
+    over the ranks against rank 0's one-rank codes on the same seed."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.models.pixelcnn import sample_fast_snail
+    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.parallel.context import sample_parallel
+    from movae_tpu_torch.train.prior import build_prior
+
+    args = SimpleNamespace(**PRIOR_ARGS)
+    prior = build_prior(args, FULL_WIDTH["num_embeddings"], False,
+                        FULL_WIDTH["embedding_dim"])
+    prior.reset_parameters(torch.Generator().manual_seed(0))
+    prior = prior.to(dev).eval()
+    grid = PRIOR_SIZE // 4
+
+    def sample():
+        return sample_fast_snail(
+            prior, torch.Generator(device=dev).manual_seed(GEN_SEED),
+            SAMPLE_BATCH, grid, grid, cache_dtype=torch.float32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sample_parallel(dp.mesh):
+        sharded = sample()
+    torch.cuda.synchronize()
+    res = {"sharded_s": time.perf_counter() - t0}
+    if mesh.process_index() == 0:
+        t0 = time.perf_counter()
+        one = sample()
+        torch.cuda.synchronize()
+        res["one_rank_s"] = time.perf_counter() - t0
+        res["equal_codes"] = float((sharded == one).float().mean())
+    del prior
+    torch.cuda.empty_cache()
+    return res
+
+
+def _phase20_worker(rank: int, world: int, store: str, root: str,
+                    out: str) -> None:
+    """One rank of phase 20 (spawned): the card, gloo, every part; rank 0
+    writes every rank's results to ``out``."""
+    sys.path.insert(0, root)
+    import torch
+
+    from movae_tpu_torch.device import resolve_device
+    from movae_tpu_torch.parallel import mesh
+
+    dev = resolve_device("cuda")
+    mesh.init_distributed("cuda", backend_name="gloo",
+                          init_method=f"file://{store}", rank=rank,
+                          world_size=world)
+    dp = mesh.DataParallel(mesh.make_mesh(device=dev))
+    res = {"rank": rank, "backend": mesh.backend(), "device": str(dev),
+           "card": torch.cuda.get_device_name(dev)}
+    t0 = time.perf_counter()
+    for agg, fsdp in (("sum", False), ("upgrad", False), ("sum", True),
+                      ("upgrad", True)):
+        res[f"stage1_{agg}{'_fsdp' if fsdp else ''}"] = _p20_stage1(
+            torch, dev, dp, agg, fsdp)
+    for dtype in ("float32", "bfloat16"):
+        res[f"prior_{dtype}"] = _p20_prior(torch, dev, dp, dtype)
+    res["sample_fast_snail"] = _p20_sample(torch, dev, dp)
+    res["seconds"] = time.perf_counter() - t0
+    every = [None] * world
+    torch.distributed.all_gather_object(every, res)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(every, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_multirank(torch, card: str) -> dict:
+    """20: P20_WORLD ranks on the one card over gloo (``_phase20_worker``):
+    each data-parallel step equal to the one-rank step on the whole batch,
+    fsdp's bytes at rest below DDP's, sample-parallel codes equal to one
+    rank's, and every rank's nearest-code and flash kernels on every
+    step."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="movae_p20_")
+    out = os.path.join(tmp, "ranks.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        mp.spawn(_phase20_worker, args=(P20_WORLD, os.path.join(tmp, "store"),
+                                        root, out),
+                 nprocs=P20_WORLD, join=True)
+        with open(out) as f:
+            ranks = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 20 ranks: " + ", ".join(
+        f"rank {r['rank']} on {r['device']} ({r['card']}), backend "
+        f"{r['backend']}" for r in ranks))
+    check_multirank(ranks)
+    res = {"ranks": ranks, "seconds": time.perf_counter() - t_phase}
+    log(f"phase 20 (data axis, {P20_WORLD} ranks on one card, gloo; "
+        f"{card}): {res['seconds']:.1f} s: {json.dumps(ranks)}")
+    return res
+
+
+def check_multirank(ranks: list) -> None:
+    """Phase 20's checks over every rank's results."""
+    lead = ranks[0]
+    layers = PRIOR_ARGS["pixelsnail_num_blocks"]
+    for r in ranks:
+        for key in ("stage1_sum", "stage1_upgrad", "stage1_sum_fsdp",
+                    "stage1_upgrad_fsdp"):
+            check(r[key]["launches"]["nearest_code"] == 1,
+                  f"20 {key} rank {r['rank']}: nearest_code launched "
+                  f"{r[key]['launches']['nearest_code']} times in one step")
+        for dtype in ("float32", "bfloat16"):
+            n = r[f"prior_{dtype}"]["launches"]
+            for name in FLASH_KERNELS:
+                check(n[name] == layers,
+                      f"20 prior {dtype} rank {r['rank']}: {name} "
+                      f"launched {n[name]} times in one step of {layers} "
+                      f"layers")
+    for key in ("stage1_sum", "stage1_upgrad", "stage1_sum_fsdp",
+                "stage1_upgrad_fsdp"):
+        r = lead[key]
+        check(abs(r["loss"] - r["ref_loss"]) <= P20_LOSS_RTOL
+              * abs(r["ref_loss"]) and r["params"]["worst"] <= 1.0,
+              f"20 {key}: 2 ranks against one on the whole batch: loss "
+              f"{r['loss']} vs {r['ref_loss']}, parameters {r['params']} "
+              f"(rtol {P20_PARAM_RTOL}, atol {P20_PARAM_ATOL})")
+    for agg in ("sum", "upgrad"):
+        ddp, fs = lead[f"stage1_{agg}"], lead[f"stage1_{agg}_fsdp"]
+        check(fs["rest_bytes"]["params"] + fs["rest_bytes"]["moments"]
+              < ddp["rest_bytes"]["params"] + ddp["rest_bytes"]["moments"],
+              f"20 fsdp {agg}: bytes at rest {fs['rest_bytes']} not below "
+              f"DDP's {ddp['rest_bytes']}")
+    for dtype in ("float32", "bfloat16"):
+        r = lead[f"prior_{dtype}"]
+        p = r["params"]
+        params_ok = (p["worst"] <= 1.0 if dtype == "float32" else
+                     p20_bf16_close(p))
+        check(len(r["ce"]) == len(r["ref_ce"]) == 1
+              and abs(r["ce"][0] - r["ref_ce"][0]) <= P20_LOSS_RTOL
+              * abs(r["ref_ce"][0]) and params_ok,
+              f"20 prior {dtype}: 2 ranks against one on the whole batch: "
+              f"CE {r['ce']} vs {r['ref_ce']}, parameters {p}")
+    planted = lead["prior_bfloat16"]["planted"]
+    for fault in ("leaf_unchanged", "half_batch"):
+        check(not p20_bf16_close(planted[fault]),
+              f"20 prior bfloat16: the check passes a planted fault "
+              f"({fault} at {planted['leaf']}, {planted['numel']} "
+              f"elements): {planted[fault]}")
+    check(lead["sample_fast_snail"]["equal_codes"] == 1.0,
+          f"20 sample-parallel sample_fast_snail: "
+          f"{lead['sample_fast_snail']['equal_codes']:.4f} of the codes "
+          f"equal one rank's")
+
+
+def probe_dkv(torch, fa, dev, parent: Optional[str],
+              seeds: Sequence[int] = (0,), inputs: Optional[str] = None,
+              save: Optional[str] = None) -> None:
     """17b trained twice in one process, unprofiled then profiled, and each
     trained prior's q/k/v through 17a's comparison (``compare_flash_bf16``)
     on every build: whether each output passes 17a's gate against the
@@ -4089,7 +4509,13 @@ def probe_dkv(torch, fa, dev, parent: Optional[str]) -> None:
     printed, not raised. With ``parent`` (another checkout's root) its
     ``flash_attention.cu`` is built too, and the priors train through that
     build's kernels: the inputs on which the parent's dk was measured, held
-    against this checkout's build on the same q/k/v/do."""
+    against this checkout's build on the same q/k/v/do. ``seeds``: the
+    prior's init seeds to train through (each twice), until a prior
+    fails this build; where any build fails dk, the dk attribution is
+    printed, and where this one does, its failing (batch, head) slices;
+    the inputs and the worst failing slice are saved in the directory
+    ``save`` where one is given. ``inputs``: a file of q, k, v, do (as saved there) held
+    on every build in place of the training."""
     from pathlib import Path
 
     from movae_tpu_torch.kernels import flash_ab
@@ -4109,8 +4535,10 @@ def probe_dkv(torch, fa, dev, parent: Optional[str]) -> None:
 
         builds["parent"] = parent_library
     trainer = builds["parent" if parent is not None else "this"]
+    failed = []
 
     def hold(q, k, v, do, label):
+        failing = []
         for name, library in builds.items():
             fa._library = library
             try:
@@ -4127,19 +4555,169 @@ def probe_dkv(torch, fa, dev, parent: Optional[str]) -> None:
                 f"scale from float64 (u): " + json.dumps(
                     {key: [r["f64"]["scale"], r["plain_vs_f64"]["scale"]]
                      for key, r in res.items()}) + f"; {json.dumps(res)}")
+            if not verdict["dk"]["f64"]:
+                failing.append(name)
+        if not failing:
+            return
+        # a failing dk: which tensor-core sum moves it (of the plain
+        # version, whichever build failed); where this build fails, which
+        # (batch, head) slices still fail alone (fixture candidates)
+        if save:
+            os.makedirs(save, exist_ok=True)
+            torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
+                        "do": do.cpu(), "label": label},
+                       os.path.join(save, "dkv_failing_prior.pt"))
+        log(f"probe dk attribution {label} ({', '.join(failing)}'s build "
+            f"failed; scale from float64, u): "
+            + json.dumps(dk_attribution(torch, fa, q, k, v, do)))
+        if "this" not in failing:
+            return
+        failed.append(label)
+        rows = dk_failing_slices(torch, fa, q, k, v, do)
+        bad = [r for r in rows if not r[4]]
+        log(f"probe dk slices {label}: {len(bad)} of {len(rows)} "
+            f"(batch, head) slices fail the float64 half alone; worst "
+            f"first: {json.dumps(rows[:12])}")
+        if bad and save:
+            b, h = bad[0][:2]
+            sl = [t[b:b + 1, h:h + 1].contiguous() for t in (q, k, v, do)]
+            scale = q.shape[-1] ** -0.5
+            o, lse2 = fa.flash_fwd(*sl[:3], scale)
+            di = (o.float() * sl[3].float()).sum(-1)
+            dk = fa.flash_bwd_dkv(*sl, lse2, di, scale)[0]
+            path = os.path.join(save, f"dkv_fixture_b{b}_h{h}.pt")
+            torch.save({"q": sl[0].cpu(), "k": sl[1].cpu(),
+                        "v": sl[2].cpu(), "do": sl[3].cpu(),
+                        "kernel_dk": dk.cpu(), "batch": b, "head": h,
+                        "label": label}, path)
+            log(f"probe dk fixture written: {path}")
 
+    if inputs is not None:
+        saved = torch.load(inputs, weights_only=False)
+        try:
+            hold(*(saved[n].to(dev) for n in ("q", "k", "v", "do")),
+                 f"{saved.get('label', inputs)} (saved)")
+        finally:
+            fa._library = own
+        return
     ones = dict.fromkeys(("step_ms", "codes_per_sec", "peak_mem_gib"), 1.0)
+    seed0 = PRIOR_ARGS["seed"]
     try:
-        for profile in (False, True):
-            fa._library = trainer
-            phase_prior_bf16(torch, fa, dev, ones, [], profile=profile,
-                             hold=lambda *a, p=profile: hold(
-                                 *a[:4], f"{a[4]}, trained through "
-                                 f"{'the parent' if parent else 'this'} "
-                                 f"build (profile {p})"))
-            torch.cuda.empty_cache()
+        for seed in seeds:
+            PRIOR_ARGS["seed"] = seed
+            for profile in (False, True):
+                fa._library = trainer
+                phase_prior_bf16(torch, fa, dev, ones, [], profile=profile,
+                                 hold=lambda *a, p=profile: hold(
+                                     *a[:4], f"{a[4]}, trained through "
+                                     f"{'the parent' if parent else 'this'} "
+                                     f"build (seed {seed}, profile {p})"))
+                torch.cuda.empty_cache()
+            if failed:
+                break
     finally:
         fa._library = own
+        PRIOR_ARGS["seed"] = seed0
+
+
+def float64_grads(torch, fa, q, k, v, do) -> tuple:
+    """(o, dq, dk, dv) in float64 from the bf16 inputs, by the dense
+    causal softmax, two batch rows at a time."""
+    scale = q.shape[-1] ** -0.5
+    parts = []
+    for i in range(0, q.shape[0], 2):
+        leaves = [t[i:i + 2].double().requires_grad_() for t in (q, k, v)]
+        out = fa.dense_causal_attention(*leaves, scale)
+        parts.append([out.detach(), *torch.autograd.grad(
+            out, leaves, do[i:i + 2].double())])
+        del leaves, out
+        torch.cuda.empty_cache()
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+# the products of the plain bf16 version that feed dk, for its
+# attribution: the logits q k^T and p v (the forward's o, through di), dp =
+# do v^T and dk = ds^T q; dv = p^T do and dq = ds k do not feed dk
+DK_PRODUCTS = ("logits", "pv", "dp", "dk")
+
+
+def plain_dk_summed(torch, fa, q, k, v, do, on=()):
+    """dk of the plain bf16 version end to end (``fa.plain_fwd_bf16``'s o
+    and lse2 feeding ``fa.plain_bwd_bf16``'s arithmetic) with the products
+    of DK_PRODUCTS named in ``on`` summed on the tensor cores (``fa._mm``:
+    the logits too, as the kernels summed them before their fma chain) and
+    the rest in IEEE float32."""
+    unknown = set(on) - set(DK_PRODUCTS)
+    if unknown:
+        raise ValueError(f"unknown products {sorted(unknown)}; known: "
+                         f"{DK_PRODUCTS}")
+    scale = q.shape[-1] ** -0.5
+    c = fa.log2e_scale(scale)
+    L = q.shape[2]
+    mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    dk = torch.empty_like(k)
+    for i in range(0, q.shape[0], fa._PLAIN_CHUNK):
+        sl = slice(i, i + fa._PLAIN_CHUNK)
+        s = fa._mm(q[sl], k[sl].transpose(-1, -2), "logits" in on
+                   ).masked_fill(~mask, float("-inf"))
+        m2 = s.amax(-1, keepdim=True) * c
+        p = fa.plain_p_bf16(s, c, m2)
+        denom = p.sum(-1, keepdim=True)
+        o = (fa._mm(fa._bf(p), v[sl], "pv" in on) / denom).to(q.dtype)
+        p = fa.plain_p_bf16(s, c, m2 + torch.log2(denom))
+        del s
+        dof = do[sl].float()
+        di = (o.float() * dof).sum(-1, keepdim=True)
+        ds = fa.plain_ds_bf16(p, fa._mm(dof, v[sl].transpose(-1, -2),
+                                        "dp" in on), di, scale)
+        del p
+        dk[sl] = fa._mm(ds.transpose(-1, -2), q[sl], "dk" in on
+                        ).to(dk.dtype)
+        del ds
+    return dk
+
+
+def dk_attribution(torch, fa, q, k, v, do) -> dict:
+    """dk's best-fit scale from float64 (u = 2^-8, ``bf16_agreement``) for
+    the plain bf16 version end to end with every product in IEEE float32
+    (``none``), every product of DK_PRODUCTS on the tensor cores (``all``,
+    the sums of the kernels before their fma-chain logits), each product
+    alone on the tensor cores (``tc:<name>``) and each alone in IEEE
+    (``ieee:<name>``) (``plain_dk_summed``), and as the kernels sum now
+    (``kernels``: ``tensor_cores=True``, the logits as an fma chain)."""
+    scale = q.shape[-1] ** -0.5
+    f64_dk = float64_grads(torch, fa, q, k, v, do)[2]
+    o, lse2 = fa.plain_fwd_bf16(q, k, v, scale, True)
+    terms = bf16_terms(torch, fa, q, k, v, do, o, lse2, scale,
+                       tensor_cores=True)["dk"]
+    out = {"kernels": bf16_agreement(torch, fa.plain_bwd_bf16(
+        q, k, v, o, lse2, do, scale, True)[1], f64_dk, terms)["scale"]}
+    del o, lse2
+    arms = {"none": (), "all": DK_PRODUCTS}
+    arms.update((f"tc:{n}", (n,)) for n in DK_PRODUCTS)
+    arms.update((f"ieee:{n}", tuple(p for p in DK_PRODUCTS if p != n))
+                for n in DK_PRODUCTS)
+    for label, on in arms.items():
+        dk = plain_dk_summed(torch, fa, q, k, v, do, on)
+        out[label] = bf16_agreement(torch, dk, f64_dk, terms)["scale"]
+        del dk
+        torch.cuda.empty_cache()
+    return out
+
+
+def dk_failing_slices(torch, fa, q, k, v, do) -> list:
+    """Each (batch, head) slice of (q, k, v, do) through 17a's comparison
+    (``compare_flash_bf16`` at B = H = 1): ``[(b, h, dk scale from float64
+    of the kernel, of the IEEE plain version, passes the float64 half)]``
+    for every slice, worst kernel scale first."""
+    rows = []
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            sl = [t[b:b + 1, h:h + 1].contiguous() for t in (q, k, v, do)]
+            r = compare_flash_bf16(torch, fa, *sl)["dk"]
+            rows.append((b, h, r["f64"]["scale"], r["plain_vs_f64"]["scale"],
+                         bf16_as_close(r["f64"], r["plain_vs_f64"])))
+    return sorted(rows, key=lambda r: r[2])
 
 
 def probe_cudnn(torch, dev) -> None:
@@ -4186,6 +4764,8 @@ def probe_timings(torch, dev) -> dict:
 
       * ``stage1_step_ms``: phase 3's full-width ``vq_vae`` sum step (32
         px, batch 256; median of 20 after 3);
+      * ``prior_bf16_step_ms``: 17b's bf16 PixelSNAIL step (phase 5's
+        prior at L = 4096, batch 16; a window of 10 steps);
       * ``snail_int8_s`` / ``snail_f32_s``: ``sample_fast_snail`` on phase
         9's default PixelSNAIL, batch 16, int8 KV cache at 64x64 and
         float32 at 32x32;
@@ -4206,6 +4786,9 @@ def probe_timings(torch, dev) -> dict:
         movae_tpu_torch.__file__))}
     res, _ = train_mode(torch, "sum", dev, STAGE1)
     out["stage1_step_ms"] = res["median_step_ms"]
+    torch.cuda.empty_cache()
+    out["prior_bf16_step_ms"] = phase_prior(torch, dev, False,
+                                            "bfloat16")[0]["step_ms"]
     torch.cuda.empty_cache()
 
     def timed(fn):
@@ -4257,6 +4840,16 @@ def main() -> int:
                    f"of {', '.join(PROBES)} named (all when none is): "
                    "probe_dkv, probe_cudnn, probe_timings; not a smoke "
                    "run")
+    p.add_argument("--seeds", type=int, nargs="*", default=[0],
+                   metavar="SEED",
+                   help="--probe dkv: the prior init seeds to train "
+                   "through, until one fails")
+    p.add_argument("--save", default=None, metavar="DIR",
+                   help="--probe dkv: write a failing prior's q, k, v, do "
+                   "and its worst failing slice to DIR")
+    p.add_argument("--inputs", default=None, metavar="FILE",
+                   help="--probe dkv: hold the builds on these saved q, k, "
+                   "v, do instead of training priors")
     p.add_argument("--parent", default=None, metavar="DIR",
                    help="--probe: another checkout's root, whose "
                    "flash_attention.cu trains probe_dkv's priors and is "
@@ -4313,7 +4906,8 @@ def main() -> int:
         probes = args.probe or PROBES
         try:
             if "dkv" in probes:
-                probe_dkv(torch, fa, dev, args.parent)
+                probe_dkv(torch, fa, dev, args.parent, args.seeds,
+                          args.inputs, args.save)
             if "cudnn" in probes:
                 probe_cudnn(torch, dev)
             if "timings" in probes:
@@ -4476,6 +5070,10 @@ def main() -> int:
         serve = phase_serving(torch, dev, cli["roots"], live,
                               smi[0] if smi else name)
         row["launches"] += serve["launches"]
+
+        # this slice's path: the data axis (DDP, fsdp, sample-parallel
+        # generation) over ranks of the one card
+        phase_multirank(torch, smi[0] if smi else name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

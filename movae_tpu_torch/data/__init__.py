@@ -117,23 +117,34 @@ class Loader:
     """Static-shape batch iterator: epoch ``e`` (counted from 0) walks
     ``default_rng((seed, e)).permutation(n)`` (or ``arange`` without
     ``shuffle``), and the same generator draws the batch's flips. The last
-    batch is wrap-padded to ``batch_size`` and reports ``n_valid``."""
+    batch is wrap-padded to ``batch_size`` and reports ``n_valid``.
+
+    ``process_index``/``process_count`` shard the per-step order over the
+    ranks of a data-parallel run (the JAX package's multi-host loader):
+    every rank walks the same seeded permutation and takes the interleaved
+    slice ``p, p + P, ...`` of each global batch of ``batch_size * P``
+    rows, so the ranks' batches together are the one-process batch
+    stream. ``batch_size`` is the per-rank batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = False, raw: bool = False):
+                 seed: int = 0, drop_last: bool = False, raw: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.raw = raw
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        gb = self.batch_size * self.process_count
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // gb
+        return (n + gb - 1) // gb
 
     def __iter__(self) -> Iterator[Tuple[Array, Array, int]]:
         """Yields ``(images, labels, n_valid)``."""
@@ -142,15 +153,20 @@ class Loader:
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         self.epoch += 1
         bs = self.batch_size
-        for start in range(0, n, bs):
-            if self.drop_last and n - start < bs:
+        gb = bs * self.process_count
+        for start in range(0, n, gb):
+            if self.drop_last and n - start < gb:
+                # the GLOBAL tail: per-rank slices of a partial tail may
+                # differ in length, and every rank must take as many steps
                 return
-            idx = order[start:start + bs]
+            idx = order[start:start + gb][self.process_index::
+                                          self.process_count]
             n_valid = len(idx)
             if n_valid < bs:
                 # np.resize repeats the order cyclically, so sets smaller
                 # than the pad still fill it
-                idx = np.concatenate([idx, np.resize(order, bs - n_valid)])
+                pad = np.resize(order, bs - n_valid)
+                idx = np.concatenate([idx, pad]) if n_valid else pad
             imgs, labels = self.dataset.get_batch(idx, rng, raw=self.raw)
             yield imgs, labels, n_valid
 

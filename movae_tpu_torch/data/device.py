@@ -11,6 +11,14 @@ flips part between the packages by design, as they already do between the
 JAX package's own two loaders. Epoch leftovers (fewer rows than a batch)
 run as host batches through ``dataset.get_batch``, so every image trains
 once per epoch.
+
+In a data-parallel run (``process_index``/``process_count``, one rank a
+card) each rank holds the rows it owns, the interleaved global ids ``p,
+p + P, ...`` (the loaders' interleave): its own seeded permutation of them
+gives its columns of each global (steps, B) batch, the epoch's steps are
+the fewest any rank can fill, and every rank walks the global leftovers in
+lockstep, each taking its interleaved slice (the JAX package's multi-host
+``DeviceData`` with one data shard a process).
 """
 
 from __future__ import annotations
@@ -35,13 +43,15 @@ def _memory_budget(device: torch.device) -> int:
 
 
 def resolve_device_data(args, dataset, batch_size: int,
-                        device: torch.device) -> Optional["DeviceData"]:
+                        device: torch.device, process_index: int = 0,
+                        process_count: int = 1) -> Optional["DeviceData"]:
     """``--device_data`` / ``--no_device_data`` / auto -> a
     :class:`DeviceData` or ``None`` (the host loader).
 
     Auto enables it on a CUDA device for a uint8 set without a random
-    resized crop whose bytes fit :data:`AUTO_MEMORY_FRACTION` of the card's
-    memory less what is in use."""
+    resized crop whose bytes (this rank's share) fit
+    :data:`AUTO_MEMORY_FRACTION` of the card's memory less what is in use.
+    ``batch_size`` is the global batch."""
     if getattr(args, "no_device_data", False):
         return None
     forced = bool(getattr(args, "device_data", False))
@@ -53,14 +63,16 @@ def resolve_device_data(args, dataset, batch_size: int,
         imgs = getattr(dataset, "images", None)
         if imgs is None or getattr(imgs, "dtype", None) != np.uint8:
             return None
-        nbytes = int(np.prod(imgs.shape, dtype=np.int64))
+        nbytes = int(np.prod(imgs.shape, dtype=np.int64)) // process_count
         budget = _memory_budget(device)
         if nbytes > budget:
             print(f"[device_data] auto: train set needs {nbytes / 1e9:.2f} "
                   f"GB > {budget / 1e9:.2f} GB budget — host loader")
             return None
     dd = DeviceData(dataset, batch_size, device,
-                    seed=getattr(args, "seed", 0) or 0)
+                    seed=getattr(args, "seed", 0) or 0,
+                    process_index=process_index,
+                    process_count=process_count)
     if not forced:
         print("[device_data] auto-enabled: the train set fits the card's "
               "memory budget (opt out with --no_device_data)")
@@ -68,10 +80,12 @@ def resolve_device_data(args, dataset, batch_size: int,
 
 
 class DeviceData:
-    """The resident image store and its deterministic per-epoch plans."""
+    """The resident image store and its deterministic per-epoch plans
+    (``batch_size`` the global batch B; this rank's columns are B / P)."""
 
     def __init__(self, dataset, batch_size: int, device: torch.device,
-                 seed: int = 0):
+                 seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
         if getattr(dataset, "random_resized_crop", None) is not None:
             raise ValueError(
                 "--device_data does not support datasets with a "
@@ -81,30 +95,56 @@ class DeviceData:
         self.seed = seed
         self.flip = bool(getattr(dataset, "flip", False))
         self.B = int(batch_size)
+        self.pi, self.pc = int(process_index), int(process_count)
+        if self.B % self.pc:
+            raise ValueError(f"global batch {self.B} must be divisible by "
+                             f"the data-axis size {self.pc} for "
+                             f"--device_data")
+        self.b_loc = self.B // self.pc
         self.n = len(dataset)
-        self.steps = self.n // self.B
+        # rank p owns the global ids p, p + P, ...
+        self.counts = np.array([(self.n - p + self.pc - 1) // self.pc
+                                for p in range(self.pc)], np.int64)
+        if (self.counts // self.b_loc).min() == 0 and self.n >= 2 * self.B:
+            raise ValueError(
+                f"--device_data layout degenerate: a rank holds "
+                f"{int(self.counts.min())} rows < B/P={self.b_loc}")
+        self.steps = int((self.counts // self.b_loc).min())
         self.device = device
-        print(f"[device_data] uploading {dataset.images.nbytes / 1e9:.2f} GB "
-              f"({self.n} images) to {device}")
-        self.images_dev = torch.from_numpy(
-            np.ascontiguousarray(dataset.images)).to(device)
+        own = self._ids(self.pi)
+        print(f"[device_data] uploading "
+              f"{dataset.images[:1].nbytes * len(own) / 1e9:.2f} GB "
+              f"({len(own)} of {self.n} images) to {device}")
+        self.images_dev = torch.from_numpy(np.ascontiguousarray(
+            dataset.images[own] if self.pc > 1 else dataset.images)
+            ).to(device)
 
-    def _perm(self, epoch: int) -> Array:
-        return np.random.default_rng((self.seed, epoch, 0)).permutation(
-            self.n)
+    def _ids(self, p: int) -> Array:
+        """The global ids rank ``p`` owns, in its local order."""
+        return p + np.arange(self.counts[p]) * self.pc
+
+    def _perm(self, epoch: int, p: int = 0) -> Array:
+        return np.random.default_rng((self.seed, epoch, p)).permutation(
+            self.counts[p])
 
     def epoch_plan(self, epoch: int) -> Tuple[Array, Array]:
-        """``(idx, tail_ids)`` for ``epoch``: the (steps, B) int32 rows of
-        the full batches and the leftover row ids."""
-        perm = self._perm(epoch)
-        take = self.steps * self.B
-        return (perm[:take].reshape(self.steps, self.B).astype(np.int32),
-                perm[take:])
+        """``(idx, tail_ids)`` for ``epoch``: this rank's (steps, B / P)
+        int32 rows of the full batches (local row numbers) and the GLOBAL
+        leftover ids of every rank (the same on all ranks)."""
+        take = self.steps * self.b_loc
+        idx, tails = None, []
+        for p in range(self.pc):
+            perm = self._perm(epoch, p)
+            if p == self.pi:
+                idx = perm[:take].reshape(self.steps, self.b_loc).astype(
+                    np.int32)
+            tails.append(self._ids(p)[perm[take:]])
+        return idx, np.concatenate(tails)
 
     def batches(self, idx: Array, generator: Optional[torch.Generator]
                 ) -> Iterator[torch.Tensor]:
-        """The epoch's full uint8 batches, gathered and flipped on the
-        card from one upload of the (steps, B) index block."""
+        """The epoch's full uint8 batches (this rank's rows), gathered and
+        flipped on the card from one upload of the index block."""
         idx_dev = torch.from_numpy(idx.astype(np.int64))
         if self.device.type == "cuda":  # no host wait for the upload
             idx_dev = idx_dev.pin_memory()
@@ -112,7 +152,7 @@ class DeviceData:
         for row in idx_dev:
             batch = self.images_dev.index_select(0, row)
             if self.flip:
-                mask = torch.rand(self.B, generator=generator,
+                mask = torch.rand(self.b_loc, generator=generator,
                                   device=self.device) < 0.5
                 batch = torch.where(mask[:, None, None, None],
                                     batch.flip(2), batch)
@@ -120,11 +160,21 @@ class DeviceData:
 
     def tail_batches(self, tail_ids: Array, rng: np.random.Generator
                      ) -> Iterator[Tuple[Array, int]]:
-        """The leftovers as host uint8 batches of their valid rows only."""
-        for start in range(0, len(tail_ids), self.B):
-            ids = tail_ids[start:start + self.B]
-            imgs, _ = self.dataset.get_batch(ids, rng, raw=True)
-            yield imgs, len(ids)
+        """The leftovers as host uint8 batches, walked in lockstep by
+        every rank: each global batch of B leftovers gives this rank its
+        interleaved slice, wrap-padded and trimmed to the smallest multiple
+        of P covering the valid rows (one rank: the valid rows alone).
+        Yields ``(images, global valid rows)``."""
+        L = len(tail_ids)
+        for start in range(0, L, self.B):
+            ids = tail_ids[start:start + self.B][self.pi::self.pc]
+            gv = min(self.B, L - start)
+            keep = -(-gv // self.pc)
+            if len(ids) < keep:
+                pad = np.resize(tail_ids, keep - len(ids))
+                ids = np.concatenate([ids, pad]) if len(ids) else pad
+            imgs, _ = self.dataset.get_batch(ids[:keep], rng, raw=True)
+            yield imgs, gv
 
     @property
     def tail_len(self) -> int:

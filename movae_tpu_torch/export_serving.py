@@ -42,7 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no_prior", action="store_true",
                     help="skip prior auto-load (uniform-code sample)")
     ap.add_argument("--data_parallel", type=int, default=1,
-                    help="not ported: more than 1 raises (one device)")
+                    help="serve reconstruct / encode_codes / decode_codes "
+                    "on N replicas, each taking batch / N rows (batches a "
+                    "multiple of N); sample stays single-device")
     ap.add_argument("--quantize", default=None, choices=["int8"],
                     help="weight-only int8 artifacts: kernels stored as "
                     "int8 + per-output-channel scales, dequantized "

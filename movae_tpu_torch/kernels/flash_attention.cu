@@ -929,10 +929,19 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     exp2f at 2 ulp.)
 //
 // Common to all three:
-//   * every product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
-//     bf16 operands exactly as given, f32 accumulation, one pass. The
-//     logits' accumulator layout is the A layout of the next product (p or
-//     ds as A: k = 2t, 2t+1 of each 8 columns), so p and ds go from
+//   * the logits are IEEE float32: each is one fmaf chain over d ascending
+//     from 0 of the exact bf16 x bf16 products (fma_logits), in the
+//     accumulator layout of an m16n8k16 product, its operands brought from
+//     the A and B fragments by shuffles. The tensor cores sum the 16
+//     products of an mma with truncation, not rounding: on a trained
+//     prior's sharp rows that bias of the logits moved p's bf16 roundings
+//     enough to put dk 0.244 u from float64 in best-fit scale against the
+//     IEEE sums' 0.162 (17a allows + 0.0625), and the logits alone on the
+//     tensor cores reproduced it (chip_smoke.py --probe dkv, PERF.md);
+//   * every other product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.
+//     bf16.f32: bf16 operands exactly as given, f32 accumulation, one pass.
+//     The logits' accumulator layout is the A layout of the next product
+//     (p or ds as A: k = 2t, 2t+1 of each 8 columns), so p and ds go from
 //     registers to the tensor cores, rounded to bf16 as they are packed;
 //     wgmma would buy nothing while the products take 69.5-139 us of bound
 //     against exp2's 257;
@@ -944,11 +953,10 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     the bf16 rounding of the outputs (2^-9);
 //   * no atomics: each block owns its outputs; the longest blocks first.
 //
-// The recompute contract: each logit is one chain of m16n8k16 products over
-// the same D/16 reduction steps in the same order, from the same bf16
-// values, so the raw logit s is bit for bit the same in all three kernels
-// (dK/dV swaps the operands of the same exact bf16 x bf16 products, which
-// sum position by position alike); the three scale it by c in f32.
+// The recompute contract: each logit is one fmaf chain over d ascending of
+// the same bf16 values, so the raw logit s is bit for bit the same in all
+// three kernels (dK/dV swaps the operands of the same exact bf16 x bf16
+// products); the three scale it by c in f32.
 //
 // Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9;
 // spill store/load bytes in brackets): D=8 120, 128 [4/4], 128; D=16 90,
@@ -980,6 +988,55 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// c0 += A B0 and c1 += A B1 over one k16 step, each element an IEEE float32
+// fmaf chain in ascending k (the logit chain): A the m16n8k16 A fragment a
+// (rows g and g + 8 by k = 2t, 2t + 1 and 2t + 8, 2t + 9), B0 and B1 the B
+// fragments (b[0], b[1]) and (b[2], b[3]) of two n-tiles (k = 2t, 2t + 1
+// and 2t + 8, 2t + 9 by column g), c0 and c1 in the accumulator layout (rows
+// g, g + 8 by columns 2t, 2t + 1). A's rows come from the lanes of this
+// thread's quad, B's columns 2t and 2t + 1 from the quads 2t and 2t + 1.
+__device__ __forceinline__ void fma_logits(float (&c0)[4], float (&c1)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[4]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)  // k in [8 h, 8 h + 8)
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {  // k = 8 h + 2 tt, then + 1
+      const uint32_t r0 = __shfl_sync(kAll, a[2 * h], (lane & ~3) | tt);
+      const uint32_t r1 = __shfl_sync(kAll, a[2 * h + 1], (lane & ~3) | tt);
+      uint32_t col[2][2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        col[n][0] = __shfl_sync(kAll, b[2 * n + h], 8 * t + tt);
+        col[n][1] = __shfl_sync(kAll, b[2 * n + h], 8 * t + 4 + tt);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x0 = e ? bf_hi(r0) : bf_lo(r0);
+        const float x1 = e ? bf_hi(r1) : bf_lo(r1);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float(&c)[4] = n ? c1 : c0;
+          const float y0 = e ? bf_hi(col[n][0]) : bf_lo(col[n][0]);
+          const float y1 = e ? bf_hi(col[n][1]) : bf_lo(col[n][1]);
+          c[0] = fmaf(x0, y0, c[0]);
+          c[1] = fmaf(x0, y1, c[1]);
+          c[2] = fmaf(x1, y0, c[2]);
+          c[3] = fmaf(x1, y1, c[3]);
+        }
+      }
+    }
 }
 
 // the m16 x k16 A fragments over D of rows r0 (g) and r1 (g + 8) of an
@@ -1272,10 +1329,8 @@ __device__ __forceinline__ void fwd_bf16_logits(
       uint32_t b[4];
       ldsm_along<D>(ktile, c + 16 * j2, st, b);
 #pragma unroll
-      for (int rg = 0; rg < G; ++rg) {
-        mma_bf16(s[rg][2 * j2], qa[rg][st], b[0], b[1]);
-        mma_bf16(s[rg][2 * j2 + 1], qa[rg][st], b[2], b[3]);
-      }
+      for (int rg = 0; rg < G; ++rg)
+        fma_logits(s[rg][2 * j2], s[rg][2 * j2 + 1], qa[rg][st], b);
     }
   }
   if (kMasked) {
@@ -1507,8 +1562,7 @@ __device__ __forceinline__ void dkv_bf16_step(
     ldsm_along<D>(dotile, c, st, bd);
 #pragma unroll
     for (int kg = 0; kg < G; ++kg) {
-      mma_bf16(s[kg][0], ka[kg][st], bq[0], bq[1]);
-      mma_bf16(s[kg][1], ka[kg][st], bq[2], bq[3]);
+      fma_logits(s[kg][0], s[kg][1], ka[kg][st], bq);
       mma_bf16(dp[kg][0], va[kg][st], bd[0], bd[1]);
       mma_bf16(dp[kg][1], va[kg][st], bd[2], bd[3]);
     }
@@ -1700,8 +1754,7 @@ __device__ __forceinline__ void dq_bf16_step(
     ldsm_along<D>(vtile, c, st, bv);
 #pragma unroll
     for (int rg = 0; rg < G; ++rg) {
-      mma_bf16(s[rg][0], qa[rg][st], bk[0], bk[1]);
-      mma_bf16(s[rg][1], qa[rg][st], bk[2], bk[3]);
+      fma_logits(s[rg][0], s[rg][1], qa[rg][st], bk);
       mma_bf16(dp[rg][0], da[rg][st], bv[0], bv[1]);
       mma_bf16(dp[rg][1], da[rg][st], bv[2], bv[3]);
     }

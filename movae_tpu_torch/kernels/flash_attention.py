@@ -15,7 +15,8 @@ bf16; the softmax statistics and di stay float32. The plain version rounds
 at the same points and computes p and ds as the kernels do, in base 2 with
 one float32 fma each (:func:`flash_causal_attention_plain`). It sums its
 products in IEEE float32; asked with ``tensor_cores=True``, on the card it
-sums its bf16 products on the tensor cores instead, as the kernels do.
+sums them as the kernels do: the logits as one float32 fma chain over d
+ascending, every other product on the tensor cores.
 """
 
 from __future__ import annotations
@@ -85,12 +86,34 @@ def _mm(a: Tensor, b: Tensor, tensor_cores: bool = False) -> Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def fma_chain_logits(q: Tensor, k: Tensor) -> Tensor:
+    """q k^T for (..., L, D) bf16-valued q, k as the bf16 kernels sum each
+    logit: one float32 fma chain over d ascending from 0 (each step's exact
+    product and sum in float64, rounded once to float32, as
+    :func:`fma_f32`), a leading slice at a time."""
+    out = torch.empty((*q.shape[:-1], k.shape[-2]), dtype=torch.float32,
+                      device=q.device)
+    qf, kf = q.double(), k.double()
+    for i in range(out.shape[0]):
+        acc = torch.zeros(out.shape[1:], dtype=torch.float32,
+                          device=q.device)
+        for d in range(q.shape[-1]):
+            acc = (qf[i, ..., d, None] * kf[i, ..., None, :, d]
+                   + acc.double()).float()
+        out[i] = acc
+    return out
+
+
 def _plain_logits(q: Tensor, k: Tensor, tensor_cores: bool = False
                   ) -> Tensor:
     """The raw float32 logits q k^T from bf16 q, k, the causal mask as
-    -inf."""
+    -inf: IEEE float32 sums, or with ``tensor_cores`` on the card the
+    kernels' fma chain (:func:`fma_chain_logits`)."""
     L = q.shape[2]
-    s = _mm(q, k.transpose(-1, -2), tensor_cores)
+    if tensor_cores and q.is_cuda:
+        s = fma_chain_logits(q, k)
+    else:
+        s = _mm(q, k.transpose(-1, -2))
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     return s.masked_fill(~mask, float("-inf"))
 
@@ -151,8 +174,8 @@ def plain_ds_bf16(p: Tensor, dp: Tensor, di: Tensor, sm_scale: float
 def plain_fwd_bf16(q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
                    tensor_cores: bool = False):
     """The bf16 forward kernel's arithmetic in plain PyTorch, in base 2:
-    raw f32 logits s (:func:`_mm`, ``tensor_cores`` as there), each row's
-    maximum m2 of s c (c =
+    raw f32 logits s (:func:`_plain_logits`, ``tensor_cores`` as there and
+    in :func:`_mm`), each row's maximum m2 of s c (c =
     scale log2 e, one float32 product), p = 2^fma(s, c, -m2) rounded to
     bf16 before p v, the row sum of the unrounded p, o in bf16. Returns
     (o, lse2), lse2 the base-2 log-sum-exp of the scaled logits, (B, H, L)
@@ -179,7 +202,8 @@ def plain_bwd_bf16(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse2: Tensor,
     forward's ``o`` and base-2 ``lse2``: di = sum(o do) in f32, p =
     2^fma(s, c, -lse2), dv = bf16(p)^T do, ds = bf16(p fma(dp, scale,
     -di scale)), dk = ds^T q, dq = ds k, each in bf16, the products summed
-    as :func:`_mm` sums them. Returns (dq, dk, dv)."""
+    as :func:`_plain_logits` and :func:`_mm` sum them. Returns (dq, dk,
+    dv)."""
     c = log2e_scale(sm_scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     for i in range(0, q.shape[0], _PLAIN_CHUNK):

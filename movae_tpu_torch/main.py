@@ -6,8 +6,11 @@ unchanged), except ``--device``, which is ``cuda`` by default and ``cpu``
 for a CPU rehearsal. Train the model (``train/loop.py``), then for VQ
 models the prior (``train/prior.py``) and a final sample grid through it,
 then the final metrics (``train/final_metrics.py``) into the run's
-summary as ``final/*``. Flags the port cannot honour yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+summary as ``final/*``. ``torchrun --nproc_per_node N -m
+movae_tpu_torch.main ...`` runs every stage data-parallel over N ranks
+(``--batch_size`` the global batch; rank 0 writes the run tree). Flags the
+port cannot honour yet raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -160,19 +163,22 @@ def build_parser() -> ArgumentParser:
                         help="write a torch.profiler trace of the first "
                              "epoch")
     parser.add_argument("--model_partitions", type=int, default=1,
-                        help="tensor-parallel partitions (> 1: ROADMAP.md "
-                             "Queue 1 item 13)")
+                        help="tensor-parallel partitions (> 1 raises: "
+                             "ROADMAP.md Queue 1 item 13; data parallelism "
+                             "runs under torchrun --nproc_per_node N)")
     parser.add_argument("--context_parallel", type=int, default=1,
                         help="sequence-parallel partitions of the prior's "
-                             "attention (> 1: ROADMAP.md Queue 1 item 13)")
+                             "attention (> 1 raises: ROADMAP.md Queue 1 "
+                             "item 13)")
     parser.add_argument("--pipeline_parallel", type=int, default=1,
-                        help="pipeline-parallel prior stages (> 1: "
+                        help="pipeline-parallel prior stages (> 1 raises: "
                              "ROADMAP.md Queue 1 item 13)")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
                         help="GPipe microbatches per step (0 = auto)")
     parser.add_argument("--fsdp", action="store_true",
-                        help="shard parameters and optimizer state "
-                             "(ROADMAP.md Queue 1 item 13)")
+                        help="under torchrun, hold 1/N of the large "
+                             "parameters and their optimizer moments on "
+                             "each rank (ZeRO-3); one process: no effect")
     parser.add_argument("--vq_ema", action="store_true",
                         help="EMA-maintained codebook (objectives become "
                              "recon+commitment; the reference is loss-based "
@@ -250,14 +256,16 @@ def main(args):
             n = getattr(args, "num_vis_samples", 4)
             gen = torch.Generator(device=results["device"]).manual_seed(
                 (args.seed or 0) + GEN_SEED_OFFSET)
+            # every rank generates (sample-parallel); rank 0 writes
             imgs = generate_samples(results["model"], args, prior, gen, n,
                                     batch=n)
-            png = fig_lib.save_sample_grid(
-                imgs, os.path.join(results["save_root"], "figures",
-                                   "generated",
-                                   "final_random_samples_with_prior.pdf"),
-                results["normalize"])
-            logger.log_image("samples/final_with_prior", png)
+            if results["rank"] == 0:
+                png = fig_lib.save_sample_grid(
+                    imgs, os.path.join(results["save_root"], "figures",
+                                       "generated",
+                                       "final_random_samples_with_prior.pdf"),
+                    results["normalize"])
+                logger.log_image("samples/final_with_prior", png)
         except Exception as e:  # the JAX package's rule: report, go on
             print(f"final prior sample figure failed: {e!r}")
 
@@ -265,7 +273,8 @@ def main(args):
         finals = run_final_metrics(results, args, prior=prior)
         for k, v in finals.items():
             logger.set_summary(f"final/{k}", v)
-            print(f"final/{k}: {v}")
+            if results["rank"] == 0:
+                print(f"final/{k}: {v}")
         if logger.active:
             logger.log({f"final/{k}": v for k, v in finals.items()})
     logger.save_file(results["save_root"])

@@ -136,7 +136,26 @@ def draw(name: str, op: str, shape: Sequence[int],
     """``noise[name]`` when given (float32 for ``randn`` / ``rand``, int64
     for ``randint``), else one ``torch.<op>`` draw of ``shape`` from
     ``generator``: ``randn`` N(0, I), ``rand`` U[0, 1), ``randint``
-    integers in [0, ``high``)."""
+    integers in [0, ``high``).
+
+    Under an active data-parallel step (``parallel/mesh.py``) every draw a
+    model makes is per row of the batch (the leading dimension, this
+    rank's rows): the draw, or the given ``noise[name]``, is the global
+    batch's, and this rank keeps its rows, so the step draws what one
+    device draws on the whole batch."""
+    from movae_tpu_torch.parallel import mesh as mesh_lib
+
+    if (mesh_lib.active_data_parallel() is not None
+            and mesh_lib.process_count() > 1):
+        full = (mesh_lib.global_batch_size(shape[0]), *shape[1:])
+        return mesh_lib.local_rows(
+            _draw(name, op, full, generator, noise, device, high))
+    return _draw(name, op, shape, generator, noise, device, high)
+
+
+def _draw(name: str, op: str, shape: Sequence[int],
+          generator: Optional[torch.Generator], noise: Noise,
+          device: torch.device, high: Optional[int] = None) -> Tensor:
     shape = tuple(shape)
     if noise is not None and name in noise:
         value = torch.as_tensor(noise[name], dtype=_DRAW_DTYPES[op],

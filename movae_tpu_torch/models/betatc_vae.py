@@ -30,6 +30,7 @@ from movae_tpu_torch.models.base import (LambdaWeights, Noise, RestartRows,
                                          compute_region, resolve_activation,
                                          resolve_compute_dtype)
 from movae_tpu_torch.models.vae import VAE, _nchw, _nhwc, reset_vae_parameters
+from movae_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 _SLOPE = 0.01
@@ -139,8 +140,11 @@ class BetaTCVAE(VAE):
     def loss_terms(self, x: Tensor, outputs: Dict[str, Any]
                    ) -> Dict[str, Tensor]:
         lw = dict(self.lambda_weights)
-        recons, mu = outputs["recons"], outputs["mu"]
-        log_var, z = outputs["log_var"], outputs["z"]
+        recons = outputs["recons"]
+        # the pairwise estimate couples the rows: over the global batch in
+        # a data-parallel step (a differentiable gather)
+        mu, log_var, z = (mesh_lib.gather_batch(outputs[k])
+                          for k in ("mu", "log_var", "z"))
         b = z.shape[0]
         dataset_size = float(self.dataset_size or 50000)
 

@@ -32,7 +32,7 @@ draws differ, so tests compare at dropout 0 or by statistics.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +43,11 @@ from movae_tpu_torch.ops.attention import (DENSE_ATTENTION_MAX_L,
                                            causal_attention,
                                            dense_causal_attention)
 from movae_tpu_torch.device import replay_steps
-from movae_tpu_torch.models.base import compute_region, resolve_compute_dtype
+from movae_tpu_torch.models.base import (compute_region, draw,
+                                         resolve_compute_dtype)
 from movae_tpu_torch.ops.vq import gather_rows
+from movae_tpu_torch.parallel.context import (gather_sample_batch,
+                                              shard_sample_batch)
 
 Tensor = torch.Tensor
 
@@ -68,11 +71,13 @@ def make_conv_mask(kh: int, kw: int, cin: int, cout: int,
 def _dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]
              ) -> Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate)."""
+    values by 1 / (1 - rate). The uniform draw goes through
+    ``models/base.py:draw`` (a data-parallel step draws it for the global
+    batch)."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw("dropout", "rand", x.shape, generator, None, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -915,6 +920,20 @@ def run_sampler(step: SamplerStep, gumbel: Tensor,
     return state[-1]
 
 
+def _run_sharded(make_step: Callable[[int], SamplerStep], gumbel: Tensor,
+                 condition: Optional[Tensor]) -> Tensor:
+    """:func:`run_sampler` over this rank's rows of the global (L, B, K)
+    noise and condition under an active sample-parallel config
+    (``parallel/context.py``), the codes gathered back into the global
+    batch; the whole batch otherwise. ``make_step(b)`` builds the step
+    for b rows."""
+    batch = gumbel.shape[1]
+    g = shard_sample_batch(gumbel, 1)
+    codes = run_sampler(make_step(g.shape[1]), g,
+                        shard_sample_batch(condition, 0))
+    return gather_sample_batch(codes, batch)
+
+
 @torch.no_grad()
 def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
                 batch_size: int, height: int, width: int,
@@ -926,9 +945,8 @@ def sample_fast(model: PixelCNN, generator: Optional[torch.Generator],
     caches are padded, so no bounds are checked. Draws the codes of
     :func:`sample_naive` from the same noise."""
     g = _noise(gumbel, generator, model, batch_size, height * width)
-    step = SamplerStep(model, batch_size, height, width, temperature,
-                       raster=True)
-    return run_sampler(step, g, condition)
+    return _run_sharded(lambda b: SamplerStep(
+        model, b, height, width, temperature, raster=True), g, condition)
 
 
 def _sample_fronts(model: PixelCNN, batch_size: int, height: int,
@@ -964,9 +982,8 @@ def sample_wavefront(model: PixelCNN, generator: Optional[torch.Generator],
     noise. Attention rules it out for PixelSNAIL: a raster-earlier key can
     lie on a later front."""
     g = _noise(gumbel, generator, model, batch_size, height * width)
-    step = SamplerStep(model, batch_size, height, width, temperature,
-                       raster=False)
-    return run_sampler(step, g, condition)
+    return _run_sharded(lambda b: SamplerStep(
+        model, b, height, width, temperature, raster=False), g, condition)
 
 
 @torch.no_grad()
@@ -992,11 +1009,12 @@ def sample_fast_snail(model: PixelSNAIL, generator: Optional[torch.Generator],
     dtype, as ``(samples, logits)``."""
     L = height * width
     dev = _device(model)
+    if forced is None and not return_logits:
+        return _run_sharded(lambda b: SamplerStep(
+            model, b, height, width, temperature, cache_dtype),
+            _noise(gumbel, generator, model, batch_size, L), condition)
     step = SamplerStep(model, batch_size, height, width, temperature,
                        cache_dtype)
-    if forced is None and not return_logits:
-        return run_sampler(step, _noise(gumbel, generator, model, batch_size,
-                                        L), condition)
     if forced is not None:
         forced, g = torch.as_tensor(forced, device=dev).long(), None
     else:

@@ -42,6 +42,7 @@ from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
                                          resolve_compute_dtype)
 from movae_tpu_torch.models.vq_vae import (_TRUNC_STD_CORRECTION,
                                            reset_conv_parameters)
+from movae_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 Stats = Optional[Dict[str, Tensor]]
@@ -93,21 +94,49 @@ class TorchBatchNorm(nn.Module):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
+        if mesh_lib.active_data_parallel() is not None:
+            return self._forward_global(x, xf, stats)
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         if stats is not None:
             with torch.no_grad():
                 var, mean = torch.var_mean(xf, dim=(0, 2, 3),
                                            unbiased=False)
-                n = x.numel() // x.shape[1]
-                unbiased = var * (n / max(n - 1, 1))
-                m = self.momentum
-                for name, batch in (("running_mean", mean),
-                                    ("running_var", unbiased)):
-                    key = self.prefix + name
-                    old = stats.get(key, getattr(self, name))
-                    stats[key] = m * old + (1.0 - m) * batch
+                self._update_running(stats, mean, var,
+                                     x.numel() // x.shape[1])
         return y.to(x.dtype)
+
+    def _forward_global(self, x: Tensor, xf: Tensor, stats: Stats
+                        ) -> Tensor:
+        """Train mode over the global batch of a data-parallel step: the
+        mean and the biased variance from per-rank sums all-reduced
+        (differentiable, two passes), so every rank normalizes with the
+        statistics one device computes on the whole batch."""
+        n = mesh_lib.global_batch_size(x.shape[0]) * x.shape[2] * x.shape[3]
+        mean = mesh_lib.sum_over_batch(xf.sum((0, 2, 3))) / n
+        d = xf - mean[None, :, None, None]
+        var = mesh_lib.sum_over_batch(d.square().sum((0, 2, 3))) / n
+        y = (d * torch.rsqrt(var + self.eps)[None, :, None, None]
+             * self.weight[None, :, None, None]
+             + self.bias[None, :, None, None])
+        if stats is not None:
+            with torch.no_grad():
+                self._update_running(stats, mean.detach(), var.detach(), n)
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, stats: Stats, mean: Tensor, var: Tensor,
+                        n: int) -> None:
+        """The pending running statistics from a batch's mean and biased
+        variance over ``n`` values a channel (the running variance
+        unbiased)."""
+        unbiased = var * (n / max(n - 1, 1))
+        m = self.momentum
+        for name, batch in (("running_mean", mean),
+                            ("running_var", unbiased)):
+            key = self.prefix + name
+            old = stats.get(key, getattr(self, name))
+            stats[key] = m * old + (1.0 - m) * batch
 
 
 class ChannelLayerNorm(nn.Module):

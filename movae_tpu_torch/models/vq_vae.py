@@ -32,6 +32,7 @@ from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel,
                                          resolve_activation,
                                          resolve_compute_dtype)
 from movae_tpu_torch.ops import vq as vq_ops
+from movae_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 _SLOPE = 0.01
@@ -131,6 +132,16 @@ class Codebook(nn.Module):
                                       new_cluster)
         return {"embedding.weight": new_cb, "cluster_size": new_cluster,
                 "ema_embed": new_sum}
+
+
+def ema_inputs(z: Tensor, inds: Tensor) -> Tuple[Tensor, Tensor]:
+    """An EMA codebook's update inputs from NHWC latents ``z`` and their
+    codes: the flattened (N, D) latent rows and (N,) codes, over the
+    global batch in a data-parallel step (the restart rows index it)."""
+    b, d = z.shape[0], z.shape[-1]
+    z = mesh_lib.global_rows(z.reshape(b, -1, d))
+    inds = mesh_lib.global_rows(inds.reshape(b, -1))
+    return z.reshape(-1, d), inds.reshape(-1)
 
 
 def _conv_block(conv: nn.Module) -> nn.Sequential:
@@ -264,10 +275,9 @@ class VQVAE(MOVAEModel):
             "encoding_inds": vq_out["encoding_inds"],
         }
         if self.vq_ema and train:
+            z, inds = ema_inputs(encoding, vq_out["encoding_inds"])
             upd = self.vq_layer.ema_update(
-                encoding.reshape(-1, self.embedding_dim),
-                vq_out["encoding_inds"], generator,
-                (restart_rows or {}).get("vq_layer"))
+                z, inds, generator, (restart_rows or {}).get("vq_layer"))
             out["batch_stats"] = {f"vq_layer.{k}": v for k, v in upd.items()}
         return out
 

@@ -36,7 +36,8 @@ from movae_tpu_torch.models.base import (LambdaWeights, MOVAEModel, Noise,
                                          RestartRows, compute_region, draw,
                                          resolve_activation,
                                          resolve_compute_dtype)
-from movae_tpu_torch.models.vq_vae import Codebook, reset_conv_parameters
+from movae_tpu_torch.models.vq_vae import (Codebook, ema_inputs,
+                                           reset_conv_parameters)
 from movae_tpu_torch.ops import vq as vq_ops
 
 Tensor = torch.Tensor
@@ -232,8 +233,8 @@ class VQVAE2(MOVAEModel):
             for name, book, z, vq_out in (
                     ("quantize_t", self.quantize_t, qt_in, vq_t),
                     ("quantize_b", self.quantize_b, qb_in, vq_b)):
-                upd = book.ema_update(z.reshape(-1, self.embedding_dim),
-                                      vq_out["encoding_inds"], generator,
+                upd = book.ema_update(*ema_inputs(z, vq_out["encoding_inds"]),
+                                      generator,
                                       (restart_rows or {}).get(name))
                 stats.update((f"{name}.{k}", v) for k, v in upd.items())
             out["batch_stats"] = stats

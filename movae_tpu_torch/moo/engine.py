@@ -13,6 +13,13 @@ package's per-objective traces.
 
 Jacobians are lists of tensors with a leading objective axis m. Gramians are
 accumulated in float32.
+
+Under an active data-parallel config (``parallel/mesh.py``) each rank holds
+its rows of the global batch and the engine computes what the single
+device computes on the whole batch: full mode all-reduces each objective's
+gradient row (the mean over ranks) before the Gramian; feature mode's
+Gramian is a sum of per-rank inner products over the batch-sharded seam,
+all-reduced and scaled as the global mean's (1 / dp^2).
 """
 
 from __future__ import annotations
@@ -21,7 +28,29 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from movae_tpu_torch.parallel import mesh as mesh_lib
+
 Tensor = torch.Tensor
+
+
+def _data_parallel() -> bool:
+    return (mesh_lib.active_data_parallel() is not None
+            and mesh_lib.process_count() > 1)
+
+
+def all_reduce_mean(tensors: Sequence[Tensor]) -> List[Tensor]:
+    """Each tensor's mean over the ranks, in one all-reduce of one flat
+    buffer (identities on one rank)."""
+    tensors = list(tensors)
+    if mesh_lib.process_count() == 1 or not tensors:
+        return tensors
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    mesh_lib.all_reduce_(flat, "mean")
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
 
 
 def gramian(J: Sequence[Tensor]) -> Tensor:
@@ -67,6 +96,8 @@ def full_jacobian(
             for i in range(num_objectives)]
     J = [torch.stack(leaf_rows) for leaf_rows in zip(*rows)]
     losses = torch.stack([l.detach() for l in lt])
+    if _data_parallel():
+        *J, losses = all_reduce_mean([*J, losses])
     return losses, aux, J, gramian(J)
 
 
@@ -106,6 +137,11 @@ class FeatureJacobian:
         self._J_feats = [torch.stack(r) for r in zip(*f_rows)]
         # Gramian from the feature Jacobian only, as in torchjd mtl_backward
         self.G = gramian(self._J_feats)
+        if _data_parallel():
+            # each rank's seam rows carry dp x the global mean's cotangent
+            n = mesh_lib.process_count()
+            self.G = mesh_lib.all_reduce_(self.G, "sum") / (n * n)
+            self.losses = all_reduce_mean([self.losses])[0]
 
     def grads(self, alpha: Tensor) -> List[Tensor]:
         """Trunk grads from the aggregated feature cotangent plus the summed

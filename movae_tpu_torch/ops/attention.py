@@ -12,8 +12,10 @@ All paths use the inclusive-diagonal causal mask (position i attends to
     reaches the bfloat16 instances, never the float32 ones through a cast),
     their plain version on the CPU.
 
-Not ported: the JAX package's ring (context-parallel) path, ``ROADMAP.md``
-Queue 1 item 13 (``train_prior`` refuses ``context_parallel > 1``), and its
+A data-parallel prior step (``parallel/mesh.py``) runs these paths on each
+rank's rows: attention is per row. Not ported: the JAX package's ring
+(context-parallel) path, ``ROADMAP.md`` Queue 1 item 13's next sub-item
+(``train_prior`` refuses ``context_parallel > 1``), and its
 ``blockwise_causal_attention`` scan, a CPU fallback and test oracle whose
 role the kernel's plain version takes here.
 """

@@ -41,6 +41,13 @@ no checkpoint.
     stay float.
   * An artifact runs on the device it was exported for; loading it for
     another raises.
+  * ``data_parallel=N`` (the JAX package's SPMD export over an N-device
+    mesh) serves ``reconstruct``, ``encode_codes`` and ``decode_codes`` on
+    N replicas of their program, each taking batch / N rows (the batch
+    must be a multiple of N; the draws are made for the whole batch and
+    split with it), so each answer is the single replica's on the whole
+    batch. The replicas run on the artifact's device, each on a CUDA
+    stream of its own on the card. ``sample`` stays single-device.
 
 Reference parity anchor: the exported functions mirror the reference's
 inference surfaces — ``model(images)["recons"]`` (main.py:159),
@@ -70,9 +77,6 @@ SUFFIX = ".pt2"
 MANIFEST = "manifest.json"
 TABLES = ".tables.pt"
 FORMAT = "torch.export"
-NOT_PORTED_DATA_PARALLEL = (
-    "data_parallel > 1 is not ported to movae_tpu_torch yet: ROADMAP.md "
-    "Queue 1 item 13 (multi-device)")
 KV_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "int8": torch.int8}
 _QUANT_LAYERS = (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)
@@ -552,12 +556,14 @@ def export_serving(model: nn.Module, out_dir: str, *,
     ``sampler_from``: an artifact directory whose sampler programs are
     copied instead of exported again where its ``sampler_key`` equals this
     export's (the int8 artifact of a checkpoint whose float32 one exists:
-    prior weights are never quantized). ``data_parallel > 1`` raises
-    ``NotImplementedError``: one device."""
+    prior weights are never quantized). ``data_parallel`` N > 1: the
+    symbolic-batch functions are served on N replicas (``nr_devices`` in
+    the manifest; see the module docstring)."""
     import shutil
 
-    if int(data_parallel) > 1:
-        raise NotImplementedError(NOT_PORTED_DATA_PARALLEL)
+    nr = int(data_parallel)
+    if nr < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {nr}")
     os.makedirs(out_dir, exist_ok=True)
     dev = next(model.parameters()).device
     fns = build_serving_fns(model, **build_kwargs)
@@ -571,7 +577,8 @@ def export_serving(model: nn.Module, out_dir: str, *,
         "functions": {}}
     manifest.update(manifest_extra or {})
     for name, fn in fns.items():
-        entry = {"symbolic_batch": fn["symbolic_batch"], "nr_devices": 1,
+        entry = {"symbolic_batch": fn["symbolic_batch"],
+                 "nr_devices": nr if fn["symbolic_batch"] else 1,
                  "draws": fn["draws"], "draw_seed": fn["draw_seed"],
                  "programs": {}, "bytes": 0, "export_seconds": 0.0}
         key = fn.get("sampler_key")
@@ -644,6 +651,11 @@ class _Loaded:
             ep = torch.export.load(os.path.join(art_dir, stem + SUFFIX))
             self.programs[stem] = (_module(ep) if "loop" in entry
                                    else ep.module())
+        # data_parallel: the further replicas of the program
+        nr = int(entry.get("nr_devices", 1))
+        self.replicas = [self.programs.get(name)] + [
+            torch.export.load(os.path.join(art_dir, name + SUFFIX)).module()
+            for _ in range(nr - 1)]
         self.tables = {}
         for lvl in (entry.get("loop") or {}).get("levels", []):
             tab = torch.load(os.path.join(art_dir, lvl["tables"]),
@@ -680,7 +692,37 @@ class _Loaded:
             batch = data[0].shape[0] if data else None
             drawn = (self._draws(seed, batch) if draws is None
                      else [self._tensor(d) for d in draws])
+            if len(self.replicas) > 1 and batch is not None:
+                return self._replicated(data, drawn)
             return self.programs[self.name](*data, *drawn)
+
+    def _replicated(self, data: list, drawn: list):
+        """The batch's rows split into one contiguous block per replica
+        (the draws with them), each replica on its block, the answers
+        joined in order: the single replica's answer on the whole
+        batch."""
+        nr = len(self.replicas)
+        batch = data[0].shape[0]
+        if batch % nr:
+            raise ValueError(f"{self.name}: batch {batch} is not a multiple "
+                             f"of data_parallel={nr}")
+        blocks = [t.chunk(nr) for t in (*data, *drawn)]
+        streams = ([torch.cuda.Stream(self.device) for _ in range(nr)]
+                   if self.device.type == "cuda" else None)
+        outs = []
+        for i, replica in enumerate(self.replicas):
+            ctx = (torch.cuda.stream(streams[i]) if streams
+                   else contextlib.nullcontext())
+            if streams:
+                streams[i].wait_stream(torch.cuda.current_stream())
+            with ctx:
+                outs.append(replica(*(b[i] for b in blocks)))
+        if streams:
+            for st in streams:
+                torch.cuda.current_stream().wait_stream(st)
+        if isinstance(outs[0], (tuple, list)):
+            return type(outs[0])(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
 
     def _loop(self, seed: int, draws: Optional[list] = None
               ) -> torch.Tensor:
@@ -786,9 +828,9 @@ def export_checkpoint(model_path: str, out_dir: str, *,
     rebuilt from the checkpoint's args alone, the trained prior beside it
     loaded (``train/prior.py:find_prior``) so that ``sample`` is
     prior-driven, as the training pipeline's generation pass.
-    ``sampler_from``: as :func:`export_serving`'s."""
-    if int(data_parallel) > 1:
-        raise NotImplementedError(NOT_PORTED_DATA_PARALLEL)
+    ``sampler_from`` and ``data_parallel``: as :func:`export_serving`'s."""
+    if int(data_parallel) < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {data_parallel}")
     model, args, input_size = _model_from_checkpoint(model_path, arch,
                                                      device)
     prior = None
@@ -803,7 +845,7 @@ def export_checkpoint(model_path: str, out_dir: str, *,
                         "prior": (None if prior is None else
                                   type(prior["model"]).__name__),
                         "source_checkpoint": os.path.abspath(model_path)},
-        sampler_from=sampler_from,
+        sampler_from=sampler_from, data_parallel=data_parallel,
         normalize_inputs=bool(getattr(args, "normalize_inputs", False)),
         prior=prior, sample_batch=sample_batch, temperature=temperature,
         input_size=input_size, quantize=quantize,

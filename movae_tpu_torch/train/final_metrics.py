@@ -15,15 +15,22 @@ reports nan, as the JAX package does.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from movae_tpu_torch.device import deterministic_cudnn
 from movae_tpu_torch.metrics import features as feat_lib
 from movae_tpu_torch.metrics import pixel as pixel_lib
 from movae_tpu_torch.metrics.vgg import make_lpips_fn
 from movae_tpu_torch.models.pixelcnn import sample_hierarchical, sample_prior
+from movae_tpu_torch.parallel import mesh as mesh_lib
+from movae_tpu_torch.parallel.context import (gather_sample_batch,
+                                              get_sample_parallel,
+                                              sample_parallel,
+                                              shard_sample_batch)
 
 # ``args.kv_cache_dtype`` -> the PixelSNAIL sampler's key/value cache dtype
 KV_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -108,9 +115,25 @@ def generate_samples(model, args, prior: Optional[Mapping[str, Any]],
     batch size ``batch`` and slices the tail on the host; a single-chunk
     call (``num <= batch``) samples exactly ``num``.
 
-    One device only: the JAX package's sample-parallel mesh and its chunk
-    gather (``movae_tpu/train/final_metrics.py:103-127``) are ROADMAP.md
-    Queue 1 item 13, not ported."""
+    Runs under ``device.py:deterministic_cudnn``, so one seed repeats its
+    images on the card (the decoders' transposed convolutions would
+    otherwise sum in no fixed order), as the generator CLIs do.
+
+    Data-parallel over the ranks of a torchrun run: a sample-parallel
+    config (``parallel/context.py``) is installed over every rank when none
+    is active, so each rank samples its rows of every chunk, decodes them
+    and the chunk is gathered; the draws are the global batch's, so the
+    images are one device's. That gather is a COLLECTIVE: every rank calls
+    this, and only the use of the result is gated on rank 0."""
+    ctx = contextlib.nullcontext()
+    if get_sample_parallel() is None and mesh_lib.process_count() > 1:
+        ctx = sample_parallel(mesh_lib.make_mesh(device=_device(model)))
+    with deterministic_cudnn(), ctx:
+        return _generate_samples(model, args, prior, generator, num, batch)
+
+
+def _generate_samples(model, args, prior, generator, num: int,
+                      batch: int) -> np.ndarray:
     temperature = getattr(args, "pixelcnn_temperature", 1.0)
     cache_dtype = KV_CACHE_DTYPES[getattr(args, "kv_cache_dtype", "int8")]
     chunks = []
@@ -125,13 +148,16 @@ def generate_samples(model, args, prior: Optional[Mapping[str, Any]],
                     pm, generator, b, (model.latent_spatial_dim_top,) * 2,
                     (model.latent_spatial_dim_bottom,) * 2,
                     temperature=temperature, cache_dtype=cache_dtype)
-                imgs = model.decode_code(z_top, z_bottom)
+                imgs = gather_sample_batch(model.decode_code(
+                    shard_sample_batch(z_top), shard_sample_batch(z_bottom)),
+                    b)
             else:
                 s = model.latent_spatial_dim
                 codes = sample_prior(pm, generator, b, s, s,
                                      temperature=temperature,
                                      cache_dtype=cache_dtype)
-                imgs = model.decode_code(codes)
+                imgs = gather_sample_batch(
+                    model.decode_code(shard_sample_batch(codes)), b)
         else:
             imgs = model.sample(b, generator=generator)
         chunks.append(_host(imgs)[:need])

@@ -1,5 +1,4 @@
-"""Training orchestration — port of ``movae_tpu/train/loop.py`` for one
-card.
+"""Training orchestration — port of ``movae_tpu/train/loop.py``.
 
 Data -> model -> optimizer -> aggregator config -> train step -> epoch loop
 with periodic eval, sample/recon figures and a resumable
@@ -18,12 +17,22 @@ queue with no host synchronisation between them, and k single steps give
 the numbers of the JAX package's k-step scan. ``--remat`` and
 ``--compute_dtype bfloat16`` reach the step and the model.
 
+Started by ``torchrun --nproc_per_node N -m movae_tpu_torch.main ...``,
+the stage runs data-parallel over the N ranks (``parallel/mesh.py``): each
+rank loads its interleaved slice of every global batch (``--batch_size``
+is the global batch), the step all-reduces what one device would compute
+on the whole batch, ``--fsdp`` holds 1/N of the large leaves and their
+moments at rest, eval metrics are means over the ranks, and rank 0 alone
+writes the run tree (checkpoints, figures, ``wandb_local``); every rank
+takes part in the collectives behind them.
+
 Flags the port cannot honour yet raise ``NotImplementedError`` naming
 their ``ROADMAP.md`` item (:func:`check_supported`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -38,6 +47,7 @@ from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.metrics.hv import build_hv_indicator
 from movae_tpu_torch.models import get_network, init_model
 from movae_tpu_torch.moo import AggregatorConfig, init_state
+from movae_tpu_torch.parallel import mesh as mesh_lib
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train import figures as fig_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
@@ -73,8 +83,6 @@ def check_supported(args) -> None:
     for flag in ("model_partitions", "context_parallel", "pipeline_parallel"):
         if int(getattr(args, flag, 1) or 1) > 1:
             raise _not_ported(f"--{flag} > 1", "Queue 1 item 13")
-    if getattr(args, "fsdp", False):
-        raise _not_ported("--fsdp", "Queue 1 item 13")
     if (int(getattr(args, "grad_accum", 1) or 1) > 1
             and int(getattr(args, "steps_per_dispatch", 1) or 1) > 1):
         raise ValueError(
@@ -126,6 +134,39 @@ def model_summary(model: torch.nn.Module) -> str:
     lines += [f"{k:<{width}}  {v:,}" for k, v in groups.items()]
     lines.append(f"{'total':<{width}}  {sum(groups.values()):,}")
     return "\n".join(lines)
+
+
+def trim_tail(imgs, i: int, n_valid: int, pc: int, n_ds: int, gb: int):
+    """A rank's batch ``i`` without the loader's wrap padding: the smallest
+    multiple of the ``pc`` ranks covering the global valid rows (every rank
+    keeps the same count). Returns ``(imgs, global valid rows)`` (the JAX
+    package's ``_trim_tail``)."""
+    gv = n_valid if pc == 1 else max(1, min(gb, n_ds - i * gb))
+    if gv < len(imgs) * pc:
+        keep_g = ((gv + pc - 1) // pc) * pc
+        if 0 < keep_g // pc <= len(imgs):
+            imgs = imgs[: keep_g // pc]
+    return imgs, gv
+
+
+def parallel_from_args(args, device: torch.device):
+    """``(rank, world, DataParallel or None)`` for this process: a
+    data-parallel config over the ranks torchrun started (``--fsdp`` for
+    fully sharded), None for one process."""
+    rank, world = mesh_lib.init_distributed(device)
+    if world == 1:
+        return rank, world, None
+    return rank, world, mesh_lib.DataParallel(
+        mesh_lib.make_mesh(device=device),
+        fsdp=bool(getattr(args, "fsdp", False)))
+
+
+def shared_timestamp() -> str:
+    """The run tree's timestamp, rank 0's on every rank."""
+    stamp = [time.strftime("%Y%m%d_%H%M%S")]
+    if mesh_lib.process_count() > 1:
+        torch.distributed.broadcast_object_list(stamp, 0)
+    return stamp[0]
 
 
 def to_device(imgs, device: torch.device) -> torch.Tensor:
@@ -258,10 +299,20 @@ def train_epoch(step_fn, state, loader, device, generator, step, logger,
     run = _Steps(step_fn, accum_fn, state, generator, step, pump)
     if timer is not None:
         timer.start()
-    batches = ((to_device(imgs[:n_valid], device), n_valid)
-               for imgs, _labels, n_valid in loader)
-    for group in accum_groups(batches, accum_k,
-                              lambda b: b[1] == loader.batch_size):
+    pc = getattr(loader, "process_count", 1)
+    gb = loader.batch_size * pc
+
+    def batches():
+        for i, (imgs, _labels, n_valid) in enumerate(loader):
+            if pc > 1:
+                imgs, n_valid = trim_tail(imgs, i, n_valid, pc,
+                                          len(loader.dataset), gb)
+            else:
+                imgs = imgs[:n_valid]
+            yield to_device(imgs, device), n_valid
+
+    for group in accum_groups(batches(), accum_k,
+                              lambda b: b[1] == gb):
         run(group)
         if stop_check is not None and stop_check():
             break
@@ -307,16 +358,30 @@ def evaluate(eval_fn, loader, objective_names,
     """Eval losses (weighted by valid rows) and exact codebook usage over
     the whole loader (reference evaluate, main.py:238-332). The per-batch
     losses and the used-code union stay on the device and reach the host
-    in one copy at the end."""
+    in one copy at the end. Over a rank's slices of a data-parallel run
+    (a collective) the losses are the weighted means over every rank's
+    rows and the union is over every rank's codes."""
     keys = list(objective_names) + ["total_loss"]
     meters = {k: AverageMeter() for k in keys}
     rows, weights, union = [], [], {}
     for imgs, _labels, n_valid in loader:
+        if n_valid == 0:
+            continue
         metrics, extras, _ = eval_fn(imgs[:n_valid], generator)
         rows.append(torch.stack([metrics[k].float() for k in keys]))
         weights.append(n_valid)
         for k, mask in extras.items():
             union[k] = union[k] | mask if k in union else mask
+    if mesh_lib.process_count() > 1:
+        # every rank's weighted sums and row counts, and the code union
+        dev = rows[0].device if rows else torch.device("cpu")
+        w = torch.tensor(weights, dtype=torch.float32, device=dev)
+        tot = (torch.stack(rows) * w[:, None]).sum(0) if rows else \
+            torch.zeros(len(keys), device=dev)
+        both = mesh_lib.all_reduce_(torch.cat([tot, w.sum()[None]]), "sum")
+        rows, weights = [both[:-1] / both[-1]], [float(both[-1])]
+        union = {k: mesh_lib.all_reduce_(m.to(torch.int32), "max").bool()
+                 for k, m in sorted(union.items())}
     if rows:
         for vals, w in zip(torch.stack(rows).cpu().tolist(), weights):
             for k, v in zip(keys, vals):
@@ -338,8 +403,10 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     prior stage and the final metrics read. Runs on ``device``, else
     ``args.device``, else ``cuda``."""
     check_supported(args)
-    dev = resolve_device(device if device is not None
-                         else getattr(args, "device", None))
+    dev = resolve_device(mesh_lib.rank_device(
+        device if device is not None else getattr(args, "device", None)))
+    rank, world, parallel = parallel_from_args(args, dev)
+    lead = rank == 0
     normalize = getattr(args, "normalize_inputs", False)
     train_ds, test_ds, input_size = get_dataset(
         args.dataset, data_dir=args.data_dir, normalize=normalize)
@@ -350,24 +417,33 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     args.dataset_size = len(train_ds)
     seed = getattr(args, "seed", 0) or 0
     batch_size = args.batch_size
+    if batch_size % world:
+        raise ValueError(f"--batch_size {batch_size} (the global batch) "
+                         f"must be divisible by the {world} ranks")
+    shard = dict(process_index=rank, process_count=world)
 
-    # the hot loop's loaders ship raw uint8 (cast on the device); the float
-    # test_loader serves the final metric passes
-    train_loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
-                          raw=True)
-    eval_loader = Loader(test_ds, batch_size, shuffle=False, raw=True)
+    # the hot loop's loaders ship raw uint8 (cast on the device), each rank
+    # its interleaved slice; the float test_loader serves the final metric
+    # passes, which every rank runs whole
+    train_loader = Loader(train_ds, batch_size // world, shuffle=True,
+                          seed=seed, raw=True, **shard)
+    eval_loader = Loader(test_ds, batch_size // world, shuffle=False,
+                         raw=True, **shard)
     test_loader = Loader(test_ds, batch_size, shuffle=False)
 
     model = init_model(get_network(input_size, 3, args), seed=seed,
                        device=dev)
+    if parallel is not None:
+        parallel.replicate(model)
     args.total_params = sum(p.numel() for p in model.parameters()
                             if p.requires_grad)
-    print(model_summary(model))
+    if lead:
+        print(model_summary(model))
     for name, w in dict(model.lambda_weights).items():
         setattr(args, f"{name}_weight", w)
 
     accum_k = int(getattr(args, "grad_accum", 1) or 1)
-    dd = resolve_device_data(args, train_ds, batch_size, dev)
+    dd = resolve_device_data(args, train_ds, batch_size, dev, **shard)
     # the lr schedule and COMFORT's beta count OPTIMIZER steps; NashMTL's
     # per-epoch default counts gradient aggregations (batches)
     if dd is not None:
@@ -400,16 +476,28 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
             **{**agg_cfg.__dict__,
                "nashmtl_update_every": batches_per_epoch})
     args.aggregator = agg_cfg.name
-    state = TrainState.create(model, tx, init_state(agg_cfg))
+    fsdp = (parallel.shard_params(model)
+            if parallel is not None and parallel.fsdp else None)
+    state = TrainState.create(model, tx, init_state(agg_cfg), fsdp=fsdp)
+    if fsdp is not None and lead:
+        print(f"[fsdp] {fsdp.sharded} of {len(fsdp.params)} leaves sharded "
+              f"over {world} ranks")
+
+    def whole():
+        """The model's parameters whole for the block (fsdp: a
+        collective)."""
+        return fsdp.whole() if fsdp is not None else \
+            contextlib.nullcontext()
 
     save_root = os.path.join(args.save_path, args.dataset, args.arch,
-                             args.optimizer, agg_cfg.name,
-                             time.strftime("%Y%m%d_%H%M%S"))
-    for sub in (("figures", "generated"), ("figures", "reconstructed"),
-                ("checkpoints",)):
-        os.makedirs(os.path.join(save_root, *sub), exist_ok=True)
+                             args.optimizer, agg_cfg.name, shared_timestamp())
+    if lead:
+        for sub in (("figures", "generated"), ("figures", "reconstructed"),
+                    ("checkpoints",)):
+            os.makedirs(os.path.join(save_root, *sub), exist_ok=True)
     logger = ExperimentLogger(
-        use_wandb=getattr(args, "use_wandb", False), save_dir=save_root,
+        use_wandb=lead and getattr(args, "use_wandb", False),
+        save_dir=save_root if lead else None,
         config=vars(args), project=getattr(args, "wandb_project", "mo-vae"),
         entity=getattr(args, "wandb_entity", None),
         name=getattr(args, "wandb_name", None),
@@ -421,12 +509,13 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     remat = bool(getattr(args, "remat", False))
     train_step = make_train_step(model, agg_cfg, args.epochs,
                                  steps_per_epoch, normalize_inputs=normalize,
-                                 remat=remat)
+                                 remat=remat, parallel=parallel)
     grouped = dict(accum_k=accum_k)
     if accum_k > 1:
         grouped["accum_fn"] = make_train_step(
             model, agg_cfg, args.epochs, steps_per_epoch,
-            normalize_inputs=normalize, remat=remat, grad_accum=accum_k)
+            normalize_inputs=normalize, remat=remat, grad_accum=accum_k,
+            parallel=parallel)
     eval_fn = make_eval_step(model, normalize_inputs=normalize)
     # the step's draws (EMA restarts, aggregator choices, device flips)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -445,8 +534,15 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     resume_from = getattr(args, "resume", None)
     if resume_from:
         payload = ckpt_lib.load_checkpoint(resume_from)
-        ckpt_lib.load_module_state(model, payload)
-        state.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        with whole():
+            ckpt_lib.load_module_state(model, payload)
+        if fsdp is not None:
+            fsdp.reload_shards()
+            fsdp.load_full_optimizer_state(state.optimizer,
+                                           payload["optimizer_state_dict"])
+        else:
+            state.optimizer.load_state_dict(
+                payload["optimizer_state_dict"])
         state.agg_state = dict(payload.get("agg_state") or {})
         gen.set_state(payload["generator_state"])
         start_epoch = int(payload.get("epoch") or 0) + 1
@@ -474,18 +570,26 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
             print(f"Saved profiler trace of epoch {epoch} to {path}")
             prof = None
 
-    # preemption: SIGTERM checkpoints at the next step boundary and exits
-    # 143 so a retry can --resume
+    # preemption: SIGTERM checkpoints at the next step boundary (one
+    # process) or epoch end (every rank agreeing) and exits 143 so a retry
+    # can --resume
     guard = PreemptionGuard()
+    stop_check = (lambda: guard.triggered) if world == 1 else None
 
     def save_last(epoch_done: int) -> None:
-        ref, extra = ckpt_lib.split_state_dict(model)
+        # the gathers are collectives; rank 0 alone writes
+        with whole():
+            ref, extra = ckpt_lib.split_state_dict(model)
+        opt_state = (state.optimizer.state_dict() if fsdp is None
+                     else fsdp.full_optimizer_state(state.optimizer))
+        if not lead:
+            return
         ckpt_lib.save_checkpoint(ckpt_lib.last_checkpoint_path(save_root), {
             "epoch": epoch_done, "step": step,
             # updates applied (the device counter: the lr's position)
             "applied_steps": int(state.step),
             "model_state_dict": ref, "ema_state": extra,
-            "optimizer_state_dict": state.optimizer.state_dict(),
+            "optimizer_state_dict": opt_state,
             "agg_state": {k: v.detach().cpu()
                           for k, v in state.agg_state.items()},
             "generator_state": gen.get_state(),
@@ -497,15 +601,15 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
                 dd, train_step, state, dev, gen, step, logger,
                 model.objective_names, epoch_index=epoch,
                 log_every=log_every, timer=timer,
-                stop_check=lambda: guard.triggered, **grouped)
+                stop_check=stop_check, **grouped)
         else:
             state, meters, step = train_epoch(
                 train_step, state, train_loader, dev, gen, step, logger,
                 model.objective_names, log_every=log_every, timer=timer,
-                stop_check=lambda: guard.triggered, **grouped)
+                stop_check=stop_check, **grouped)
         train_losses.append({k: v.avg for k, v in meters.items()})
 
-        if guard.triggered:
+        if guard.globally_triggered():
             # this epoch did not complete: resume runs it again from the
             # mid-epoch weights
             save_last(epoch - 1)
@@ -524,12 +628,20 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
 
         if (epoch % getattr(args, "save_freq", 10) == 0
                 or epoch == args.epochs):
-            _write_figures(model, test_ds, gen, save_root, epoch, num_vis,
-                           normalize, logger, step, train_ds=train_ds)
+            # every rank draws (the step's generator stays in lockstep);
+            # rank 0 writes
+            with whole():
+                _write_figures(model, test_ds, gen, save_root, epoch,
+                               num_vis, normalize, logger, step,
+                               train_ds=train_ds, write=lead)
 
         if epoch % getattr(args, "eval_freq", 1) == 0:
-            eval_meters = evaluate(eval_fn, eval_loader,
-                                   model.objective_names, gen)
+            with whole():
+                eval_meters = evaluate(eval_fn, eval_loader,
+                                       model.objective_names, gen)
+            # a rank's eval draws follow its own rows: rank 0's generator
+            # goes on for every rank
+            mesh_lib.sync_generator(gen)
             eval_losses.append({k: v.avg for k, v in eval_meters.items()})
             for k, v in eval_meters.items():
                 log_dict[f"eval/{k}"] = v.avg
@@ -539,7 +651,8 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
                 log_dict["eval/hv"] = hv_indicator(pt)
             loss_line = ", ".join(f"{k}: {v.avg:.6e}"
                                   for k, v in eval_meters.items())
-            print(f"Epoch {epoch}/{args.epochs} eval: {loss_line}")
+            if lead:
+                print(f"Epoch {epoch}/{args.epochs} eval: {loss_line}")
 
         if logger.active and log_dict:
             logger.log(log_dict, step=step)
@@ -552,7 +665,11 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
             save_last(epoch)
 
     guard.uninstall()
-    print(f"Training done: {timer.images_per_sec:.1f} images/sec")
+    if lead:
+        print(f"Training done: {timer.images_per_sec:.1f} images/sec")
+    if fsdp is not None:
+        # the later stages read the whole model
+        fsdp.gather()
 
     final_path = ckpt_lib.final_checkpoint_path(save_root)
     ref, extra = ckpt_lib.split_state_dict(model)
@@ -564,8 +681,11 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
                                for e in eval_losses), default=None)}
     if extra:
         payload["ema_state"] = extra
-    ckpt_lib.save_checkpoint(final_path, payload)
-    print(f"Saved final checkpoint to {final_path}")
+    if lead:
+        ckpt_lib.save_checkpoint(final_path, payload)
+        print(f"Saved final checkpoint to {final_path}")
+    if parallel is not None:
+        torch.distributed.barrier()
 
     results = {
         "save_root": save_root, "state": state, "model": model,
@@ -573,7 +693,7 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
         "images_per_sec": timer.images_per_sec, "logger": logger,
         "test_loader": test_loader, "train_loader": train_loader,
         "normalize": normalize, "seed": seed, "device": dev,
-        "step": step,
+        "step": step, "parallel": parallel, "rank": rank, "world": world,
     }
     if resume_from:
         # a run preempted in the prior stage left a last_prior beside the
@@ -592,19 +712,23 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
 
 @torch.no_grad()
 def _write_figures(model, test_ds, generator, save_root, epoch, num_vis,
-                   normalized, logger, step, train_ds=None):
+                   normalized, logger, step, train_ds=None,
+                   write: bool = True):
     """Per-epoch sample grid and test/train reconstruction panels at the
     reference's file names (main.py:1331-1366). A failed figure is printed
-    and the run goes on, as in the JAX package."""
+    and the run goes on, as in the JAX package. Every rank of a
+    data-parallel run draws the figures' samples (its generator stays in
+    step with rank 0's); only ``write`` saves them."""
     dev = next(model.parameters()).device
     try:
         samples = model.sample(num_vis, generator=generator)
-        png = fig_lib.save_sample_grid(
-            samples.cpu().numpy(),
-            os.path.join(save_root, "figures", "generated",
-                         f"epoch_{epoch:04d}_random_samples.pdf"),
-            normalized)
-        logger.log_image("samples/generated", png, step=step)
+        if write:
+            png = fig_lib.save_sample_grid(
+                samples.cpu().numpy(),
+                os.path.join(save_root, "figures", "generated",
+                             f"epoch_{epoch:04d}_random_samples.pdf"),
+                normalized)
+            logger.log_image("samples/generated", png, step=step)
     except Exception as e:
         print(f"figure generation failed: {e!r}")
     for split, ds in (("test", test_ds), ("train", train_ds)):
@@ -614,6 +738,8 @@ def _write_figures(model, test_ds, generator, save_root, epoch, num_vis,
             imgs, _ = ds.get_batch(np.arange(min(num_vis, len(ds))))
             out = model(torch.from_numpy(imgs).to(dev), train=False,
                         generator=generator)
+            if not write:
+                continue
             png = fig_lib.save_reconstruction_panel(
                 imgs, out["recons"].cpu().numpy(),
                 os.path.join(save_root, "figures", "reconstructed",

@@ -14,12 +14,23 @@ logs ``prior/loss`` and draws ``prior_sample_every`` sample grids.
 kernels' bf16 instances at L > 1024); ``grad_accum`` A accumulates A full
 code batches into one update, as the JAX package's prior does.
 
-Not ported yet, raising with its ``ROADMAP.md`` item: context / pipeline
-parallelism and fsdp (Queue 1 item 13).
+Data-parallel over the stage-1 ranks (``parallel``, from ``run_training``
+under torchrun): each rank extracts its own loader slice (a per-rank code
+cache), the slices are gathered into the global code set in the loaders'
+interleaved order, and each rank trains on its slice of every global
+batch (``CodeLoader(process_index=, process_count=)``) with the gradients
+all-reduced, the dropout masks drawn for the global batch, and under
+``--fsdp`` 1/N of the large leaves and moments held at rest: the numbers
+of one device on the whole batch. Rank 0 alone writes.
+
+Not ported yet, raising with its ``ROADMAP.md`` item: context and
+pipeline parallelism (Queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import sys
 from types import SimpleNamespace
@@ -34,6 +45,8 @@ from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
                                              HierarchicalPixelSNAIL,
                                              PixelCNN, PixelSNAIL,
                                              warn_long_seq_dropout)
+from movae_tpu_torch.moo import engine
+from movae_tpu_torch.parallel import mesh as mesh_lib
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
 from movae_tpu_torch.train.step import (accum_groups, accumulate,
@@ -206,9 +219,8 @@ def _check_supported(args) -> None:
             "--grad_accum and --steps_per_dispatch are mutually exclusive "
             "(an accumulation group is already one dispatch)")
     if (int(_get(args, "context_parallel", 1) or 1) > 1
-            or int(_get(args, "pipeline_parallel", 1) or 1) > 1
-            or _get(args, "fsdp", False)):
-        raise _not_ported("context / pipeline parallelism and fsdp",
+            or int(_get(args, "pipeline_parallel", 1) or 1) > 1):
+        raise _not_ported("context / pipeline parallelism",
                           "Queue 1 item 13")
 
 
@@ -223,7 +235,7 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
                           prior: Optional[torch.nn.Module] = None,
                           save_root: Optional[str] = None,
                           logger=None, resume: Optional[str] = None,
-                          vq_model=None) -> Dict[str, Any]:
+                          vq_model=None, parallel=None) -> Dict[str, Any]:
     """Train a prior on frozen code grids; returns ``{"model" (the last
     epoch's weights), "params" (the best epoch's state_dict on the CPU),
     "hierarchical"}``.
@@ -256,6 +268,11 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     k gives the numbers of k single steps, as the JAX package's scanned
     step does; the loop already queues steps with no host synchronisation
     between them (it reads the losses every 8 steps).
+
+    ``parallel`` (a ``DataParallel`` over the ranks): ``levels`` is the
+    global code set on every rank and ``batch_size`` the global batch;
+    each rank trains on its interleaved slice of every batch (see the
+    module docstring), rank 0 writes.
     """
     _check_supported(args)
     hierarchical = "codes" not in levels
@@ -268,15 +285,25 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     eps = float(_get(args, "pixelcnn_adam_eps", 1e-8) or 1e-8)
     prior_type = _get(args, "prior_type", "pixelcnn")
     sample_every = int(_get(args, "prior_sample_every", 0) or 0)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    if parallel is None:
+        rank, world = 0, 1
+    lead = rank == 0
+    batch = int(_get(args, "batch_size"))
+    if batch % world:
+        raise ValueError(f"--batch_size {batch} (the global batch) must be "
+                         f"divisible by the {world} ranks")
     loader = CodeLoader({k: np.asarray(levels[k]) for k in names},
-                        int(_get(args, "batch_size")), shuffle=True,
-                        seed=seed)
+                        batch // world, shuffle=True, seed=seed,
+                        process_index=rank, process_count=world)
 
     if prior is None:
         prior = build_prior(args, model_meta.num_embeddings, hierarchical,
                             getattr(model_meta, "embedding_dim", None))
         prior.reset_parameters(torch.Generator().manual_seed(seed))
     prior = prior.to(dev)
+    if parallel is not None:
+        parallel.replicate(prior)
     grid = levels[names[0]]
     warn_long_seq_dropout(prior, grid.shape[1], grid.shape[2])
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -286,42 +313,89 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     # grad_accum, the leftovers and the ragged tail as single updates)
     accum_k = int(_get(args, "grad_accum", 1) or 1)
     n_batches = max(len(loader), 1)
-    spe = optimizer_steps(min(n_batches, loader.n // loader.batch_size),
-                          n_batches, accum_k)
+    spe = optimizer_steps(min(n_batches, loader.n // batch), n_batches,
+                          accum_k)
     recipe = build_optimizer(
         "adamw" if wd else "adam",
         lr_schedule(lr, "cosine", epochs, spe, lr_min=1e-6),
         weight_decay=wd, max_grad_norm=1.0, eps=eps)
     params = list(prior.parameters())
-    opt = recipe.init(params)
+    fsdp = (parallel.shard_params(prior)
+            if parallel is not None and parallel.fsdp else None)
+    opt = recipe.init(params if fsdp is None else fsdp.shards)
+    # under fsdp the optimizer clips the slices' gradients as one vector
+    step_recipe = (recipe if fsdp is None
+                   else dataclasses.replace(recipe, max_grad_norm=None))
+
+    def whole():
+        return fsdp.whole() if fsdp is not None else \
+            contextlib.nullcontext()
     echo = prior_args_echo(args, prior.embedding_dim)
 
     start_epoch, step, best_loss = 1, 0, float("inf")
     resume = resume or _get(args, "prior_resume")
     if resume and os.path.exists(resume):
         payload = ckpt_lib.load_checkpoint(resume)
-        prior.load_state_dict(payload["model_state_dict"])
-        opt.load_state_dict(payload["optimizer_state_dict"])
+        with whole():
+            prior.load_state_dict(payload["model_state_dict"])
+        if fsdp is not None:
+            fsdp.reload_shards()
+            fsdp.load_full_optimizer_state(opt,
+                                           payload["optimizer_state_dict"])
+        else:
+            opt.load_state_dict(payload["optimizer_state_dict"])
         gen.set_state(payload["generator_state"])
         start_epoch = int(payload.get("epoch") or 0) + 1
         step = int(payload.get("step") or 0)
         best_loss = float(payload.get("best_loss", float("inf")))
         loader.epoch = start_epoch - 1
         print(f"Resumed prior from {resume} at epoch {start_epoch}")
-    best_params = _cpu_state(prior)
+    with whole():
+        best_params = _cpu_state(prior)
 
     guard = PreemptionGuard() if save_root is not None else None
 
     def save(path: str, epoch_done: int, params, loss: float, **extra):
-        ckpt_lib.save_checkpoint(path, {
-            "epoch": epoch_done, "model_state_dict": params, "loss": loss,
-            "prior_args": echo, **extra})
+        if lead:
+            ckpt_lib.save_checkpoint(path, {
+                "epoch": epoch_done, "model_state_dict": params,
+                "loss": loss, "prior_args": echo, **extra})
 
     def save_last(epoch_done: int, loss: float) -> None:
+        # the gathers are collectives; rank 0 alone writes
+        with whole():
+            state = _cpu_state(prior)
         save(ckpt_lib.last_prior_path(save_root, prior_type), epoch_done,
-             _cpu_state(prior), loss, step=step, best_loss=best_loss,
-             optimizer_state_dict=opt.state_dict(),
+             state, loss, step=step, best_loss=best_loss,
+             optimizer_state_dict=(opt.state_dict() if fsdp is None else
+                                   fsdp.full_optimizer_state(opt)),
              generator_state=gen.get_state())
+
+    def prior_loss(codes) -> torch.Tensor:
+        """This rank's loss; its dropout masks are drawn for the global
+        batch (the rank keeps its rows)."""
+        if parallel is None:
+            return prior.loss_function(*codes, train=True,
+                                       generator=gen)["total_loss"]
+        with parallel.activate():
+            return prior.loss_function(*codes, train=True,
+                                       generator=gen)["total_loss"]
+
+    def apply(grads) -> None:
+        """One optimizer update from this rank's gradients: their mean over
+        the ranks (fsdp: this rank's slices of it, clipped as one
+        vector)."""
+        if fsdp is not None:
+            grads = fsdp.clip_by_global_norm(
+                fsdp.reduce_scatter(grads), recipe.max_grad_norm)
+            targets = fsdp.shards
+        else:
+            if parallel is not None:
+                grads = engine.all_reduce_mean(grads)
+            targets = params
+        for p, g in zip(targets, grads):
+            p.grad = g
+        step_recipe.step(opt, step)
 
     avg = float("nan")
     for epoch in range(start_epoch, epochs + 1):
@@ -342,41 +416,44 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
         def update(batches) -> None:
             nonlocal step
             losses = []
+            if fsdp is not None:
+                fsdp.gather()
             if len(batches) == 1:
                 codes = [torch.from_numpy(batches[0][0][k]).to(dev)
                          for k in names]
-                loss = prior.loss_function(*codes, train=True,
-                                           generator=gen)["total_loss"]
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
+                loss = prior_loss(codes)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, torch.autograd.grad(
+                             loss, params, allow_unused=True))]
                 losses.append(loss.detach())
             else:
-                acc = [torch.zeros_like(p) for p in params]
+                grads = [torch.zeros_like(p) for p in params]
                 for batch, _ in batches:
                     codes = [torch.from_numpy(batch[k]).to(dev)
                              for k in names]
-                    loss = prior.loss_function(*codes, train=True,
-                                               generator=gen)["total_loss"]
-                    accumulate(acc, torch.autograd.grad(
+                    loss = prior_loss(codes)
+                    accumulate(grads, torch.autograd.grad(
                         loss, params, allow_unused=True), 1.0 / len(batches))
                     losses.append(loss.detach())
-                for p, a in zip(params, acc):
-                    p.grad = a
-            recipe.step(opt, step)
+            apply(grads)
+            if fsdp is not None:
+                fsdp.release()
             step += 1
-            pending.append((torch.stack(losses).mean(),
-                            sum(n for _, n in batches)))
+            mean = torch.stack(losses).mean()
+            if parallel is not None:
+                mean = engine.all_reduce_mean([mean])[0]
+            pending.append((mean, sum(n for _, n in batches)))
 
-        for group in accum_groups(loader, accum_k,
-                                  lambda b: b[1] == loader.batch_size):
+        gb = batch
+        for group in accum_groups(loader, accum_k, lambda b: b[1] == gb):
             update(group)
             if len(pending) >= 8:
                 flush()
-            if guard is not None and guard.triggered:
+            if guard is not None and world == 1 and guard.triggered:
                 break
         flush()
         avg = total / max(count, 1)
-        if guard is not None and guard.triggered:
+        if guard is not None and guard.globally_triggered():
             save_last(epoch - 1, avg)
             guard.uninstall()
             path = ckpt_lib.last_prior_path(save_root, prior_type)
@@ -388,20 +465,25 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
         if logger is not None and logger.active:
             logger.log({"prior/loss": avg, "prior/epoch": epoch})
         if avg < best_loss:
-            best_loss, best_params = avg, _cpu_state(prior)
+            with whole():
+                best_loss, best_params = avg, _cpu_state(prior)
             if save_root is not None:
                 save(ckpt_lib.best_prior_path(save_root, prior_type), epoch,
                      best_params, best_loss)
         if save_root is not None:
             save_last(epoch, avg)
-        if epoch % 10 == 0 or epoch == epochs:
+        if lead and (epoch % 10 == 0 or epoch == epochs):
             print(f"prior epoch {epoch}/{epochs}: CE={avg:.4f} "
                   f"(best {best_loss:.4f})")
         if (sample_every and save_root is not None and vq_model is not None
                 and (epoch % sample_every == 0 or epoch == epochs)):
-            _sample_figure(vq_model, args, prior, hierarchical, save_root,
-                           epoch, seed)
+            with whole():
+                _sample_figure(vq_model, args, prior, hierarchical,
+                               save_root, epoch, seed, write=lead)
 
+    if fsdp is not None:
+        # the later stages read the whole prior
+        fsdp.gather()
     if guard is not None:
         guard.uninstall()
         save(ckpt_lib.final_prior_path(save_root, prior_type), epochs,
@@ -411,10 +493,11 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
 
 
 def _sample_figure(vq_model, args, prior, hierarchical: bool, save_root: str,
-                   epoch: int, seed: int) -> None:
+                   epoch: int, seed: int, write: bool = True) -> None:
     """A sample grid through the current prior (reference
     train_prior_vqvae.py ``--sample_every``), from its own generator so the
-    training draws stay those of a run without figures."""
+    training draws stay those of a run without figures. Every rank of a
+    data-parallel run generates (sample-parallel); ``write`` saves."""
     from movae_tpu_torch.train import figures as fig_lib
     from movae_tpu_torch.train.final_metrics import (GEN_SEED_OFFSET,
                                                      generate_samples)
@@ -425,11 +508,34 @@ def _sample_figure(vq_model, args, prior, hierarchical: bool, save_root: str,
         gen.manual_seed(seed + GEN_SEED_OFFSET)
         imgs = generate_samples(vq_model, args, {
             "model": prior, "hierarchical": hierarchical}, gen, n, batch=n)
-        fig_lib.save_sample_grid(imgs, os.path.join(
-            save_root, "figures", "generated", f"prior_epoch_{epoch:04d}.pdf"),
-            bool(_get(args, "normalize_inputs", False)))
+        if write:
+            fig_lib.save_sample_grid(imgs, os.path.join(
+                save_root, "figures", "generated",
+                f"prior_epoch_{epoch:04d}.pdf"),
+                bool(_get(args, "normalize_inputs", False)))
     except Exception as e:  # the JAX package's rule: report, go on
         print(f"prior sample figure failed: {e!r}")
+
+
+def gather_levels(levels: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Every rank's extracted codes as the global code set, in the loaders'
+    interleaved order (rank p's i-th row is global row i P + p; the
+    ranks' counts differ by at most one): the codes one process extracts
+    from the whole train loader (a collective)."""
+    world = mesh_lib.process_count()
+    out = {}
+    for name, local in levels.items():
+        local = torch.from_numpy(np.ascontiguousarray(local, np.int32))
+        n = torch.tensor([local.shape[0]])
+        counts = [int(c) for c in mesh_lib.all_gather(n)]
+        pad = local.new_zeros((max(counts), *local.shape[1:]))
+        pad[:local.shape[0]] = local
+        parts = mesh_lib.all_gather(pad)
+        full = np.empty((sum(counts), *local.shape[1:]), np.int32)
+        for p, (part, c) in enumerate(zip(parts, counts)):
+            full[p::world] = part[:c].numpy()
+        out[name] = full
+    return out
 
 
 def _train_prior_from_results(results: Mapping[str, Any], args
@@ -452,6 +558,8 @@ def _train_prior_from_results(results: Mapping[str, Any], args
             hierarchical,
             force_extract=getattr(args, "prior_force_extract_codes", False),
             use_cache=getattr(args, "prior_use_lmdb_codes", True))
+        if results.get("parallel") is not None:
+            levels = gather_levels(levels)
     device = results.get("device")
     if device is None:
         device = next(model.parameters()).device
@@ -459,7 +567,8 @@ def _train_prior_from_results(results: Mapping[str, Any], args
         levels, model, args, device=device,
         step_trace=results.get("prior_step_trace"), save_root=save_root,
         logger=results.get("logger"), resume=results.get("prior_resume"),
-        vq_model=model if isinstance(model, torch.nn.Module) else None)
+        vq_model=model if isinstance(model, torch.nn.Module) else None,
+        parallel=results.get("parallel"))
     # generation uses the best epoch's weights, as in the JAX package
     out["model"].load_state_dict(out["params"])
     return out

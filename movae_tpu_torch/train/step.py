@@ -25,6 +25,16 @@ accumulating step over an (A, B, ...) stack of microbatches,
 ``remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``). ``make_eval_step`` gives the eval losses and
 the codebook used-masks without gradients.
+
+With ``parallel`` (a ``parallel/mesh.py:DataParallel``) each rank's step
+takes its own rows of the global batch and computes what one device
+computes on the whole batch: the gradients' mean over the ranks (one
+all-reduce of the combined gradient in the sum and feature modes; in full
+mode the Jacobian rows are all-reduced before the Gramian, so G, the
+weights and the update are equal on every rank), the losses' means, the
+codebook usage over the global batch, and a non-finite guard agreed
+across ranks. Under ``--fsdp`` (``state.fsdp``) the large leaves are
+gathered before the step and their gradients reduce-scattered.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from movae_tpu_torch.models.base import Noise, RestartRows
 from movae_tpu_torch.moo import aggregators as agg_lib
 from movae_tpu_torch.moo import engine
 from movae_tpu_torch.ops.vq import used_codes_mask
+from movae_tpu_torch.parallel import mesh as mesh_lib
 from movae_tpu_torch.train.state import TrainState
 
 Tensor = torch.Tensor
@@ -60,7 +71,7 @@ def _codebook_usage(outputs: Dict[str, Any], num_embeddings: int
     """Per-batch codebook usage %, from the encoding indices (single, or
     hierarchical ``encoding_inds_top``/``_bottom``)."""
     def pct(inds):
-        used = used_codes_mask(inds, num_embeddings)
+        used = global_used_mask(used_codes_mask(inds, num_embeddings))
         return used.float().sum() / num_embeddings * 100.0
 
     if outputs.get("encoding_inds") is not None:
@@ -70,6 +81,46 @@ def _codebook_usage(outputs: Dict[str, Any], num_embeddings: int
         return 0.5 * (pct(outputs["encoding_inds_top"])
                       + pct(outputs["encoding_inds_bottom"]))
     return None
+
+
+def global_used_mask(used: Tensor) -> Tensor:
+    """A codebook used-mask over the global batch under an active
+    data-parallel config (the union over ranks), else ``used``."""
+    if mesh_lib.active_data_parallel() is None:
+        return used
+    return mesh_lib.all_reduce_(used.to(torch.int32), "max").bool()
+
+
+def _reduce_grads(state: TrainState, grads: List[Tensor],
+                  reduced: bool) -> List[Tensor]:
+    """The gradients the optimizer takes: under fsdp each sharded leaf's
+    slice of the mean over ranks, under data parallelism the mean over
+    ranks (``reduced``: already the mean, equal on every rank), else
+    ``grads``."""
+    if state.fsdp is not None:
+        return state.fsdp.reduce_scatter(grads, reduced)
+    if reduced or mesh_lib.active_data_parallel() is None:
+        return grads
+    return engine.all_reduce_mean(grads)
+
+
+def _reduce_metrics(metrics: Dict[str, Tensor], names: Sequence[str]
+                    ) -> None:
+    """The losses' means over the ranks, in place (the weights, the
+    similarity and the usage are already global)."""
+    if mesh_lib.active_data_parallel() is None:
+        return
+    keys = [*names, "total_loss"]
+    for k, v in zip(keys, engine.all_reduce_mean(
+            [metrics[k].float() for k in keys])):
+        metrics[k] = v
+
+
+def _agree(ok: Tensor) -> Tensor:
+    """``ok`` on every rank only where it holds on every rank."""
+    if mesh_lib.active_data_parallel() is None:
+        return ok
+    return mesh_lib.all_reduce_((~ok).to(torch.int32), "max") == 0
 
 
 def _remat(fn: Callable, generator: Optional[torch.Generator]) -> Callable:
@@ -171,8 +222,10 @@ def make_train_step(
     guard_nonfinite: bool = True,
     remat: bool = False,
     grad_accum: int = 1,
+    parallel=None,
 ):
-    """Build the train step for ``model`` under ``agg_cfg``.
+    """Build the train step for ``model`` under ``agg_cfg`` (data-parallel
+    over ``parallel``'s ranks where given: see the module docstring).
 
     With ``guard_nonfinite`` a non-finite loss or gradient leaves every part
     of the state untouched — parameters, optimizer moments and step counts,
@@ -212,8 +265,10 @@ def make_train_step(
                       generator, restart_rows, agg_draws, noise):
         """One (micro)batch: forward, per-objective gradients and the
         aggregation. Returns ``(grads, batch_stats updates, new agg_state,
-        metrics)`` without touching the optimizer."""
-        params = state.params
+        metrics)`` without touching the optimizer; under data parallelism
+        the gradients are this rank's part (full mode: already the mean
+        over ranks) and the losses local."""
+        params = state.grad_params
         device = params[0].device
 
         def forward(xx):
@@ -303,6 +358,26 @@ def make_train_step(
         return preprocess_batch(batch.to(device, non_blocking=True),
                                 normalize_inputs)
 
+    # full mode's combined gradient is already the mean over the ranks
+    reduced = mode == "full"
+
+    def parallel_step(fn: Callable) -> Callable:
+        """``fn`` with ``parallel`` active and, under fsdp, the large
+        leaves gathered for it and released after."""
+        if parallel is None:
+            return fn
+
+        def run(state: TrainState, *a, **kw):
+            with parallel.activate():
+                if state.fsdp is not None:
+                    state.fsdp.gather()
+                try:
+                    return fn(state, *a, **kw)
+                finally:
+                    if state.fsdp is not None:
+                        state.fsdp.release()
+        return run
+
     if grad_accum <= 1:
         def train_step(state: TrainState, batch: Tensor,
                        generator: Optional[torch.Generator] = None,
@@ -313,12 +388,14 @@ def make_train_step(
             grads, stats, new_agg, metrics = compute_grads(
                 state, x, state.agg_state, generator, restart_rows,
                 agg_draws, noise)
-            ok = _all_finite(metrics["total_loss"], grads)
+            grads = _reduce_grads(state, grads, reduced)
+            _reduce_metrics(metrics, names)
+            ok = _agree(_all_finite(metrics["total_loss"], grads))
             return finish(state, grads, new_agg, metrics, ok,
                           lambda k: state.model.commit_batch_stats(stats, k)
                           if stats else None)
 
-        return train_step
+        return parallel_step(train_step)
 
     inv = 1.0 / grad_accum
 
@@ -337,7 +414,7 @@ def make_train_step(
         # where the guard says no
         saved = {k: v.detach().clone() for k, v in model.batch_stats().items()}
         agg_c = state.agg_state
-        acc: List[Tensor] = [torch.zeros_like(p) for p in state.params]
+        acc: List[Tensor] = [torch.zeros_like(p) for p in state.grad_params]
         losses, mets = [], []
         for i in range(grad_accum):
             x = prepare(state, batches[i])
@@ -351,7 +428,12 @@ def make_train_step(
             mets.append(met)
         metrics = {k: torch.stack([mt[k] for mt in mets]).mean(0)
                    for k in mets[0]}
-        ok = _all_finite(torch.stack(losses).sum(), acc)
+        acc = _reduce_grads(state, acc, reduced)
+        _reduce_metrics(metrics, names)
+        loss_sum = torch.stack(losses).sum()
+        if mesh_lib.active_data_parallel() is not None:
+            loss_sum = engine.all_reduce_mean([loss_sum])[0]
+        ok = _agree(_all_finite(loss_sum, acc))
 
         def commit(k: Optional[Tensor]) -> None:
             if k is not None:
@@ -361,7 +443,7 @@ def make_train_step(
 
         return finish(state, acc, agg_c, metrics, ok, commit)
 
-    return accum_step
+    return parallel_step(accum_step)
 
 
 def make_scanned_train_step(step_fn: Callable, k: int) -> Callable:

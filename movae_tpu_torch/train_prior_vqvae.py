@@ -122,15 +122,17 @@ def build_prior_parser(checkpoint_alias: str = "vqvae_checkpoint"
                    "path only (L <= 1024)")
     p.add_argument("--context_parallel", type=int, default=1,
                    help="sequence-parallel partitions of the prior's "
-                        "attention (> 1: ROADMAP.md Queue 1 item 13)")
+                        "attention (> 1 raises: ROADMAP.md Queue 1 item 13)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="pipeline-parallel prior stages (> 1: ROADMAP.md "
-                        "Queue 1 item 13)")
+                   help="pipeline-parallel prior stages (> 1 raises: "
+                        "ROADMAP.md Queue 1 item 13)")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
                    help="GPipe microbatches per step (0 = auto)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard parameters and optimizer state (ROADMAP.md "
-                        "Queue 1 item 13)")
+                   help="shard parameters and optimizer state over ranks: "
+                        "the prior stage of a torchrun run of "
+                        "movae_tpu_torch.main takes it; this CLI trains on "
+                        "one process, where it changes nothing")
     p.add_argument("--prior_resume", type=str, default=None,
                    help="resume prior training from a last_prior.pth "
                         "(written every epoch and on SIGTERM)")

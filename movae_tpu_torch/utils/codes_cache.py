@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from movae_tpu_torch.parallel import mesh as mesh_lib
+
 
 def cache_key(arch: str, dataset: str, num_embeddings: int,
               input_size: int) -> str:
@@ -84,8 +86,17 @@ def get_or_extract_codes(
     ``loader``'s valid rows, cached when ``use_cache``. The sweep keeps the
     codes on the device and copies them to the host once, at its end."""
     key = cache_key(arch, dataset, num_embeddings, input_size)
+    if mesh_lib.process_count() > 1:
+        # each rank sweeps only its loader slice, so its cache is its own
+        key += f"_p{mesh_lib.process_index()}of{mesh_lib.process_count()}"
     cache = CodeCache(os.path.join(save_root, "codes_cache", key))
-    if use_cache and cache.exists() and not force_extract:
+    hit = use_cache and cache.exists() and not force_extract
+    if mesh_lib.process_count() > 1:
+        # a partial earlier run can leave some ranks with a cache: every
+        # rank extracts unless every rank hits
+        flag = torch.tensor([0 if hit else 1], dtype=torch.int32)
+        hit = int(mesh_lib.all_reduce_(flag, "max").item()) == 0
+    if hit:
         print(f"Loading cached VQ codes from {cache.root}")
         return cache.open(), True
 

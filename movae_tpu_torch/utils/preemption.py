@@ -1,17 +1,23 @@
 """SIGTERM-triggered graceful checkpointing — port of
-``movae_tpu/utils/preemption.py`` for one process.
+``movae_tpu/utils/preemption.py``.
 
-The handler only sets a flag. The training loops poll it between steps,
-write a resumable ``last_*`` checkpoint at the next safe point and exit
-with code 143 (128 + SIGTERM), so a retry with ``--resume`` continues from
-the interrupted epoch. The JAX package's multi-host OR of the flag is
-``ROADMAP.md`` Queue 1 item 13.
+The handler only sets a flag. The training loops poll it between steps
+(one process) or at each epoch's end (a data-parallel run:
+:meth:`PreemptionGuard.globally_triggered`, an all-reduce of the flag, so
+every rank stops at the same step), write a resumable ``last_*``
+checkpoint at the next safe point and exit with code 143 (128 +
+SIGTERM), so a retry with ``--resume`` continues from the interrupted
+epoch.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
+
+import torch
+
+from movae_tpu_torch.parallel import mesh as mesh_lib
 
 
 class PreemptionGuard:
@@ -38,6 +44,15 @@ class PreemptionGuard:
     @property
     def triggered(self) -> bool:
         return self._flag
+
+    def globally_triggered(self) -> bool:
+        """True when ANY rank has been signalled (a collective: every rank
+        calls it at the same point, so all agree before leaving the
+        step cadence)."""
+        if mesh_lib.process_count() == 1:
+            return self._flag
+        flag = torch.tensor([int(self._flag)], dtype=torch.int32)
+        return bool(mesh_lib.all_reduce_(flag, "max").item())
 
     def uninstall(self) -> None:
         for s, prev in self._installed:

@@ -309,7 +309,7 @@ def test_main_cli_runs_a_vae_to_the_jax_run_tree(tmp_path):
     (["--model_partitions", "2"], "item 13"),
     (["--context_parallel", "2"], "item 13"),
     (["--pipeline_parallel", "2"], "item 13"),
-    (["--fsdp"], "item 13")])
+    (["--context_parallel", "2", "--fsdp"], "item 13")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
     from movae_tpu_torch.train.loop import run_training
 

@@ -107,7 +107,7 @@ def test_train_prior_locksteps_with_jax(kind, ce_tol, tmp_path):
 @pytest.mark.parametrize("kw,item", [
     (dict(context_parallel=2), "Queue 1 item 13"),
     (dict(pipeline_parallel=2), "Queue 1 item 13"),
-    (dict(fsdp=True), "Queue 1 item 13")])
+    (dict(pipeline_parallel=2, fsdp=True), "Queue 1 item 13")])
 def test_unported_options_name_roadmap_item(kw, item):
     from movae_tpu_torch.train.prior import train_prior
 

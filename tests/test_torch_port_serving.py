@@ -455,11 +455,11 @@ def test_unported_options_raise(vq, tmp_path):
     _, _, _, tm, _, _ = vq
     with pytest.raises(ValueError, match="quantize"):
         export(tm, tmp_path / "bad", quantize="int4")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        export(tm, tmp_path / "dp", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(ValueError, match="data_parallel"):
+        export(tm, tmp_path / "dp", data_parallel=0)
+    with pytest.raises(ValueError, match="data_parallel"):
         serving.export_checkpoint("unused.pth", str(tmp_path / "dp2"),
-                                  data_parallel=2)
+                                  data_parallel=0)
 
 
 def test_artifact_runs_only_where_exported(vq):
