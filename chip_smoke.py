@@ -510,6 +510,39 @@ P20_LOSS_RTOL, P20_PARAM_RTOL, P20_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 # entry's elements, within those bounds (the rest within one Adam step:
 # see p20_bf16_close)
 P20_BF16_SHARE, P20_BF16_LEAF_SHARE = 0.99, 0.9
+# phase 20's model, pipe and seq axes, each over the P20_WORLD ranks
+# against one rank on the whole batch: (a) model_partitions: phase 3's
+# VQ-VAE, sum and upgrad, its large convolutions split over the ranks'
+# output channels (column-parallel), its codebook gathered before use, at
+# the data axis's bounds, and each leaf's update within FLASH_GRAD_TOL of
+# its largest; (b) pipeline_parallel: phase 5's float32 PixelSNAIL at L =
+# 4096, its 8 blocks in P20_WORLD stages and P20_PP_M microbatches
+# (default_microbatches of the batch), each block recomputed in the
+# backward; (c) context_parallel: the same prior through the zigzag ring,
+# and the ring alone on FLASH_SLICE against the plain ring (its diagonal
+# blocks through the plain version) within FLASH_O_TOL and FLASH_GRAD_TOL.
+# (b) and (c) run at dropout 0 (a pipeline stage draws its own masks, as
+# the JAX package's do), in two parts. The step: P20_STEPS train_prior
+# steps with each step's gradients recorded, against the one-rank trainer
+# fed those gradients (_p20_axis_prior): every CE at P20_LOSS_RTOL and the
+# parameters after the steps at test_parallel's bounds, which holds the
+# axis's clip and optimizer (the pipeline's per-stage moments, its norm
+# summed over 'pipe') to one device's. The gradients: on the whole batch,
+# held as 17a holds the flash kernels (p20_grad_close). At this prior's
+# random init the attention logits reach ~4.6e3 in the last block, where
+# the one-rank float32 path is itself 6.4% of a leaf's largest gradient
+# from float64 (flash_vs_f64), so neither float32 path is the other's
+# reference, and a path's parameters after Adam cannot be held to the
+# one-rank step's own at test_parallel's bounds (Adam's first step
+# divides each gradient by its size). Planted faults each check refuses:
+# a TP layer that skips its input's backward all-reduce, a pipeline that
+# loses one microbatch's cross-entropy, pipeline stages that clip by their
+# own norms, a ring that drops its last rotation
+P20_PP_M, P20_STEPS = 4, 2
+# the depth of (b), (c) and the sample-parallel sampler's prior: phase 5's
+# 8 blocks cut to 4 (L, the widths and the kernels' shapes kept) to keep
+# the phase's time
+P20_BLOCKS = 4
 # published H100 peaks (NVIDIA data sheets): fp32 on the CUDA cores, HBM
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
          "nvl": (60e12, 3.9e12)}
@@ -4196,14 +4229,30 @@ def _p20_state(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _p20_stage1(torch, dev, dp, agg: str, fsdp: bool) -> dict:
-    """One data-parallel step (then P20_TIMED timed ones) of phase 3's
-    VQ-VAE; rank 0 holds the first step against the one-rank step on the
-    whole batch."""
+def _p20_digest(torch, state: dict) -> str:
+    """A digest of the state's bytes: equal on every rank whose replica
+    is the same bit for bit."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p20_stage1(torch, dev, dp, agg: str, fsdp: bool = False,
+                tp: bool = False, planted: bool = False) -> dict:
+    """One step (then P20_TIMED timed ones) of phase 3's VQ-VAE over
+    ``dp``'s mesh: data-parallel (``fsdp``: sharded), or with ``tp`` its
+    large layers split over the mesh's model axis ((a)); rank 0 holds the
+    first step against the one-rank step on the whole batch. ``planted``
+    (tp): every TP layer's input skips its backward all-reduce."""
     from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
     from movae_tpu_torch.models import get_network, init_model
     from movae_tpu_torch.moo import AggregatorConfig, init_state
-    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.parallel import mesh, tensor
     from movae_tpu_torch.train.optim import build_optimizer
     from movae_tpu_torch.train.state import TrainState
     from movae_tpu_torch.train.step import make_train_step
@@ -4221,42 +4270,62 @@ def _p20_stage1(torch, dev, dp, agg: str, fsdp: bool) -> dict:
                                            momentum=P20_MOMENTUM)
 
     model, cfg, tx = build()
+    init = _p20_state(model)
     par = mesh.DataParallel(dp.mesh, fsdp=fsdp)
-    shards = par.shard_params(model) if fsdp else None
-    state = TrainState.create(model, tx, init_state(cfg), fsdp=shards)
-    step = make_train_step(model, cfg, parallel=par)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    state, met = step(state, mesh.local_rows(batches[0]))
-    counts = dict(LAUNCH_COUNTS)
-    if shards is not None:
-        shards.gather()
-    got = _p20_state(model)
-    rest = (shards.rest_bytes(state.optimizer) if shards is not None else
-            {"params": sum(p.numel() * 4 for p in state.params),
-             "moments": sum(t.numel() * t.element_size()
-                            for st in state.optimizer.state.values()
-                            for t in st.values() if torch.is_tensor(t)
-                            and t.dim() > 0)})
-    if shards is not None:
-        shards.release()
-    times = []
-    for i in range(P20_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, mesh.local_rows(batches[1]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with mesh.using(dp.mesh):
+        split = tensor.TensorParallel(model) if tp else None
+        shards = par.shard_params(model) if fsdp else None
+        state = TrainState.create(model, tx, init_state(cfg), fsdp=shards,
+                                  tp=split)
+        step = make_train_step(model, cfg, parallel=par)
+        real = mesh._CopyToAxis.backward
+        if planted:
+            mesh._CopyToAxis.backward = staticmethod(
+                lambda ctx, g: (g, None))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            state, met = step(state, mesh.local_rows(batches[0]))
+            counts = dict(LAUNCH_COUNTS)
+        finally:
+            mesh._CopyToAxis.backward = real
+        with state.holder.whole():
+            got = _p20_state(model)
+        rest = (shards.rest_bytes(state.optimizer) if shards is not None
+                else {"params": sum(p.numel() * 4 for p in state.params),
+                      "moments": sum(t.numel() * t.element_size()
+                                     for st in state.optimizer.state.values()
+                                     for t in st.values()
+                                     if torch.is_tensor(t)
+                                     and t.dim() > 0)})
+        times = []
+        # (a): one warm step (a TP step takes ~0.6 s on gloo)
+        for _ in range(0 if planted else 1 if tp else P20_TIMED):
+            x = mesh.local_rows(batches[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     res = {"loss": float(met["total_loss"]), "launches": counts,
-           "step_ms": statistics.median(times) * 1e3, "rest_bytes": rest}
+           "rest_bytes": rest,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    if split is not None:
+        res["split"] = split.sharded
+        res["digest"] = _p20_digest(torch, got)
+    if times:
+        res["step_ms"] = statistics.median(times) * 1e3
     if mesh.process_index() == 0:
         ref, rcfg, rtx = build()
         rstate = TrainState.create(ref, rtx, init_state(rcfg))
         rstate, rmet = make_train_step(ref, rcfg)(rstate, batches[0])
         res["ref_loss"] = float(rmet["total_loss"])
-        res["params"] = _p20_close(torch, got, _p20_state(ref))
+        want = _p20_state(ref)
+        res["params"] = _p20_close(torch, got, want)
+        res["update"] = _p20_update_close(got, want, init)
         del ref, rstate
-    del model, state, step, shards
+    del model, state, step, shards, split
     torch.cuda.empty_cache()
     return res
 
@@ -4344,8 +4413,9 @@ def _p20_planted(torch, dev, got: dict, want: dict, fresh, codes, meta,
 
 def _p20_sample(torch, dev, dp) -> dict:
     """sample_fast_snail at 64x64 (float32 cache) from phase 5's
-    full-width PixelSNAIL at random weights, batch SAMPLE_BATCH: sharded
-    over the ranks against rank 0's one-rank codes on the same seed."""
+    full-width PixelSNAIL (P20_BLOCKS deep) at random weights, batch
+    SAMPLE_BATCH: sharded over the ranks against rank 0's one-rank codes
+    on the same seed."""
     from types import SimpleNamespace
 
     from movae_tpu_torch.models.pixelcnn import sample_fast_snail
@@ -4353,7 +4423,8 @@ def _p20_sample(torch, dev, dp) -> dict:
     from movae_tpu_torch.parallel.context import sample_parallel
     from movae_tpu_torch.train.prior import build_prior
 
-    args = SimpleNamespace(**PRIOR_ARGS)
+    args = SimpleNamespace(**{**PRIOR_ARGS,
+                              "pixelsnail_num_blocks": P20_BLOCKS})
     prior = build_prior(args, FULL_WIDTH["num_embeddings"], False,
                         FULL_WIDTH["embedding_dim"])
     prior.reset_parameters(torch.Generator().manual_seed(0))
@@ -4382,6 +4453,379 @@ def _p20_sample(torch, dev, dp) -> dict:
     return res
 
 
+def _p20_update_close(got: dict, want: dict, init: dict) -> dict:
+    """The step's update (parameters after minus before) against the
+    one-rank step's, leaf by leaf, as a part of the largest update of the
+    leaf: unlike the parameters it shows a fault in a gradient that the
+    learning rate makes small beside the weights. (a) passes within
+    FLASH_PLAIN_FACTOR times the data-parallel step's own distance (the
+    rounding of a 2-rank split of the same step) or FLASH_GRAD_TOL,
+    whichever is larger."""
+    worst, at = 0.0, None
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        u_want = (w - init[k]).double()
+        scale = float(u_want.abs().max())
+        if scale == 0.0:
+            continue
+        err = float(((got[k] - init[k]).double() - u_want).abs().max())
+        if err / scale > worst:
+            worst, at = err / scale, k
+    return {"worst": worst, "at": at}
+
+
+_P20_REFS: dict = {}
+
+
+class _LoseFirstCE:
+    """A stand-in for ``torch.nn.functional`` in ``parallel/pipeline.py``
+    whose first cross-entropy comes back as zero (the planted fault of
+    path (b): one microbatch's CE lost)."""
+
+    def __init__(self, F):
+        self.F, self.calls = F, 0
+
+    def __getattr__(self, name):
+        return getattr(self.F, name)
+
+    def cross_entropy(self, *a, **kw):
+        self.calls += 1
+        ce = self.F.cross_entropy(*a, **kw)
+        return ce * 0.0 if self.calls == 1 else ce
+
+
+def _p20_prior_setup(torch, dev):
+    """Phase 5's float32 PixelSNAIL at dropout 0 and PRIOR_BATCH random
+    code grids: (codes, args, meta, fresh)."""
+    from types import SimpleNamespace
+
+    from movae_tpu_torch.train.prior import build_prior
+
+    grid = PRIOR_SIZE // 4
+    codes = torch.randint(0, FULL_WIDTH["num_embeddings"],
+                          (PRIOR_BATCH, grid, grid), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(4)).numpy()
+    args = SimpleNamespace(**{**PRIOR_ARGS, "pixelsnail_dropout": 0.0,
+                              "pixelcnn_adam_eps": 1e-4,
+                              "pixelsnail_num_blocks": P20_BLOCKS})
+    meta = SimpleNamespace(num_embeddings=FULL_WIDTH["num_embeddings"],
+                           embedding_dim=FULL_WIDTH["embedding_dim"])
+
+    def fresh():
+        prior = build_prior(args, meta.num_embeddings, False,
+                            meta.embedding_dim)
+        prior.reset_parameters(torch.Generator().manual_seed(0))
+        return prior.to(dev)
+
+    return codes, args, meta, fresh
+
+
+def _p20_mesh(torch, dev, axis: str):
+    from movae_tpu_torch.parallel import mesh
+
+    sizes = {"pipe": dict(num_pipe=P20_WORLD), "seq": dict(num_seq=P20_WORLD)}
+    return mesh.make_mesh(device=dev, **sizes[axis])
+
+
+class _Recorded:
+    """A stand-in for ``parallel/holder.py:Holder.slice_grads`` (the step's
+    gradients, their data mean taken, before the clip and the optimizer)
+    on the holders that do not override it (the pipeline's and the
+    one-rank trainer's). Recording (``feed`` None): keeps each step's
+    gradients by leaf name, and the time at each call once the card is
+    idle, so ``stamps[1] - stamps[0]`` is one warm step (the first step's
+    update, then the second step's forward and backward). Feeding: hands
+    the trainer the gradients of ``feed``, step by step, in place of its
+    own."""
+
+    def __init__(self, torch, prior, feed=None):
+        self.torch, self.feed = torch, feed
+        self.names = {id(p): n for n, p in prior.named_parameters()}
+        self.steps, self.stamps = [], []
+
+    def __call__(self, holder, grads):
+        if self.feed is not None:
+            step = self.feed[len(self.steps)]
+            self.steps.append(None)
+            return [step[self.names[id(p)]].to(g.device, g.dtype)
+                    for p, g in zip(holder.params, grads)]
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        self.steps.append({self.names[id(p)]: g.detach().cpu().clone()
+                           for p, g in zip(holder.params, grads)})
+        return list(grads)
+
+
+def _p20_train(torch, dev, prior, codes, args, meta, par, rec) -> tuple:
+    """train_prior on ``codes`` with ``rec`` in place of the holders'
+    ``slice_grads``: (CE trace, its state after the last step)."""
+    from movae_tpu_torch.parallel import holder
+    from movae_tpu_torch.train.prior import train_prior
+
+    real = holder.Holder.slice_grads
+    holder.Holder.slice_grads = lambda self, grads: rec(self, grads)
+    try:
+        trace = []
+        out = train_prior({"codes": codes}, meta, args, device=dev,
+                          step_trace=trace, prior=prior, parallel=par)
+    finally:
+        holder.Holder.slice_grads = real
+    return trace, _p20_state(out["model"])
+
+
+def _p20_axis_prior(torch, dev, axis: str, planted: bool = False) -> dict:
+    """(b) ``axis`` "pipe", (c) "seq": P20_STEPS train_prior steps of the
+    prior of ``_p20_prior_setup`` with that axis over the ranks, the
+    launches counted, each step's gradients recorded (``_Recorded``) and
+    a warm step timed. Rank 0 then runs the one-rank trainer fed those
+    gradients: its first CE is the one-rank step's on the whole batch,
+    and the path's CE trace and parameters after the steps are held
+    against it at test_parallel's bounds (``_p20_close``), so the clip and
+    the optimizer the axis runs (the pipeline's: its stage's leaves, the
+    norm summed over ``pipe``) are held to one device's on the same
+    gradients. ``planted`` (pipe): each stage clips by its own norm."""
+    import numpy as np
+
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.parallel import mesh
+
+    codes, args, meta, fresh = _p20_prior_setup(torch, dev)
+    codes = np.concatenate([codes] * P20_STEPS)
+    par = mesh.DataParallel(_p20_mesh(torch, dev, axis))
+    prior = fresh()
+    rec = _Recorded(torch, prior)
+    real = mesh.clip_by_global_norm
+    if planted:
+        mesh.clip_by_global_norm = lambda grads, axes, max_norm: real(
+            grads, [()] * len(axes), max_norm)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        trace, got = _p20_train(torch, dev, prior, codes, args, meta, par,
+                                rec)
+        torch.cuda.synchronize()
+    finally:
+        mesh.clip_by_global_norm = real
+    res = {"ce": trace, "launches": dict(LAUNCH_COUNTS),
+           "step_ms": (rec.stamps[1] - rec.stamps[0]) * 1e3,
+           "digest": _p20_digest(torch, got),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    # the stages' gradients, whole on rank 0 (the replicated leaves are
+    # equal on every stage)
+    parts = [None] * P20_WORLD
+    torch.distributed.all_gather_object(parts, rec.steps)
+    if mesh.process_index() == 0:
+        feed = [{} for _ in range(P20_STEPS)]
+        for part in parts[::-1]:  # rank 0's where leaves are shared
+            for whole, step in zip(feed, part):
+                whole.update(step)
+        ref = fresh()
+        res["ref_ce"], want = _p20_train(
+            torch, dev, ref, codes, args, meta, None,
+            _Recorded(torch, ref, feed))
+        res["params"] = _p20_close(torch, got, want)
+        del ref
+    del prior, rec, parts
+    torch.cuda.empty_cache()
+    return res
+
+
+_P20_LOGITS: list = []
+
+
+def _f64_attention(q, k, v, sm_scale):
+    """Causal attention in float64, one batch row at a time (recomputed in
+    the backward), cast back to float32: the gradient reference of
+    ``_p20_axis_grads``. Appends the largest |logit| of the call (over
+    every row and head) to ``_P20_LOGITS``."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from movae_tpu_torch.kernels.flash_attention import \
+        dense_causal_attention
+
+    with torch.no_grad():
+        _P20_LOGITS.append(max(
+            float((q[b].double() @ k[b].double().transpose(-1, -2))
+                  .abs().max()) * sm_scale for b in range(q.shape[0])))
+
+    def one(qq, kk, vv):
+        return dense_causal_attention(qq.double(), kk.double(), vv.double(),
+                                      sm_scale).float()
+
+    return torch.cat([checkpoint(one, q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                 use_reentrant=False)
+                      for b in range(q.shape[0])])
+
+
+def _p20_prior_grads(torch, prior, codes) -> tuple:
+    """(loss, {leaf: float64 CPU gradient}) of one rank's whole batch."""
+    params = list(prior.parameters())
+    loss = prior.loss_function(codes, train=True)["total_loss"]
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), {
+        n: g.detach().double().cpu()
+        for (n, _), g in zip(prior.named_parameters(), grads)}
+
+
+def p20_grad_close(got: dict, flash: dict, f64: dict) -> dict:
+    """The gradients of a path held as 17a holds the flash kernels on a
+    trained prior's q, k, v: each leaf's largest distance from the
+    float64-attention gradient within FLASH_PLAIN_FACTOR times the
+    one-rank float32 path's distance, or within FLASH_GRAD_TOL of its
+    block's largest gradient, whichever is larger (a key bias's true
+    gradient is 0: softmax ignores a constant logit). ``worst`` <= 1
+    passes."""
+    scale: dict = {}
+    for n, g in f64.items():
+        block = ".".join(n.split(".")[:2]) if n.startswith("blocks.") \
+            else n.split(".")[0]
+        scale[block] = max(scale.get(block, 0.0), float(g.abs().max()))
+    worst, at, ratio = 0.0, None, 0.0
+    for n, g in f64.items():
+        block = ".".join(n.split(".")[:2]) if n.startswith("blocks.") \
+            else n.split(".")[0]
+        d_path = float((got[n] - g).abs().max())
+        d_flash = float((flash[n] - g).abs().max())
+        bound = max(FLASH_PLAIN_FACTOR * d_flash,
+                    FLASH_GRAD_TOL * scale[block])
+        if d_path / bound > worst:
+            worst, at = d_path / bound, n
+        ratio = max(ratio, d_path / max(d_flash, 1e-30))
+    return {"worst": worst, "at": at, "max_ratio_to_flash": ratio}
+
+
+def _p20_axis_grads(torch, dev, axis: str, planted: bool = False) -> dict:
+    """(b) and (c)'s gradients: the prior's gradient on the whole batch
+    with ``axis`` over the ranks (the pipeline's stages gathered), rank 0
+    holding it by ``p20_grad_close`` against the one-rank float32 path and
+    the float64-attention reference (computed once). ``planted`` (pipe):
+    the pipeline loses one microbatch's CE."""
+    from movae_tpu_torch.models import pixelcnn as pc
+    from movae_tpu_torch.parallel import mesh, pipeline
+    from movae_tpu_torch.parallel.context import context_parallel
+
+    codes, _, _, fresh = _p20_prior_setup(torch, dev)
+    codes = torch.from_numpy(codes).to(dev)
+    msh = _p20_mesh(torch, dev, axis)
+    par = mesh.DataParallel(msh)
+    prior = fresh()
+    if axis == "pipe":
+        names = {id(p): n for n, p in prior.named_parameters()}
+        real = pipeline.F
+        if planted:
+            pipeline.F = _LoseFirstCE(real)
+        try:
+            with par.activate():
+                pipe = pipeline.PipelinedPrior(prior, P20_PP_M)
+                loss, grads = pipe.loss_and_grads([codes])
+        finally:
+            pipeline.F = real
+        parts = [None] * P20_WORLD
+        torch.distributed.all_gather_object(parts, {
+            names[id(p)]: g.detach().double().cpu()
+            for p, g in zip(pipe.params, grads)})
+        got = {}
+        for part in parts:
+            got.update(part)
+        loss = float(loss)
+    else:
+        with par.activate(), context_parallel():
+            loss, got = _p20_prior_grads(torch, prior, codes)
+    res = {"loss": loss}
+    if mesh.process_index() == 0:
+        if "grads" not in _P20_REFS:
+            flash = _p20_prior_grads(torch, fresh(), codes)
+            real = pc.causal_attention
+            pc.causal_attention = _f64_attention
+            _P20_LOGITS.clear()
+            try:
+                f64 = _p20_prior_grads(torch, fresh(), codes)
+            finally:
+                pc.causal_attention = real
+            _P20_REFS["grads"] = (flash, f64)
+            res["logit_max"] = list(_P20_LOGITS)
+        (res["ref_loss"], flash), (res["f64_loss"], f64) = _P20_REFS["grads"]
+        res["grads"] = p20_grad_close(got, flash, f64)
+        res["flash_vs_f64"] = max(
+            float((flash[n] - g).abs().max() / g.abs().max().clamp_min(
+                1e-30)) for n, g in f64.items() if "k_proj.bias" not in n)
+    del prior
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p20_ring(torch, dev) -> dict:
+    """(c): the ring alone over the ranks on FLASH_SLICE's q, k, v,
+    forward and backward, against the plain ring (its diagonal blocks
+    through the kernels' plain version) in the same call; its launches,
+    its ms and the plain ring's, and the planted fault (the last rotation
+    dropped) held to the same gate."""
+    from movae_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from movae_tpu_torch.ops import ring_attention as ra
+    from movae_tpu_torch.parallel import mesh
+
+    msh = mesh.make_mesh(num_seq=P20_WORLD, device=dev)
+    b, h, L, d = FLASH_SLICE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen, device=dev)
+                   for _ in range(4))
+    sm = 1.0 / math.sqrt(d)
+
+    def run():
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with mesh.using(msh):
+            o = ra.ring_causal_attention(*ts, sm)
+            o.backward(do)
+        return o.detach(), [t.grad for t in ts]
+
+    def timed(reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    o, g = run()
+    torch.cuda.synchronize()
+    counts = {n: LAUNCH_COUNTS[n] for n in FLASH_KERNELS}
+    ms = timed()
+    real = (ra._tril_fwd, ra._tril_bwd, ra._rotations)
+
+    def err(o2, g2):
+        return (float((o - o2).abs().max() / o2.abs().max()),
+                max(float((a - b_).abs().max() / b_.abs().max())
+                    for a, b_ in zip(g, g2)))
+
+    try:
+        ra._tril_fwd = lambda q_, k_, v_, s: ra.plain_block_fwd(
+            q_, k_, v_, s, True)
+        ra._tril_bwd = lambda q_, k_, v_, do_, l_, di_, s: \
+            ra.plain_block_bwd(q_, k_, v_, do_, l_, di_, s, True)
+        op, gp = run()
+        plain_ms = timed()
+        o_err, g_err = err(op, gp)
+        ra._tril_fwd, ra._tril_bwd = real[:2]
+        ra._rotations = lambda S: range(1, S - 1)
+        of, gf = run()
+        planted = (float((of - op).abs().max() / op.abs().max()),
+                   max(float((a - b_).abs().max() / b_.abs().max())
+                       for a, b_ in zip(gf, gp)))
+    finally:
+        ra._tril_fwd, ra._tril_bwd, ra._rotations = real
+    del q, k, v, do, o, g
+    torch.cuda.empty_cache()
+    return {"launches": counts, "ms": ms, "plain_ms": plain_ms,
+            "o_err": o_err, "grad_err": g_err, "planted": planted}
+
+
 def _phase20_worker(rank: int, world: int, store: str, root: str,
                     out: str) -> None:
     """One rank of phase 20 (spawned): the card, gloo, every part; rank 0
@@ -4399,14 +4843,43 @@ def _phase20_worker(rank: int, world: int, store: str, root: str,
     dp = mesh.DataParallel(mesh.make_mesh(device=dev))
     res = {"rank": rank, "backend": mesh.backend(), "device": str(dev),
            "card": torch.cuda.get_device_name(dev)}
+    res["part_s"] = {}
+
+    def run(key, part):
+        t2 = time.perf_counter()
+        res[key] = part()
+        res["part_s"][key] = time.perf_counter() - t2
+
     t0 = time.perf_counter()
     for agg, fsdp in (("sum", False), ("upgrad", False), ("sum", True),
                       ("upgrad", True)):
-        res[f"stage1_{agg}{'_fsdp' if fsdp else ''}"] = _p20_stage1(
-            torch, dev, dp, agg, fsdp)
+        run(f"stage1_{agg}{'_fsdp' if fsdp else ''}",
+            lambda: _p20_stage1(torch, dev, dp, agg, fsdp))
     for dtype in ("float32", "bfloat16"):
-        res[f"prior_{dtype}"] = _p20_prior(torch, dev, dp, dtype)
-    res["sample_fast_snail"] = _p20_sample(torch, dev, dp)
+        run(f"prior_{dtype}", lambda: _p20_prior(torch, dev, dp, dtype))
+    run("sample_fast_snail", lambda: _p20_sample(torch, dev, dp))
+    res["seconds_data"] = time.perf_counter() - t0
+    # the model, pipe and seq axes, after the data axis's paths, each
+    # part's seconds kept
+    t1 = time.perf_counter()
+    tp = mesh.DataParallel(mesh.make_mesh(num_model=P20_WORLD, device=dev))
+    pp, cp = "pipe", "seq"
+    parts = {
+        "tp_sum": lambda: _p20_stage1(torch, dev, tp, "sum", tp=True),
+        "tp_upgrad": lambda: _p20_stage1(torch, dev, tp, "upgrad", tp=True),
+        "tp_planted": lambda: _p20_stage1(torch, dev, tp, "sum", tp=True,
+                                          planted=True),
+        "pp_prior": lambda: _p20_axis_prior(torch, dev, pp),
+        "pp_clip_planted": lambda: _p20_axis_prior(torch, dev, pp,
+                                                   planted=True),
+        "pp_grads": lambda: _p20_axis_grads(torch, dev, pp),
+        "pp_planted": lambda: _p20_axis_grads(torch, dev, pp, planted=True),
+        "cp_prior": lambda: _p20_axis_prior(torch, dev, cp),
+        "cp_grads": lambda: _p20_axis_grads(torch, dev, cp),
+        "ring": lambda: _p20_ring(torch, dev)}
+    for key, part in parts.items():
+        run(key, part)
+    res["seconds_axes"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     every = [None] * world
     torch.distributed.all_gather_object(every, res)
@@ -4421,7 +4894,9 @@ def phase_multirank(torch, card: str) -> dict:
     each data-parallel step equal to the one-rank step on the whole batch,
     fsdp's bytes at rest below DDP's, sample-parallel codes equal to one
     rank's, and every rank's nearest-code and flash kernels on every
-    step."""
+    step; then the model, pipe and seq axes (P20_PP_M's comment), each
+    with its planted fault refused, their per-rank step times and peak
+    memory printed beside the card."""
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
@@ -4439,10 +4914,25 @@ def phase_multirank(torch, card: str) -> dict:
     log(f"phase 20 ranks: " + ", ".join(
         f"rank {r['rank']} on {r['device']} ({r['card']}), backend "
         f"{r['backend']}" for r in ranks))
-    check_multirank(ranks)
     res = {"ranks": ranks, "seconds": time.perf_counter() - t_phase}
-    log(f"phase 20 (data axis, {P20_WORLD} ranks on one card, gloo; "
-        f"{card}): {res['seconds']:.1f} s: {json.dumps(ranks)}")
+    log(f"phase 20 ({P20_WORLD} ranks on one card, gloo; {card}): "
+        f"{res['seconds']:.1f} s: {json.dumps(ranks)}")
+    for r in ranks:
+        log(f"phase 20 axes, rank {r['rank']} ({card}): "
+            f"tp sum {r['tp_sum']['step_ms']:.3f} ms/step "
+            f"peak {r['tp_sum']['peak_gib']:.2f} GiB, tp upgrad "
+            f"{r['tp_upgrad']['step_ms']:.3f} ms/step peak "
+            f"{r['tp_upgrad']['peak_gib']:.2f} GiB; pp prior "
+            f"{r['pp_prior']['step_ms']:.3f} ms/step, peak "
+            f"{r['pp_prior']['peak_gib']:.2f} GiB; cp prior "
+            f"{r['cp_prior']['step_ms']:.3f} ms/step, peak "
+            f"{r['cp_prior']['peak_gib']:.2f} GiB; ring fwd+bwd "
+            f"{r['ring']['ms']:.3f} ms (plain ring "
+            f"{r['ring']['plain_ms']:.3f}); data paths "
+            f"{r['seconds_data']:.1f} s, axes {r['seconds_axes']:.1f} s "
+            f"(" + ", ".join(f"{k} {v:.1f}"
+                             for k, v in r['part_s'].items()) + ")")
+    check_multirank(ranks)
     return res
 
 
@@ -4497,6 +4987,108 @@ def check_multirank(ranks: list) -> None:
           f"20 sample-parallel sample_fast_snail: "
           f"{lead['sample_fast_snail']['equal_codes']:.4f} of the codes "
           f"equal one rank's")
+    check_axes(ranks)
+
+
+def _p20_step_close(r: dict, control: float) -> bool:
+    """(a): the data axis's bounds, and the update within
+    FLASH_PLAIN_FACTOR times ``control`` (the data-parallel step's update
+    distance) or FLASH_GRAD_TOL, whichever is larger."""
+    return (abs(r["loss"] - r["ref_loss"]) <= P20_LOSS_RTOL
+            * abs(r["ref_loss"]) and r["params"]["worst"] <= 1.0
+            and r["update"]["worst"] <= max(FLASH_GRAD_TOL,
+                                            FLASH_PLAIN_FACTOR * control))
+
+
+def _p20_step_ok(r: dict) -> bool:
+    """(b), (c): every step's CE at P20_LOSS_RTOL and the parameters
+    after the steps at test_parallel's bounds, against the one-rank
+    trainer fed the path's gradients."""
+    return (len(r["ce"]) == len(r["ref_ce"]) == P20_STEPS
+            and all(abs(a - b) <= P20_LOSS_RTOL * abs(b)
+                    for a, b in zip(r["ce"], r["ref_ce"]))
+            and r["params"]["worst"] <= 1.0)
+
+
+def _p20_grads_close(r: dict) -> bool:
+    return (abs(r["loss"] - r["ref_loss"]) <= P20_LOSS_RTOL
+            * abs(r["ref_loss"]) and r["grads"]["worst"] <= 1.0)
+
+
+def check_axes(ranks: list) -> None:
+    """Phase 20's model, pipe and seq paths (see P20_PP_M's comment)."""
+    lead = ranks[0]
+    blocks = P20_BLOCKS
+    local = blocks // P20_WORLD
+    # (b): each stage's blocks on each microbatch, the forward again in
+    # the recompute; (c): the zigzag ring's two diagonal blocks per layer;
+    # the ring alone: one layer; P20_STEPS steps of (b) and (c)
+    want_pp = {"flash_attention_fwd": 2 * local * P20_PP_M * P20_STEPS,
+               "flash_attention_bwd_dkv": local * P20_PP_M * P20_STEPS,
+               "flash_attention_bwd_dq": local * P20_PP_M * P20_STEPS}
+    want_cp = dict.fromkeys(FLASH_KERNELS, 2 * blocks * P20_STEPS)
+    want_ring = dict.fromkeys(FLASH_KERNELS, 2)
+    for r in ranks:
+        for key in ("tp_sum", "tp_upgrad"):
+            check(r[key]["launches"]["nearest_code"] == 1
+                  and r[key]["split"] > 0,
+                  f"20 {key} rank {r['rank']}: nearest_code launched "
+                  f"{r[key]['launches']['nearest_code']} times in one "
+                  f"step, {r[key]['split']} leaves split")
+        for key, want in (("pp_prior", want_pp), ("cp_prior", want_cp)):
+            got = {n: r[key]["launches"][n] for n in FLASH_KERNELS}
+            check(got == want, f"20 {key} rank {r['rank']}: flash "
+                  f"launches {got}, want {want}")
+        got = r["ring"]["launches"]
+        check(got == want_ring, f"20 ring rank {r['rank']}: flash launches "
+              f"{got}, want {want_ring}")
+        ring = r["ring"]
+        check(ring["o_err"] <= FLASH_O_TOL
+              and ring["grad_err"] <= FLASH_GRAD_TOL,
+              f"20 ring rank {r['rank']}: against the plain ring, output "
+              f"{ring['o_err']:.3g} (limit {FLASH_O_TOL}), gradients "
+              f"{ring['grad_err']:.3g} (limit {FLASH_GRAD_TOL})")
+        check(ring["planted"][0] > FLASH_O_TOL,
+              f"20 ring rank {r['rank']}: the ring without its last "
+              f"rotation passes the gate: {ring['planted']}")
+    for key in ("tp_sum", "tp_upgrad", "pp_prior", "cp_prior"):
+        off = [r["rank"] for r in ranks
+               if r[key]["digest"] != lead[key]["digest"]]
+        check(not off, f"20 {key}: the whole model after the steps on "
+              f"ranks {off} is not rank 0's")
+    control = max(lead[f"stage1_{agg}"]["update"]["worst"]
+                  for agg in ("sum", "upgrad"))
+    for key in ("tp_sum", "tp_upgrad"):
+        check(_p20_step_close(lead[key], control),
+              f"20 {key}: model_partitions={P20_WORLD} against one rank: "
+              f"loss {lead[key]['loss']} vs {lead[key]['ref_loss']}, "
+              f"parameters {lead[key]['params']}, update "
+              f"{lead[key]['update']} (data-parallel control {control})")
+    check(not _p20_step_close(lead["tp_planted"], control),
+          f"20 tp: the check passes a TP layer that skips its input's "
+          f"backward all-reduce: {lead['tp_planted']['params']}, update "
+          f"{lead['tp_planted']['update']}")
+    for key in ("pp", "cp"):
+        r, g = lead[f"{key}_prior"], lead[f"{key}_grads"]
+        check(_p20_step_ok(r),
+              f"20 {key} prior steps: {P20_WORLD} ranks against one fed "
+              f"their gradients: CE {r['ce']} vs {r['ref_ce']}, "
+              f"parameters {r['params']} (rtol {P20_PARAM_RTOL}, atol "
+              f"{P20_PARAM_ATOL})")
+        check(_p20_grads_close(g),
+              f"20 {key} gradients: loss {g['loss']} vs {g['ref_loss']}, "
+              f"against float64 attention {g['grads']} (the one-rank "
+              f"float32 path {g['flash_vs_f64']:.3g} of a leaf's largest)")
+    planted = lead["pp_clip_planted"]
+    check(not _p20_step_ok(planted),
+          f"20 pp: the check passes a pipeline whose stages clip by their "
+          f"own norms: CE {planted['ce']} vs {planted['ref_ce']}, "
+          f"parameters {planted['params']}")
+    planted = lead["pp_planted"]
+    check(not _p20_grads_close(planted),
+          f"20 pp: the check passes a pipeline that loses one "
+          f"microbatch's CE: loss {planted['loss']} vs "
+          f"{planted['ref_loss']}, {planted['grads']}")
 
 
 def probe_dkv(torch, fa, dev, parent: Optional[str],

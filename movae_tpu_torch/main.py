@@ -7,10 +7,12 @@ for a CPU rehearsal. Train the model (``train/loop.py``), then for VQ
 models the prior (``train/prior.py``) and a final sample grid through it,
 then the final metrics (``train/final_metrics.py``) into the run's
 summary as ``final/*``. ``torchrun --nproc_per_node N -m
-movae_tpu_torch.main ...`` runs every stage data-parallel over N ranks
-(``--batch_size`` the global batch; rank 0 writes the run tree). Flags the
-port cannot honour yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+movae_tpu_torch.main ...`` runs every stage over N ranks
+(``--batch_size`` the global batch; rank 0 writes the run tree): data
+parallel by default, with ``--model_partitions`` (tensor parallelism of
+stage 1), ``--context_parallel`` (ring attention in the prior) and
+``--pipeline_parallel`` (the prior's blocks as a GPipe pipeline) taking
+their axes of the ranks (``parallel/``).
 """
 
 from __future__ import annotations
@@ -163,16 +165,17 @@ def build_parser() -> ArgumentParser:
                         help="write a torch.profiler trace of the first "
                              "epoch")
     parser.add_argument("--model_partitions", type=int, default=1,
-                        help="tensor-parallel partitions (> 1 raises: "
-                             "ROADMAP.md Queue 1 item 13; data parallelism "
-                             "runs under torchrun --nproc_per_node N)")
+                        help="tensor-parallel partitions of stage 1 over a "
+                             "'model' axis of the torchrun ranks (the rest "
+                             "data parallel)")
     parser.add_argument("--context_parallel", type=int, default=1,
                         help="sequence-parallel partitions of the prior's "
-                             "attention (> 1 raises: ROADMAP.md Queue 1 "
-                             "item 13)")
+                             "attention: ring attention over a 'seq' axis "
+                             "of the torchrun ranks")
     parser.add_argument("--pipeline_parallel", type=int, default=1,
-                        help="pipeline-parallel prior stages (> 1 raises: "
-                             "ROADMAP.md Queue 1 item 13)")
+                        help="pipeline-parallel prior stages: GPipe over a "
+                             "'pipe' axis of the torchrun ranks (data "
+                             "parallelism only beside it)")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
                         help="GPipe microbatches per step (0 = auto)")
     parser.add_argument("--fsdp", action="store_true",
@@ -230,15 +233,9 @@ def parse_args(argv=None):
     return args
 
 
-
-
 def main(args):
-    from movae_tpu_torch.train import figures as fig_lib
-    from movae_tpu_torch.train.final_metrics import (GEN_SEED_OFFSET,
-                                                     generate_samples,
-                                                     run_final_metrics)
-    from movae_tpu_torch.train.loop import is_vq_model, run_training
-    from movae_tpu_torch.train.prior import train_prior
+    from movae_tpu_torch.parallel import mesh as mesh_lib
+    from movae_tpu_torch.train.loop import run_training
 
     if getattr(args, "num_workers", 0):
         # the reference DataLoader's worker count caps the native
@@ -247,6 +244,21 @@ def main(args):
         native.set_num_threads(args.num_workers)
 
     results = run_training(args)
+    parallel = results["parallel"]
+    # the later stages run on the training stage's mesh
+    with mesh_lib.using(parallel.mesh if parallel is not None else None):
+        _after_training(results, args)
+    return results
+
+
+def _after_training(results, args) -> None:
+    from movae_tpu_torch.train import figures as fig_lib
+    from movae_tpu_torch.train.final_metrics import (GEN_SEED_OFFSET,
+                                                     generate_samples,
+                                                     run_final_metrics)
+    from movae_tpu_torch.train.loop import is_vq_model
+    from movae_tpu_torch.train.prior import train_prior
+
     logger = results["logger"]
     prior = None
     if is_vq_model(args) and not args.skip_pixelcnn:
@@ -279,7 +291,6 @@ def main(args):
             logger.log({f"final/{k}": v for k, v in finals.items()})
     logger.save_file(results["save_root"])
     logger.finish()
-    return results
 
 
 if __name__ == "__main__":

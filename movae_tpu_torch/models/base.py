@@ -146,7 +146,7 @@ def draw(name: str, op: str, shape: Sequence[int],
     from movae_tpu_torch.parallel import mesh as mesh_lib
 
     if (mesh_lib.active_data_parallel() is not None
-            and mesh_lib.process_count() > 1):
+            and mesh_lib.data_size() > 1):
         full = (mesh_lib.global_batch_size(shape[0]), *shape[1:])
         return mesh_lib.local_rows(
             _draw(name, op, full, generator, noise, device, high))

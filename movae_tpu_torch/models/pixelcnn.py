@@ -189,8 +189,11 @@ class CausalAttention(nn.Module):
         # the attention computes in q's dtype (the projections' compute
         # dtype), as the JAX package's: no autocast re-casting inside
         with torch.autocast(x.device.type, enabled=False):
+            # under context parallelism the ring and output dropout run
+            # at any L, as in the JAX package
             if (drop > 0.0 and self.attn_dropout_mode == "weights"
-                    and L <= DENSE_ATTENTION_MAX_L):
+                    and L <= DENSE_ATTENTION_MAX_L
+                    and not _context_active()):
                 out = dense_causal_attention(
                     q, k, v, sm_scale,
                     lambda w: _dropout(w, drop, generator))
@@ -508,21 +511,36 @@ class HierarchicalPixelSNAIL(HierarchicalPrior):
 # Sampling
 # ===========================================================================
 
+def _context_active() -> bool:
+    from movae_tpu_torch.parallel.context import get_context_parallel
+
+    ctx = get_context_parallel()
+    return ctx is not None and ctx.size > 1
+
+
 def warn_long_seq_dropout(model, h: int, w: int) -> None:
     """The JAX package's construction-site notice for a PixelSNAIL-family
-    prior with dropout > 0 in "weights" mode on a grid past the dense
-    threshold: there dropout falls on the attention output (the flash
-    path), not on the attention weights as in the reference
-    (pixelcnn_prior.py:126-127)."""
+    prior with dropout > 0 in "weights" mode where dropout falls on the
+    attention output (the flash path past the dense threshold, the ring
+    under context parallelism at any L), not on the attention weights as
+    in the reference (pixelcnn_prior.py:126-127)."""
     L = h * w
     dropout = float(getattr(model, "dropout", 0.0) or 0.0)
-    if (isinstance(model, (PixelSNAIL, HierarchicalPixelSNAIL))
+    if not (isinstance(model, (PixelSNAIL, HierarchicalPixelSNAIL))
             and dropout > 0.0
-            and getattr(model, "attn_dropout_mode", "output") == "weights"
-            and L > DENSE_ATTENTION_MAX_L):
+            and getattr(model, "attn_dropout_mode", "output") == "weights"):
+        return
+    if L > DENSE_ATTENTION_MAX_L:
         print(f"Note: attention grid {h}x{w} (L={L}) exceeds the dense "
               f"threshold ({DENSE_ATTENTION_MAX_L}); dropout={dropout} is "
               "applied to the attention output (flash-compatible), not the "
+              "attention weights as in the reference (pixelcnn_prior.py:"
+              "126-127).")
+    elif _context_active():
+        from movae_tpu_torch.parallel.context import get_context_parallel
+        print(f"Note: --context_parallel {get_context_parallel().size} "
+              "routes attention through the ring path; dropout="
+              f"{dropout} is applied to the attention output, not the "
               "attention weights as in the reference (pixelcnn_prior.py:"
               "126-127).")
 

@@ -35,31 +35,33 @@ Tensor = torch.Tensor
 
 def _data_parallel() -> bool:
     return (mesh_lib.active_data_parallel() is not None
-            and mesh_lib.process_count() > 1)
+            and mesh_lib.data_size() > 1)
 
 
-def all_reduce_mean(tensors: Sequence[Tensor]) -> List[Tensor]:
-    """Each tensor's mean over the ranks, in one all-reduce of one flat
-    buffer (identities on one rank)."""
-    tensors = list(tensors)
-    if mesh_lib.process_count() == 1 or not tensors:
-        return tensors
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    mesh_lib.all_reduce_(flat, "mean")
-    out, i = [], 0
-    for t in tensors:
-        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
-        i += t.numel()
-    return out
+def all_reduce_mean(tensors: Sequence[Tensor], axis: str = "data"
+                    ) -> List[Tensor]:
+    """Each tensor's mean over the ``axis`` ranks (the data ranks by
+    default): ``mesh.all_reduce_mean``."""
+    return mesh_lib.all_reduce_mean(tensors, axis)
 
 
-def gramian(J: Sequence[Tensor]) -> Tensor:
-    """G[i,j] = <J_i, J_j> summed over every stacked Jacobian leaf."""
+def gramian(J: Sequence[Tensor],
+            split: Optional[Sequence[bool]] = None) -> Tensor:
+    """G[i,j] = <J_i, J_j> summed over every stacked Jacobian leaf. The
+    leaves ``split`` marks hold this rank's slice of a tensor-parallel
+    leaf (``parallel/tensor.py``): their partial Gramian is summed over
+    the ``model`` axis, the replicated leaves' counted once."""
     m = J[0].shape[0]
     G = torch.zeros((m, m), dtype=torch.float32, device=J[0].device)
-    for leaf in J:
+    G_split = torch.zeros_like(G)
+    for i, leaf in enumerate(J):
         flat = leaf.reshape(m, -1).float()
-        G = G + flat @ flat.T
+        if split is not None and split[i]:
+            G_split = G_split + flat @ flat.T
+        else:
+            G = G + flat @ flat.T
+    if split is not None and any(split):
+        G = G + mesh_lib.all_reduce_(G_split, "sum", axis="model")
     return G
 
 
@@ -98,7 +100,8 @@ def full_jacobian(
     losses = torch.stack([l.detach() for l in lt])
     if _data_parallel():
         *J, losses = all_reduce_mean([*J, losses])
-    return losses, aux, J, gramian(J)
+    split = [bool(getattr(p, "tp_column", False)) for p in params]
+    return losses, aux, J, gramian(J, split)
 
 
 class FeatureJacobian:
@@ -139,8 +142,9 @@ class FeatureJacobian:
         self.G = gramian(self._J_feats)
         if _data_parallel():
             # each rank's seam rows carry dp x the global mean's cotangent
-            n = mesh_lib.process_count()
-            self.G = mesh_lib.all_reduce_(self.G, "sum") / (n * n)
+            n = mesh_lib.data_size()
+            self.G = mesh_lib.all_reduce_(self.G, "sum", axis="data") / (
+                n * n)
             self.losses = all_reduce_mean([self.losses])[0]
 
     def grads(self, alpha: Tensor) -> List[Tensor]:

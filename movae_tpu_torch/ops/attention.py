@@ -12,10 +12,11 @@ All paths use the inclusive-diagonal causal mask (position i attends to
     reaches the bfloat16 instances, never the float32 ones through a cast),
     their plain version on the CPU.
 
+Under an active context-parallel config (``parallel/context.py``,
+``--context_parallel N``) every call takes the ring over the ``seq`` axis
+(``ops/ring_attention.py``), at any L, as the JAX package's dispatch does.
 A data-parallel prior step (``parallel/mesh.py``) runs these paths on each
-rank's rows: attention is per row. Not ported: the JAX package's ring
-(context-parallel) path, ``ROADMAP.md`` Queue 1 item 13's next sub-item
-(``train_prior`` refuses ``context_parallel > 1``), and its
+rank's rows: attention is per row. Not ported: the JAX package's
 ``blockwise_causal_attention`` scan, a CPU fallback and test oracle whose
 role the kernel's plain version takes here.
 """
@@ -41,8 +42,15 @@ __all__ = ["DENSE_ATTENTION_MAX_L", "causal_attention",
 
 def causal_attention(q: Tensor, k: Tensor, v: Tensor, sm_scale: float
                      ) -> Tensor:
-    """Dispatch: dense up to ``DENSE_ATTENTION_MAX_L``, the flash kernels
-    above it."""
+    """Dispatch: the ring under an active context-parallel config, else
+    dense up to ``DENSE_ATTENTION_MAX_L`` and the flash kernels above
+    it."""
+    from movae_tpu_torch.parallel.context import get_context_parallel
+
+    ctx = get_context_parallel()
+    if ctx is not None and ctx.size > 1:
+        from movae_tpu_torch.ops.ring_attention import ring_causal_attention
+        return ring_causal_attention(q, k, v, sm_scale)
     if q.shape[2] <= DENSE_ATTENTION_MAX_L:
         return dense_causal_attention(q, k, v, sm_scale)
     return flash_causal_attention(q, k, v, sm_scale)

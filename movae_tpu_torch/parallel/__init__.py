@@ -1,8 +1,10 @@
-"""Multi-device work over the ``data`` mesh axis — port of the data half of
-``movae_tpu/parallel/``: process groups, the mesh and ``DataParallel``
-(``mesh.py``), hand-written fsdp (``fsdp.py``) and sample-parallel
-generation (``context.py``). Tensor, pipeline and context parallelism are
-ROADMAP.md Queue 1 item 13's remaining sub-items."""
+"""Multi-device work over the ('data', 'model', 'seq', 'pipe') mesh — port
+of ``movae_tpu/parallel/``: process groups, the mesh and ``DataParallel``
+(``mesh.py``), hand-written fsdp (``fsdp.py``), tensor parallelism
+(``tensor.py``), GPipe over the prior's blocks (``pipeline.py``), the
+one interface the trainers call on them (``holder.py``), and
+context-parallel attention with sample-parallel generation
+(``context.py``; the ring itself is ``ops/ring_attention.py``)."""
 
 from movae_tpu_torch.parallel.mesh import (AXES, DataParallel, Mesh,
                                            active_data_parallel,

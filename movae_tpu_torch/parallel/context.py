@@ -1,6 +1,19 @@
-"""Sample-parallel generation — port of the sampling half of
-``movae_tpu/parallel/context.py`` (``SampleParallel``, ``sample_parallel``,
-``shard_sample_batch``).
+"""Context-parallel attention and sample-parallel generation — port of
+``movae_tpu/parallel/context.py``.
+
+A :class:`ContextParallel` installed by :func:`context_parallel` (the prior
+trainer does, for ``--context_parallel N``) makes
+``ops/attention.py:causal_attention`` take the zigzag ring
+(``ops/ring_attention.py``) over the current mesh's ``seq`` axis
+(``parallel/mesh.py:using``), at any L. The JAX config's ``mesh``,
+``seq_axis``, ``batch_axis`` and ``head_axis`` have no counterpart: the
+mesh is the current one, its axis is always ``seq``, each rank already
+holds its rows of the batch, and the port splits no attention heads (its
+prior is not tensor-parallel). The JAX package's
+``seq_shard_spatial`` (the prior trunk row-sharded over ``seq`` with halo
+exchanges) is not ported: the trunk runs whole on every ``seq`` rank and
+the ring slices q, k, v at its entry, which gives the same values
+(ROADMAP.md "After the port").
 
 A :class:`SampleParallel` installed by :func:`sample_parallel` makes the
 prior samplers batch-parallel over the ranks: every rank draws the global
@@ -10,8 +23,7 @@ loaders interleave them), runs the cached sampling loop on them with no
 collective, and the codes are gathered back into the global batch
 (:func:`gather_sample_batch`): the codes of one device on the whole
 batch, on every rank. A batch the ranks do not divide runs whole on every
-rank. The context half (``ContextParallel``, the ring attention) is
-ROADMAP.md Queue 1 item 13's next sub-item.
+rank.
 """
 
 from __future__ import annotations
@@ -26,6 +38,37 @@ from movae_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 
+
+@dataclasses.dataclass(frozen=True)
+class ContextParallel:
+    """Attention takes the ring over the current mesh's ``seq`` axis."""
+
+    @property
+    def size(self) -> int:
+        return mesh_lib.axis_size("seq")
+
+
+_current: Optional[ContextParallel] = None
+
+
+def get_context_parallel() -> Optional[ContextParallel]:
+    """The active config, or None (one rank's attention paths)."""
+    return _current
+
+
+@contextlib.contextmanager
+def context_parallel():
+    """Install a context-parallel config while the prior trains."""
+    global _current
+    prev = _current
+    _current = ContextParallel()
+    try:
+        yield _current
+    finally:
+        _current = prev
+
+
+# --- data-parallel SAMPLING -------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class SampleParallel:

@@ -6,12 +6,13 @@ rank's 1/dp slice on the dimension ``DataParallel.param_shardings`` picks
 (the JAX rule: at least 4,096 elements, the largest dimension divisible by
 dp); the optimizer is built over the slices, so its moments are 1/dp too.
 :meth:`ShardedParams.gather` all-gathers every leaf into the model's own
-parameters before the step; :meth:`ShardedParams.reduce_scatter` turns the
-step's combined gradient into each slice's (the mean over ranks, this
-rank's part), and :meth:`ShardedParams.release` frees the gathered leaves
-after the update. The update is elementwise on each slice (Adam, AdamW,
-SGD, RMSprop; a global-norm clip sums its squares over the ranks), so the
-numbers are DDP's.
+parameters before the step; :meth:`ShardedParams.slice_grads` cuts the
+step's combined gradient (the mean over the data ranks) to each slice's,
+and :meth:`ShardedParams.release` frees the gathered leaves after the
+update. The update is elementwise on each slice (Adam, AdamW, SGD,
+RMSprop; a global-norm clip sums its squares over the ranks), so the
+numbers are DDP's. :class:`ShardedParams` is a
+``parallel/holder.py:Holder``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any, List, Optional
 import torch
 
 from movae_tpu_torch.parallel import mesh as mesh_lib
+from movae_tpu_torch.parallel.holder import Holder, split_axes
 
 Tensor = torch.Tensor
 
@@ -30,7 +32,7 @@ def _slice(t: Tensor, dim: int, rank: int, n: int) -> Tensor:
     return t.chunk(n, dim)[rank]
 
 
-class ShardedParams:
+class ShardedParams(Holder):
     """The fsdp shard set of ``model``'s trainable parameters (see the
     module docstring). ``shards`` are the optimizer's parameters, in the
     order of ``model``'s; ``dims[i]`` is the sharded dimension of leaf i,
@@ -39,7 +41,7 @@ class ShardedParams:
     def __init__(self, model: torch.nn.Module, parallel, min_elems: int):
         self.parallel = parallel
         self.n = parallel.mesh.shape["data"]
-        self.rank = mesh_lib.process_index()
+        self.rank = mesh_lib.data_index()
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.dims = [parallel.param_shardings(p, min_elems)
                      for p in self.params]
@@ -84,49 +86,34 @@ class ShardedParams:
         self.gathered = False
 
     @contextlib.contextmanager
-    def whole(self):
+    def whole(self, load: bool = False):
         """The model's parameters whole for the block (eval, figures,
-        checkpoints), released after; a collective."""
+        checkpoints), released after; a collective. With ``load`` the
+        slices are taken again from what the block loaded."""
         was = self.gathered
         self.gather()
         try:
             yield
+            if load:
+                self.reload_shards()
         finally:
             if not was:
                 self.release()
 
-    def reduce_scatter(self, grads: List[Tensor],
-                       reduced: bool = False) -> List[Tensor]:
-        """Each leaf's gradient for the optimizer: a sharded leaf's slice of
-        the mean over ranks (``reduced``: the gradients are already that
-        mean, equal on every rank, and only sliced), a whole leaf's mean.
-        On every backend the mean is one all-reduce, then sliced: a
-        reduce-scatter would move less, but no run has measured one."""
-        out = []
-        for g, d in zip(grads, self.dims):
-            if not reduced:
-                g = mesh_lib.all_reduce_(g.contiguous(), "mean")
-            out.append(g if d is None else
-                       _slice(g, d, self.rank, self.n).contiguous())
-        return out
+    def slice_grads(self, grads: List[Tensor]) -> List[Tensor]:
+        """Each leaf's gradient for the optimizer from the mean over the
+        data ranks (equal on every rank): a sharded leaf's slice of it. The
+        mean is one all-reduce, then sliced: a reduce-scatter would move
+        less, but no run has measured one."""
+        return [g if d is None else
+                _slice(g, d, self.rank, self.n).contiguous()
+                for g, d in zip(grads, self.dims)]
 
-    def clip_by_global_norm(self, grads: List[Tensor], max_norm: float
-                            ) -> List[Tensor]:
-        """optax's ``clip_by_global_norm`` over the whole gradient from the
-        slices: the sharded leaves' squares summed over the ranks."""
-        sq_sharded = torch.zeros((), dtype=torch.float32,
-                                 device=grads[0].device)
-        sq_whole = torch.zeros_like(sq_sharded)
-        for g, d in zip(grads, self.dims):
-            sq = g.float().square().sum()
-            if d is None:
-                sq_whole = sq_whole + sq
-            else:
-                sq_sharded = sq_sharded + sq
-        norm = (mesh_lib.all_reduce_(sq_sharded, "sum") + sq_whole).sqrt()
-        scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                            max_norm / norm)
-        return [g * scale.to(g.dtype) for g in grads]
+    def clip_axes(self) -> List[tuple]:
+        return split_axes(self.dims, "data")
+
+    def finalize(self) -> None:
+        self.gather()
 
     def rest_bytes(self, optimizer: Optional[torch.optim.Optimizer] = None
                    ) -> dict:
@@ -142,11 +129,12 @@ class ShardedParams:
         return {"params": params, "moments": moments}
 
     # --- optimizer state whole, for a rank-0 checkpoint ---------------------
-    def full_optimizer_state(self, optimizer: torch.optim.Optimizer) -> dict:
-        """``optimizer.state_dict()`` with every sharded moment gathered
-        whole (a collective): the state dict an unsharded optimizer over
-        the model's parameters would hold."""
-        sd = optimizer.state_dict()
+    def full_optimizer_state(self, sd: dict) -> dict:
+        """An optimizer state dict over the slices with every sharded
+        moment gathered whole (a collective): the state dict an unsharded
+        optimizer over the model's parameters would hold."""
+        sd = {"state": {int(i): dict(st) for i, st in sd["state"].items()},
+              "param_groups": sd["param_groups"]}
         for i, st in sd["state"].items():
             d = self.dims[i]
             if d is None:
@@ -156,9 +144,8 @@ class ShardedParams:
                     st[k] = torch.cat(mesh_lib.all_gather(t), d)
         return sd
 
-    def load_full_optimizer_state(self, optimizer: torch.optim.Optimizer,
-                                  sd: dict) -> None:
-        """Load a whole optimizer state dict, keeping this rank's slices."""
+    def local_optimizer_state(self, sd: dict) -> dict:
+        """A whole optimizer state dict cut to this rank's slices."""
         sd = {"state": {int(i): dict(st) for i, st in sd["state"].items()},
               "param_groups": sd["param_groups"]}
         for i, st in sd["state"].items():
@@ -168,7 +155,7 @@ class ShardedParams:
             for k, t in list(st.items()):
                 if torch.is_tensor(t) and t.dim() > 0:
                     st[k] = _slice(t, d, self.rank, self.n).clone()
-        optimizer.load_state_dict(sd)
+        return sd
 
 
 def host_tree(tree: Any) -> Any:

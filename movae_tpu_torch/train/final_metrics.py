@@ -126,8 +126,9 @@ def generate_samples(model, args, prior: Optional[Mapping[str, Any]],
     images are one device's. That gather is a COLLECTIVE: every rank calls
     this, and only the use of the result is gated on rank 0."""
     ctx = contextlib.nullcontext()
-    if get_sample_parallel() is None and mesh_lib.process_count() > 1:
-        ctx = sample_parallel(mesh_lib.make_mesh(device=_device(model)))
+    if get_sample_parallel() is None and mesh_lib.data_size() > 1:
+        ctx = sample_parallel(mesh_lib.current_mesh() or mesh_lib.make_mesh(
+            device=_device(model)))
     with deterministic_cudnn(), ctx:
         return _generate_samples(model, args, prior, generator, num, batch)
 

@@ -18,21 +18,23 @@ the numbers of the JAX package's k-step scan. ``--remat`` and
 ``--compute_dtype bfloat16`` reach the step and the model.
 
 Started by ``torchrun --nproc_per_node N -m movae_tpu_torch.main ...``,
-the stage runs data-parallel over the N ranks (``parallel/mesh.py``): each
-rank loads its interleaved slice of every global batch (``--batch_size``
-is the global batch), the step all-reduces what one device would compute
-on the whole batch, ``--fsdp`` holds 1/N of the large leaves and their
-moments at rest, eval metrics are means over the ranks, and rank 0 alone
-writes the run tree (checkpoints, figures, ``wandb_local``); every rank
-takes part in the collectives behind them.
-
-Flags the port cannot honour yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item (:func:`check_supported`).
+the stage runs over the N ranks' mesh (``parallel/mesh.py``): the data
+ranks each load their interleaved slice of every global batch
+(``--batch_size`` is the global batch), the step all-reduces over
+``data`` what one device would compute on the whole batch, ``--fsdp``
+holds 1/dp of the large leaves and their moments at rest, eval metrics
+are means over the data ranks, and rank 0 alone writes the run tree
+(checkpoints, figures, ``wandb_local``); every rank takes part in the
+collectives behind them. ``--model_partitions M`` splits the large
+layers' output channels over a ``model`` axis (``parallel/tensor.py``;
+checkpoints, figures and eval see the whole model); the ``seq`` and
+``pipe`` axes of ``--context_parallel`` and ``--pipeline_parallel``
+replicate this stage and serve the prior. :func:`check_supported` raises
+where the JAX package refuses a run.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 import time
@@ -48,6 +50,7 @@ from movae_tpu_torch.metrics.hv import build_hv_indicator
 from movae_tpu_torch.models import get_network, init_model
 from movae_tpu_torch.moo import AggregatorConfig, init_state
 from movae_tpu_torch.parallel import mesh as mesh_lib
+from movae_tpu_torch.parallel.tensor import TensorParallel
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train import figures as fig_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
@@ -71,18 +74,15 @@ def is_vq_model(args) -> bool:
     return getattr(args, "arch", "vae").lower() in ARCHS_NEEDING_PRIOR
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to movae_tpu_torch yet: ROADMAP.md {item}")
-
-
 def check_supported(args) -> None:
-    """Raise for a flag the port cannot honour yet, naming its item, and
-    for ``--grad_accum`` with ``--steps_per_dispatch`` (``ValueError``, as
-    in the JAX package)."""
-    for flag in ("model_partitions", "context_parallel", "pipeline_parallel"):
-        if int(getattr(args, flag, 1) or 1) > 1:
-            raise _not_ported(f"--{flag} > 1", "Queue 1 item 13")
+    """Raise ``ValueError`` where the JAX package refuses a run:
+    ``--grad_accum`` with ``--steps_per_dispatch``, and a pipelined prior
+    with tensor or context parallelism (``parallel/pipeline.py``; checked
+    here, before the first stage, where the run trains a prior)."""
+    from movae_tpu_torch.parallel.pipeline import check_composition
+
+    if is_vq_model(args) and not getattr(args, "skip_pixelcnn", False):
+        check_composition(args)
     if (int(getattr(args, "grad_accum", 1) or 1) > 1
             and int(getattr(args, "steps_per_dispatch", 1) or 1) > 1):
         raise ValueError(
@@ -149,16 +149,29 @@ def trim_tail(imgs, i: int, n_valid: int, pc: int, n_ds: int, gb: int):
     return imgs, gv
 
 
+def mesh_from_args(args, device: torch.device) -> mesh_lib.Mesh:
+    """The run's ('data', 'model', 'seq', 'pipe') mesh over the ranks:
+    ``--model_partitions``, ``--context_parallel`` and
+    ``--pipeline_parallel``, the data axis the rest (``ValueError`` where
+    they do not divide the ranks, as in the JAX package)."""
+    return mesh_lib.make_mesh(
+        num_model=int(getattr(args, "model_partitions", 1) or 1),
+        num_seq=int(getattr(args, "context_parallel", 1) or 1),
+        num_pipe=int(getattr(args, "pipeline_parallel", 1) or 1),
+        device=device)
+
+
 def parallel_from_args(args, device: torch.device):
     """``(rank, world, DataParallel or None)`` for this process: a
-    data-parallel config over the ranks torchrun started (``--fsdp`` for
-    fully sharded), None for one process."""
+    parallel config over the ranks torchrun started and the mesh the flags
+    ask for (``--fsdp`` for fully sharded), None for one process with
+    every axis at 1."""
     rank, world = mesh_lib.init_distributed(device)
-    if world == 1:
+    mesh = mesh_from_args(args, device)
+    if mesh.size == 1:
         return rank, world, None
     return rank, world, mesh_lib.DataParallel(
-        mesh_lib.make_mesh(device=device),
-        fsdp=bool(getattr(args, "fsdp", False)))
+        mesh, fsdp=bool(getattr(args, "fsdp", False)))
 
 
 def shared_timestamp() -> str:
@@ -372,8 +385,8 @@ def evaluate(eval_fn, loader, objective_names,
         weights.append(n_valid)
         for k, mask in extras.items():
             union[k] = union[k] | mask if k in union else mask
-    if mesh_lib.process_count() > 1:
-        # every rank's weighted sums and row counts, and the code union
+    if mesh_lib.data_size() > 1:
+        # every data rank's weighted sums and row counts, and the code union
         dev = rows[0].device if rows else torch.device("cpu")
         w = torch.tensor(weights, dtype=torch.float32, device=dev)
         tot = (torch.stack(rows) * w[:, None]).sum(0) if rows else \
@@ -400,12 +413,19 @@ def evaluate(eval_fn, loader, objective_names,
 
 def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     """The VQ/VAE training stage of ``main``; returns the results dict the
-    prior stage and the final metrics read. Runs on ``device``, else
+    prior stage and the final metrics read (its ``parallel`` config's mesh
+    is the one they make current). Runs on ``device``, else
     ``args.device``, else ``cuda``."""
     check_supported(args)
     dev = resolve_device(mesh_lib.rank_device(
         device if device is not None else getattr(args, "device", None)))
     rank, world, parallel = parallel_from_args(args, dev)
+    with mesh_lib.using(parallel.mesh if parallel is not None else None):
+        return _run_training(args, dev, rank, world, parallel)
+
+
+def _run_training(args, dev: torch.device, rank: int, world: int,
+                  parallel) -> Dict[str, Any]:
     lead = rank == 0
     normalize = getattr(args, "normalize_inputs", False)
     train_ds, test_ds, input_size = get_dataset(
@@ -417,17 +437,20 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     args.dataset_size = len(train_ds)
     seed = getattr(args, "seed", 0) or 0
     batch_size = args.batch_size
-    if batch_size % world:
+    # the stage shards only on 'data': ranks of one data index (model,
+    # seq and pipe) load the same rows
+    dp_n = mesh_lib.data_size()
+    if batch_size % dp_n:
         raise ValueError(f"--batch_size {batch_size} (the global batch) "
-                         f"must be divisible by the {world} ranks")
-    shard = dict(process_index=rank, process_count=world)
+                         f"must be divisible by the {dp_n} data ranks")
+    shard = dict(process_index=mesh_lib.data_index(), process_count=dp_n)
 
     # the hot loop's loaders ship raw uint8 (cast on the device), each rank
     # its interleaved slice; the float test_loader serves the final metric
     # passes, which every rank runs whole
-    train_loader = Loader(train_ds, batch_size // world, shuffle=True,
+    train_loader = Loader(train_ds, batch_size // dp_n, shuffle=True,
                           seed=seed, raw=True, **shard)
-    eval_loader = Loader(test_ds, batch_size // world, shuffle=False,
+    eval_loader = Loader(test_ds, batch_size // dp_n, shuffle=False,
                          raw=True, **shard)
     test_loader = Loader(test_ds, batch_size, shuffle=False)
 
@@ -476,18 +499,28 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
             **{**agg_cfg.__dict__,
                "nashmtl_update_every": batches_per_epoch})
     args.aggregator = agg_cfg.name
+    tp = None
+    if parallel is not None and parallel.mesh.shape["model"] > 1:
+        # tensor parallelism first: fsdp then shards the model's slices
+        tp = TensorParallel(model, gather_leaves=not parallel.fsdp)
+        if lead:
+            print(f"[tp] {tp.sharded} of {len(tp.params)} leaves split "
+                  f"over {tp.n} model ranks")
     fsdp = (parallel.shard_params(model)
             if parallel is not None and parallel.fsdp else None)
-    state = TrainState.create(model, tx, init_state(agg_cfg), fsdp=fsdp)
+    state = TrainState.create(model, tx, init_state(agg_cfg), fsdp=fsdp,
+                              tp=tp)
+    holder = state.holder
     if fsdp is not None and lead:
         print(f"[fsdp] {fsdp.sharded} of {len(fsdp.params)} leaves sharded "
-              f"over {world} ranks")
+              f"over {dp_n} data ranks")
 
-    def whole():
-        """The model's parameters whole for the block (fsdp: a
+    whole = holder.whole
+
+    def full_optimizer_state() -> dict:
+        """The optimizer's state with every sliced moment whole (a
         collective)."""
-        return fsdp.whole() if fsdp is not None else \
-            contextlib.nullcontext()
+        return holder.full_optimizer_state(state.optimizer.state_dict())
 
     save_root = os.path.join(args.save_path, args.dataset, args.arch,
                              args.optimizer, agg_cfg.name, shared_timestamp())
@@ -534,15 +567,10 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     resume_from = getattr(args, "resume", None)
     if resume_from:
         payload = ckpt_lib.load_checkpoint(resume_from)
-        with whole():
+        with whole(load=True):
             ckpt_lib.load_module_state(model, payload)
-        if fsdp is not None:
-            fsdp.reload_shards()
-            fsdp.load_full_optimizer_state(state.optimizer,
-                                           payload["optimizer_state_dict"])
-        else:
-            state.optimizer.load_state_dict(
-                payload["optimizer_state_dict"])
+        state.optimizer.load_state_dict(holder.local_optimizer_state(
+            payload["optimizer_state_dict"]))
         state.agg_state = dict(payload.get("agg_state") or {})
         gen.set_state(payload["generator_state"])
         start_epoch = int(payload.get("epoch") or 0) + 1
@@ -580,8 +608,7 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
         # the gathers are collectives; rank 0 alone writes
         with whole():
             ref, extra = ckpt_lib.split_state_dict(model)
-        opt_state = (state.optimizer.state_dict() if fsdp is None
-                     else fsdp.full_optimizer_state(state.optimizer))
+        opt_state = full_optimizer_state()
         if not lead:
             return
         ckpt_lib.save_checkpoint(ckpt_lib.last_checkpoint_path(save_root), {
@@ -667,9 +694,8 @@ def run_training(args, device: DeviceLike = None) -> Dict[str, Any]:
     guard.uninstall()
     if lead:
         print(f"Training done: {timer.images_per_sec:.1f} images/sec")
-    if fsdp is not None:
-        # the later stages read the whole model
-        fsdp.gather()
+    # the later stages read the whole model
+    holder.finalize()
 
     final_path = ckpt_lib.final_checkpoint_path(save_root)
     ref, extra = ckpt_lib.split_state_dict(model)

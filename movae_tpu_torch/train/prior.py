@@ -14,17 +14,23 @@ logs ``prior/loss`` and draws ``prior_sample_every`` sample grids.
 kernels' bf16 instances at L > 1024); ``grad_accum`` A accumulates A full
 code batches into one update, as the JAX package's prior does.
 
-Data-parallel over the stage-1 ranks (``parallel``, from ``run_training``
-under torchrun): each rank extracts its own loader slice (a per-rank code
-cache), the slices are gathered into the global code set in the loaders'
-interleaved order, and each rank trains on its slice of every global
-batch (``CodeLoader(process_index=, process_count=)``) with the gradients
-all-reduced, the dropout masks drawn for the global batch, and under
-``--fsdp`` 1/N of the large leaves and moments held at rest: the numbers
-of one device on the whole batch. Rank 0 alone writes.
-
-Not ported yet, raising with its ``ROADMAP.md`` item: context and
-pipeline parallelism (Queue 1 item 13).
+Data-parallel over the stage-1 mesh's ``data`` ranks (``parallel``, from
+``run_training`` under torchrun): each rank extracts its own loader slice
+(a per-rank code cache), the slices are gathered into the global code set
+in the loaders' interleaved order, and each rank trains on its slice of
+every global batch (``CodeLoader(process_index=, process_count=)``, the
+data index and size) with the gradients all-reduced over ``data``, the
+dropout masks drawn for the global batch, and under ``--fsdp`` 1/N of the
+large leaves and moments held at rest: the numbers of one device on the
+whole batch. Rank 0 alone writes. With ``--context_parallel N`` the
+mesh's ``seq`` axis carries the prior's attention as ring attention
+(``ops/ring_attention.py``, installed by ``parallel/context.py``); with
+``--pipeline_parallel S`` the block stack(s) run as a GPipe pipeline over
+``pipe`` (``parallel/pipeline.py``; ``--pipeline_microbatches M``, else
+the largest divisor of the per-shard batch up to 2S), each stage holding
+its blocks and their moments, the checkpoints in the reference layout.
+The prior stays whole over ``model`` (the JAX package places it so
+unless ``--fsdp``; the numbers are the same).
 """
 
 from __future__ import annotations
@@ -46,7 +52,10 @@ from movae_tpu_torch.models.pixelcnn import (HierarchicalPixelCNN,
                                              PixelCNN, PixelSNAIL,
                                              warn_long_seq_dropout)
 from movae_tpu_torch.moo import engine
+from movae_tpu_torch.parallel import holder as holder_lib
 from movae_tpu_torch.parallel import mesh as mesh_lib
+from movae_tpu_torch.parallel import pipeline as pp_lib
+from movae_tpu_torch.parallel.context import context_parallel
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.optim import build_optimizer, lr_schedule
 from movae_tpu_torch.train.step import (accum_groups, accumulate,
@@ -62,11 +71,6 @@ def _get(args, name: str, default=None):
     if isinstance(args, Mapping):
         return args.get(name, default)
     return getattr(args, name, default)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to movae_tpu_torch yet: ROADMAP.md {item}")
 
 
 def build_prior(args, num_embeddings: int, hierarchical: bool = False,
@@ -218,10 +222,25 @@ def _check_supported(args) -> None:
         raise ValueError(
             "--grad_accum and --steps_per_dispatch are mutually exclusive "
             "(an accumulation group is already one dispatch)")
-    if (int(_get(args, "context_parallel", 1) or 1) > 1
-            or int(_get(args, "pipeline_parallel", 1) or 1) > 1):
-        raise _not_ported("context / pipeline parallelism",
-                          "Queue 1 item 13")
+    pp_lib.check_composition(SimpleNamespace(**{
+        k: _get(args, k, 1) for k in ("pipeline_parallel",
+                                      "model_partitions",
+                                      "context_parallel")}))
+
+
+def parallel_for_prior(args, device) -> Optional[mesh_lib.DataParallel]:
+    """The prior's parallel config where the caller gave none: the JAX
+    package's mesh over the ranks with ``--context_parallel`` and
+    ``--pipeline_parallel`` (``ValueError`` where they do not divide the
+    ranks); None with both at 1 (each process trains on its own)."""
+    cp = int(_get(args, "context_parallel", 1) or 1)
+    pp = int(_get(args, "pipeline_parallel", 1) or 1)
+    if cp * pp == 1:
+        return None
+    mesh_lib.init_distributed(device)
+    return mesh_lib.DataParallel(
+        mesh_lib.make_mesh(num_seq=cp, num_pipe=pp, device=device),
+        fsdp=bool(_get(args, "fsdp", False)))
 
 
 def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -275,9 +294,24 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     module docstring), rank 0 writes.
     """
     _check_supported(args)
+    dev = resolve_device(device)
+    if parallel is None:
+        parallel = parallel_for_prior(args, dev)
+    ctx = contextlib.nullcontext()
+    if parallel is not None and parallel.mesh.shape["seq"] > 1:
+        ctx = context_parallel()
+    with ctx, mesh_lib.using(parallel.mesh if parallel is not None
+                             else None):
+        return _train_on_levels(levels, model_meta, args, dev, step_trace,
+                                prior, save_root, logger, resume, vq_model,
+                                parallel)
+
+
+def _train_on_levels(levels, model_meta, args, dev, step_trace, prior,
+                     save_root, logger, resume, vq_model, parallel
+                     ) -> Dict[str, Any]:
     hierarchical = "codes" not in levels
     names = ("top", "bottom") if hierarchical else ("codes",)
-    dev = resolve_device(device)
     seed = int(_get(args, "seed", 0) or 0)
     epochs = int(_get(args, "pixelcnn_epochs", 100))
     lr = float(_get(args, "pixelcnn_lr", 3e-4))
@@ -285,14 +319,14 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
     eps = float(_get(args, "pixelcnn_adam_eps", 1e-8) or 1e-8)
     prior_type = _get(args, "prior_type", "pixelcnn")
     sample_every = int(_get(args, "prior_sample_every", 0) or 0)
-    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
-    if parallel is None:
-        rank, world = 0, 1
-    lead = rank == 0
+    lead = mesh_lib.process_index() == 0
+    rank, world = 0, 1
+    if parallel is not None:
+        rank, world = mesh_lib.data_index(), mesh_lib.data_size()
     batch = int(_get(args, "batch_size"))
     if batch % world:
         raise ValueError(f"--batch_size {batch} (the global batch) must be "
-                         f"divisible by the {world} ranks")
+                         f"divisible by the {world} data ranks")
     loader = CodeLoader({k: np.asarray(levels[k]) for k in names},
                         batch // world, shuffle=True, seed=seed,
                         process_index=rank, process_count=world)
@@ -319,31 +353,58 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
         "adamw" if wd else "adam",
         lr_schedule(lr, "cosine", epochs, spe, lr_min=1e-6),
         weight_decay=wd, max_grad_norm=1.0, eps=eps)
-    params = list(prior.parameters())
-    fsdp = (parallel.shard_params(prior)
-            if parallel is not None and parallel.fsdp else None)
-    opt = recipe.init(params if fsdp is None else fsdp.shards)
-    # under fsdp the optimizer clips the slices' gradients as one vector
-    step_recipe = (recipe if fsdp is None
+    pipe = None
+    pp_n = parallel.mesh.shape["pipe"] if parallel is not None else 1
+    if pp_n > 1:
+        if parallel.fsdp and lead:
+            print("[movae_tpu_torch] note: --fsdp does not apply to the "
+                  "pipelined prior — the block stack is stage-sharded "
+                  "over 'pipe' (the bigger at-rest saving) and the "
+                  "prologue/head params stay replicated", flush=True)
+        per_shard = batch // world
+        pp_m = (int(_get(args, "pipeline_microbatches", 0) or 0)
+                or pp_lib.default_microbatches(per_shard, pp_n))
+        if pp_m < pp_n and lead:
+            print(f"[movae_tpu_torch] pipeline_parallel={pp_n} got only "
+                  f"{pp_m} microbatch(es) from the per-shard batch "
+                  f"{per_shard} (bubble {(pp_n - 1) / (pp_m + pp_n - 1):.0%});"
+                  f" raise --batch_size or set --pipeline_microbatches",
+                  flush=True)
+        if batch % (world * pp_m):
+            raise ValueError(f"batch {batch} must divide by data_parallel*"
+                             f"microbatches ({world}*{pp_m})")
+        holder = pipe = pp_lib.PipelinedPrior(prior, pp_m, train=True,
+                                              remat=True)
+    elif parallel is not None and parallel.fsdp:
+        holder = parallel.shard_params(prior)
+    else:
+        holder = holder_lib.Holder(prior.parameters())
+    params = holder.params
+    opt = recipe.init(holder.shards)
+    # where the holder splits leaves the optimizer clips the slices'
+    # gradients as one vector, their squares summed over their axes
+    clip_axes = holder.clip_axes()
+    step_recipe = (recipe if clip_axes is None
                    else dataclasses.replace(recipe, max_grad_norm=None))
+    whole = holder.whole
 
-    def whole():
-        return fsdp.whole() if fsdp is not None else \
-            contextlib.nullcontext()
+    def full_optimizer_state() -> dict:
+        return holder.full_optimizer_state(opt.state_dict())
     echo = prior_args_echo(args, prior.embedding_dim)
 
     start_epoch, step, best_loss = 1, 0, float("inf")
     resume = resume or _get(args, "prior_resume")
     if resume and os.path.exists(resume):
         payload = ckpt_lib.load_checkpoint(resume)
-        with whole():
+        with whole(load=True):
             prior.load_state_dict(payload["model_state_dict"])
-        if fsdp is not None:
-            fsdp.reload_shards()
-            fsdp.load_full_optimizer_state(opt,
-                                           payload["optimizer_state_dict"])
-        else:
-            opt.load_state_dict(payload["optimizer_state_dict"])
+        opt_sd = holder.local_optimizer_state(
+            payload["optimizer_state_dict"])
+        if opt_sd is not None:
+            opt.load_state_dict(opt_sd)
+        elif lead:
+            print(f"[movae_tpu_torch] {resume}: its optimizer state "
+                  f"is another pipeline's; the moments start afresh")
         gen.set_state(payload["generator_state"])
         start_epoch = int(payload.get("epoch") or 0) + 1
         step = int(payload.get("step") or 0)
@@ -367,8 +428,7 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
             state = _cpu_state(prior)
         save(ckpt_lib.last_prior_path(save_root, prior_type), epoch_done,
              state, loss, step=step, best_loss=best_loss,
-             optimizer_state_dict=(opt.state_dict() if fsdp is None else
-                                   fsdp.full_optimizer_state(opt)),
+             optimizer_state_dict=full_optimizer_state(),
              generator_state=gen.get_state())
 
     def prior_loss(codes) -> torch.Tensor:
@@ -381,19 +441,34 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
             return prior.loss_function(*codes, train=True,
                                        generator=gen)["total_loss"]
 
+    def loss_and_grads(codes):
+        """This rank's loss and its gradients of ``params`` (the pipeline:
+        its stage's, forward and backward at once)."""
+        if pipe is not None:
+            with parallel.activate():
+                return pipe.loss_and_grads(codes, gen)
+        loss = prior_loss(codes)
+        return loss.detach(), [
+            torch.zeros_like(p) if g is None else g for p, g in zip(
+                params, torch.autograd.grad(loss, params,
+                                            allow_unused=True))]
+
     def apply(grads) -> None:
         """One optimizer update from this rank's gradients: their mean over
-        the ranks (fsdp: this rank's slices of it, clipped as one
-        vector)."""
-        if fsdp is not None:
-            grads = fsdp.clip_by_global_norm(
-                fsdp.reduce_scatter(grads), recipe.max_grad_norm)
-            targets = fsdp.shards
-        else:
-            if parallel is not None:
-                grads = engine.all_reduce_mean(grads)
-            targets = params
-        for p, g in zip(targets, grads):
+        the data ranks, cut to this rank's slices (fsdp) and clipped as one
+        vector where the holder splits leaves (fsdp, the pipeline's
+        stages)."""
+        if parallel is not None:
+            grads = engine.all_reduce_mean(grads)
+            # the seq ranks each compute the same whole gradient, with
+            # their own rounding where the card sums in no fixed order:
+            # the mean keeps their replicas equal
+            grads = engine.all_reduce_mean(grads, "seq")
+        grads = holder.slice_grads(grads)
+        if clip_axes is not None:
+            grads = mesh_lib.clip_by_global_norm(grads, clip_axes,
+                                                 recipe.max_grad_norm)
+        for p, g in zip(holder.shards, grads):
             p.grad = g
         step_recipe.step(opt, step)
 
@@ -416,28 +491,22 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
         def update(batches) -> None:
             nonlocal step
             losses = []
-            if fsdp is not None:
-                fsdp.gather()
+            holder.gather()
             if len(batches) == 1:
                 codes = [torch.from_numpy(batches[0][0][k]).to(dev)
                          for k in names]
-                loss = prior_loss(codes)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(params, torch.autograd.grad(
-                             loss, params, allow_unused=True))]
-                losses.append(loss.detach())
+                loss, grads = loss_and_grads(codes)
+                losses.append(loss)
             else:
                 grads = [torch.zeros_like(p) for p in params]
                 for batch, _ in batches:
                     codes = [torch.from_numpy(batch[k]).to(dev)
                              for k in names]
-                    loss = prior_loss(codes)
-                    accumulate(grads, torch.autograd.grad(
-                        loss, params, allow_unused=True), 1.0 / len(batches))
-                    losses.append(loss.detach())
+                    loss, g = loss_and_grads(codes)
+                    accumulate(grads, g, 1.0 / len(batches))
+                    losses.append(loss)
             apply(grads)
-            if fsdp is not None:
-                fsdp.release()
+            holder.release()
             step += 1
             mean = torch.stack(losses).mean()
             if parallel is not None:
@@ -449,7 +518,8 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
             update(group)
             if len(pending) >= 8:
                 flush()
-            if guard is not None and world == 1 and guard.triggered:
+            if (guard is not None and mesh_lib.process_count() == 1
+                    and guard.triggered):
                 break
         flush()
         avg = total / max(count, 1)
@@ -481,9 +551,8 @@ def train_prior_on_levels(levels: Mapping[str, np.ndarray], model_meta, args,
                 _sample_figure(vq_model, args, prior, hierarchical,
                                save_root, epoch, seed, write=lead)
 
-    if fsdp is not None:
-        # the later stages read the whole prior
-        fsdp.gather()
+    # the later stages read the whole prior
+    holder.finalize()
     if guard is not None:
         guard.uninstall()
         save(ckpt_lib.final_prior_path(save_root, prior_type), epochs,
@@ -522,7 +591,7 @@ def gather_levels(levels: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     interleaved order (rank p's i-th row is global row i P + p; the
     ranks' counts differ by at most one): the codes one process extracts
     from the whole train loader (a collective)."""
-    world = mesh_lib.process_count()
+    world = mesh_lib.data_size()
     out = {}
     for name, local in levels.items():
         local = torch.from_numpy(np.ascontiguousarray(local, np.int32))
@@ -559,7 +628,8 @@ def _train_prior_from_results(results: Mapping[str, Any], args
             force_extract=getattr(args, "prior_force_extract_codes", False),
             use_cache=getattr(args, "prior_use_lmdb_codes", True))
         if results.get("parallel") is not None:
-            levels = gather_levels(levels)
+            with mesh_lib.using(results["parallel"].mesh):
+                levels = gather_levels(levels)
     device = results.get("device")
     if device is None:
         device = next(model.parameters()).device

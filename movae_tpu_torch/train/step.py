@@ -33,8 +33,9 @@ all-reduce of the combined gradient in the sum and feature modes; in full
 mode the Jacobian rows are all-reduced before the Gramian, so G, the
 weights and the update are equal on every rank), the losses' means, the
 codebook usage over the global batch, and a non-finite guard agreed
-across ranks. Under ``--fsdp`` (``state.fsdp``) the large leaves are
-gathered before the step and their gradients reduce-scattered.
+across ranks. Where the state's holder splits leaves (``--fsdp``,
+``--model_partitions``: ``parallel/holder.py``) they are gathered before
+the step and their gradients cut to this rank's slices after it.
 """
 
 from __future__ import annotations
@@ -88,20 +89,24 @@ def global_used_mask(used: Tensor) -> Tensor:
     data-parallel config (the union over ranks), else ``used``."""
     if mesh_lib.active_data_parallel() is None:
         return used
-    return mesh_lib.all_reduce_(used.to(torch.int32), "max").bool()
+    return mesh_lib.all_reduce_(used.to(torch.int32), "max",
+                                axis="data").bool()
 
 
 def _reduce_grads(state: TrainState, grads: List[Tensor],
                   reduced: bool) -> List[Tensor]:
-    """The gradients the optimizer takes: under fsdp each sharded leaf's
-    slice of the mean over ranks, under data parallelism the mean over
-    ranks (``reduced``: already the mean, equal on every rank), else
-    ``grads``."""
-    if state.fsdp is not None:
-        return state.fsdp.reduce_scatter(grads, reduced)
-    if reduced or mesh_lib.active_data_parallel() is None:
-        return grads
-    return engine.all_reduce_mean(grads)
+    """The gradients the optimizer takes: under data parallelism the mean
+    over the data ranks (``reduced``: already that mean, equal on every
+    rank), cut to this rank's slices where the holder splits a leaf."""
+    if mesh_lib.active_data_parallel() is not None:
+        if not reduced:
+            grads = engine.all_reduce_mean(grads)
+        # the seq and pipe ranks run this stage whole on the same rows,
+        # each rounding its own way on the card: the mean keeps their
+        # replicas equal
+        for axis in ("seq", "pipe"):
+            grads = engine.all_reduce_mean(grads, axis)
+    return state.holder.slice_grads(grads)
 
 
 def _reduce_metrics(metrics: Dict[str, Tensor], names: Sequence[str]
@@ -117,10 +122,12 @@ def _reduce_metrics(metrics: Dict[str, Tensor], names: Sequence[str]
 
 
 def _agree(ok: Tensor) -> Tensor:
-    """``ok`` on every rank only where it holds on every rank."""
+    """``ok`` on every rank only where it holds on every rank (a
+    tensor-parallel rank's gradients are its own slices)."""
     if mesh_lib.active_data_parallel() is None:
         return ok
-    return mesh_lib.all_reduce_((~ok).to(torch.int32), "max") == 0
+    return mesh_lib.all_reduce_((~ok).to(torch.int32), "max",
+                                axis=None) == 0
 
 
 def _remat(fn: Callable, generator: Optional[torch.Generator]) -> Callable:
@@ -362,20 +369,18 @@ def make_train_step(
     reduced = mode == "full"
 
     def parallel_step(fn: Callable) -> Callable:
-        """``fn`` with ``parallel`` active and, under fsdp, the large
-        leaves gathered for it and released after."""
+        """``fn`` with ``parallel`` active and the leaves its holder
+        splits gathered for it and released after."""
         if parallel is None:
             return fn
 
         def run(state: TrainState, *a, **kw):
             with parallel.activate():
-                if state.fsdp is not None:
-                    state.fsdp.gather()
+                state.holder.gather()
                 try:
                     return fn(state, *a, **kw)
                 finally:
-                    if state.fsdp is not None:
-                        state.fsdp.release()
+                    state.holder.release()
         return run
 
     if grad_accum <= 1:

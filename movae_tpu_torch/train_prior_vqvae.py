@@ -32,6 +32,7 @@ import torch
 from movae_tpu_torch.data import Loader, dataset_input_size, get_dataset
 from movae_tpu_torch.device import DeviceLike, resolve_device
 from movae_tpu_torch.models import get_network
+from movae_tpu_torch.parallel import mesh as mesh_lib
 from movae_tpu_torch.train import checkpoint as ckpt_lib
 from movae_tpu_torch.train.figures import save_sample_grid
 from movae_tpu_torch.train.final_metrics import generate_samples
@@ -122,10 +123,12 @@ def build_prior_parser(checkpoint_alias: str = "vqvae_checkpoint"
                    "path only (L <= 1024)")
     p.add_argument("--context_parallel", type=int, default=1,
                    help="sequence-parallel partitions of the prior's "
-                        "attention (> 1 raises: ROADMAP.md Queue 1 item 13)")
+                        "attention: ring attention over a 'seq' axis of "
+                        "the torchrun ranks")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="pipeline-parallel prior stages (> 1 raises: "
-                        "ROADMAP.md Queue 1 item 13)")
+                   help="pipeline-parallel prior stages: GPipe over a "
+                        "'pipe' axis of the torchrun ranks (data "
+                        "parallelism only beside it)")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
                    help="GPipe microbatches per step (0 = auto)")
     p.add_argument("--fsdp", action="store_true",
@@ -242,7 +245,10 @@ def run(argv: Optional[Sequence[str]], checkpoint_alias: str,
     a flat VQ model, as the hierarchical CLI does."""
     parser = build_prior_parser(checkpoint_alias)
     a = parser.parse_args(argv)
-    dev = resolve_device(a.device)
+    # under torchrun each rank drives its card; rank 0 writes
+    dev = resolve_device(mesh_lib.rank_device(a.device))
+    mesh_lib.init_distributed(dev)
+    lead = mesh_lib.process_index() == 0
     ckpt_path = resolve_checkpoint(a)
     model, vq_args, train_ds, test_ds = load_vqvae(
         ckpt_path, a.dataset, a.data_dir, device=dev)
@@ -255,8 +261,9 @@ def run(argv: Optional[Sequence[str]], checkpoint_alias: str,
     normalize = bool(getattr(vq_args, "normalize_inputs", False))
     # a run trained without --seed saved None, which wins over the default
     seed = int(merged.seed or 0)
-    logger = ExperimentLogger(a.use_wandb, prior_log_dir(save_root, merged),
-                              config=vars(merged))
+    logger = ExperimentLogger(a.use_wandb and lead,
+                              prior_log_dir(save_root, merged) if lead
+                              else None, config=vars(merged))
     results = {"model": model, "save_root": save_root, "device": dev,
                "normalize": normalize, "logger": logger,
                "train_loader": Loader(train_ds, merged.batch_size,
@@ -265,10 +272,13 @@ def run(argv: Optional[Sequence[str]], checkpoint_alias: str,
 
     gen = torch.Generator(device=dev).manual_seed(seed + SAMPLE_SEED_OFFSET)
     imgs = generate_samples(model, merged, prior, gen, merged.num_samples)
-    png = save_sample_grid(imgs, os.path.join(
-        save_root, "figures", "generated", "prior_samples.pdf"), normalize)
-    kind = "hierarchical prior" if prior["hierarchical"] else "prior"
-    print(f"Saved {kind} samples to {png}")
+    png = None
+    if lead:
+        png = save_sample_grid(imgs, os.path.join(
+            save_root, "figures", "generated", "prior_samples.pdf"),
+            normalize)
+        kind = "hierarchical prior" if prior["hierarchical"] else "prior"
+        print(f"Saved {kind} samples to {png}")
     finals = {}
     if getattr(merged, "max_gen_metrics_samples", 0):
         finals = run_post_prior_metrics(model, test_ds, merged, prior,

@@ -95,7 +95,7 @@ def get_or_extract_codes(
         # a partial earlier run can leave some ranks with a cache: every
         # rank extracts unless every rank hits
         flag = torch.tensor([0 if hit else 1], dtype=torch.int32)
-        hit = int(mesh_lib.all_reduce_(flag, "max").item()) == 0
+        hit = int(mesh_lib.all_reduce_(flag, "max", axis=None).item()) == 0
     if hit:
         print(f"Loading cached VQ codes from {cache.root}")
         return cache.open(), True

@@ -52,7 +52,7 @@ class PreemptionGuard:
         if mesh_lib.process_count() == 1:
             return self._flag
         flag = torch.tensor([int(self._flag)], dtype=torch.int32)
-        return bool(mesh_lib.all_reduce_(flag, "max").item())
+        return bool(mesh_lib.all_reduce_(flag, "max", axis=None).item())
 
     def uninstall(self) -> None:
         for s, prev in self._installed:

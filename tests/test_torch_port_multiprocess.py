@@ -252,10 +252,11 @@ def test_init_distributed_reads_torchrun_environment(monkeypatch):
     assert mesh.init_distributed("cpu") == (0, 1)
     m = mesh.make_mesh(device="cpu")
     assert m.shape == {"data": 1, "model": 1, "seq": 1, "pipe": 1}
-    assert m.device_mesh is None
+    assert m.groups == dict.fromkeys(mesh.AXES)
     with pytest.raises(ValueError, match="must divide the device count"):
         mesh.make_mesh(num_model=3, devices=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # a model axis of 2 needs two ranks; one process has one
+    with pytest.raises(ValueError, match="needs that many ranks"):
         mesh.make_mesh(num_model=2, devices=[0, 1], device="cpu")
     dp = mesh.DataParallel(m, fsdp=True)
     assert dp.pad_to_devices(5) == 5
