@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
-    python3 chip_smoke.py --probe [dkv cudnn timings] [--parent DIR]
+    python3 chip_smoke.py --probe [dkv cudnn timings tc] [--parent DIR]
                                        # only the probes behind PERF.md
 
 Phases, each of which fails the run:
@@ -132,7 +132,9 @@ Phases, each of which fails the run:
      bf16 plain version and float64 on the same bf16 inputs at the prior's
      shape, L = 4096, 1600, 1025 and every head dim, element by element,
      in rms and in scale (BF16_ELEM, BF16_RMS, BF16_SCALE), with planted
-     faults that the same gate must refuse, timed by CUDA-graph
+     faults that the same gate must refuse, and the forward's reference
+     maximum read back within the tensor cores' bound of the logit
+     chain's (``check_fwd_ref_max``), timed by CUDA-graph
      replay beside their bound, the plain version and
      scaled_dot_product_attention in bf16; 17b phase 5's path in bf16
      (extraction and the PixelSNAIL prior at full width, batch 16), counts
@@ -408,6 +410,9 @@ FLASH_BF16_CASES = ((2, 8, 4096, 16), (2, 2, 1025, 8), (1, 2, 1600, 32),
 # (~190 floors) do not, and 17a plants each of them on the card
 BF16_U, BF16_ELEM, BF16_RMS, BF16_SCALE = 2.0 ** -8, 4.0, 0.5, 1 / 16
 BF16_F64_FACTOR = 1.25
+# bits an m16n8k16 bf16 product keeps below the largest exponent of its
+# terms as it aligns them (measured by ``--probe tc``; chain_max_and_tc_bound)
+TC_ALIGN_BITS = 25
 # the shape of 17a's planted controls: D = 32, where 1/sqrt(D) is not a
 # power of two, so that q pre-scaled in bf16 rounds differently
 FLASH_BF16_CONTROL = (1, 2, 1600, 32)
@@ -558,8 +563,8 @@ BF16_SXM = 989e12
 MUFU_PER_FMA = 1 / 8
 
 
-# --probe's probes (probe_dkv, probe_cudnn, probe_timings)
-PROBES = ("dkv", "cudnn", "timings")
+# --probe's probes (probe_dkv, probe_cudnn, probe_timings, probe_tc)
+PROBES = ("dkv", "cudnn", "timings", "tc")
 
 
 class SmokeFailure(RuntimeError):
@@ -633,7 +638,8 @@ def ptxas_summary(log_text: str) -> dict:
 # with its first modifier (MUFU.EX2), one without counts every modifier;
 # SYNCS are the mbarrier operations, UTMALDG the TMA loads
 SASS_OPS = ("HMMA", "FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "ISETP", "MUFU",
-            "MUFU.EX2", "LDS", "LDSM", "SHFL", "BAR", "SYNCS", "UTMALDG")
+            "MUFU.EX2", "LDS", "LDSM", "SHFL", "SHFL.IDX", "BAR", "SYNCS",
+            "UTMALDG")
 
 
 def sass_counts(cuobjdump: str, lib: str, ops=SASS_OPS) -> dict:
@@ -3072,6 +3078,115 @@ def flash_bf16_controls(torch, fa, label: str, q, k, v, do) -> dict:
     return res
 
 
+def chain_max_and_tc_bound(torch, q, k, rows: int = 64):
+    """For each row of the causal logits of bf16-valued q, k (B, H, L, D):
+    m, the maximum of the logit chain (one float32 fma a d, ascending from
+    0, as ``fa.fma_chain_logits`` sums each logit), (B, H, L) float32; and
+    a bound on |m~ - m|, m~ the maximum of the row's logits summed on the
+    tensor cores, as the bf16 forward's pass 1 takes them: the largest over
+    the row's visible keys of a bound on the logit's two sums, (B, H, L)
+    float64. The tensor cores' sum, as ``--probe tc`` measured it
+    (``tc_model_sums``): each m16n8k16 step cuts its 16 exact products and
+    the accumulator toward zero to a multiple of 2^(e - TC_ALIGN_BITS), e
+    the largest of the products' operand-exponent sums (on a few wide-range
+    sums, the largest term's own exponent, one higher), sums them exactly
+    and truncates the sum to float32. The bound takes each cut at the
+    coarser unit, e the largest term's exponent (a cut to the finer unit is
+    no larger), and one float32 ulp of the sum for its truncation, unless
+    nothing was cut and the sum is a float32 (D = 8 pads to 16 with zeros).
+    The chain's distance from the exact sum is computed, one float32
+    rounding a step. ``rows`` query rows at a time."""
+    B, H, L, D = q.shape
+    dev = q.device
+
+    def exponent(x):  # floor(log2 |x|), 0 where x is 0
+        return torch.floor(torch.log2(x.abs())).nan_to_num(0.0, 0.0, 0.0)
+
+    qd, kd = q.double(), k.double()
+    m = torch.empty((B, H, L), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H, L), dtype=torch.float64, device=dev)
+    keys = torch.arange(L, device=dev)[None, :]
+    for r0 in range(0, L, rows):
+        prod = qd[:, :, r0:r0 + rows, None, :] * kd[:, :, None, :, :]
+        chain = torch.zeros(prod.shape[:-1], dtype=torch.float32, device=dev)
+        for d in range(D):
+            chain = (prod[..., d] + chain.double()).float()
+        later = keys > torch.arange(r0, min(r0 + rows, L), device=dev)[:, None]
+        m[:, :, r0:r0 + rows] = chain.masked_fill(later, -math.inf).amax(-1)
+        # part: the exact sum so far; tc: a bound on the tensor cores'
+        # distance from it (its accumulator lies within part +- tc)
+        part = torch.zeros(chain.shape, dtype=torch.float64, device=dev)
+        tc = torch.zeros_like(part)
+        for d0 in range(0, D, 16):
+            terms = prod[..., d0:d0 + 16]
+            acc = part.abs() + tc  # at least |the accumulator|
+            unit = torch.exp2(exponent(torch.maximum(
+                terms.abs().amax(-1), acc)) - TC_ALIGN_BITS)
+            cuts = torch.remainder(terms.abs(), unit[..., None]).sum(-1)
+            # the accumulator's own cut: exact where it is the exact sum
+            cuts += torch.where(tc == 0, torch.remainder(part.abs(), unit),
+                                torch.minimum(acc, unit))
+            part = part + terms.sum(-1)
+            exact = (cuts == 0) & (tc == 0) & (part.float().double() == part)
+            tc = tc + cuts + torch.where(
+                exact, 0.0, torch.exp2(exponent(part.abs() + tc + cuts) - 23))
+        err = (part - chain.double()).abs() + tc
+        out[:, :, r0:r0 + rows] = err.masked_fill(later, 0.0).amax(-1)
+        del prod, chain, part, tc, err
+    return m, out
+
+
+def fwd_ref_max(torch, fa, q, k, v):
+    """The bf16 forward's reference maximum m~ of each row's raw logits,
+    (B, H, L) float32, read back from the card: its pass 1 run alone
+    (``movae_flash_bf16_fwd_ref_max``)."""
+    import ctypes
+
+    b, h, L, d = q.shape
+    fn = fa._library(d).movae_flash_bf16_fwd_ref_max
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ref = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ref.data_ptr(), b * h,
+             L, d, q.device.index if q.device.index is not None
+             else torch.cuda.current_device(),
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"movae_flash_bf16_fwd_ref_max: cudaError {err}")
+    torch.cuda.synchronize()
+    return ref
+
+
+def check_fwd_ref_max(torch, fa, label: str, q, k, v) -> dict:
+    """The bf16 forward's reference maximum m~ read back from the card
+    (``movae_flash_bf16_fwd_ref_max``: the forward's pass 1 run alone)
+    against the maximum m of each row's logit chain: |m~ - m| within
+    ``chain_max_and_tc_bound``'s bound on every row, the error model of
+    the tensor cores' truncation on which the CPU emulation of the forward
+    (tests/test_torch_port_flash_bf16_gate.py) places m~. Also how many
+    rows have m~ != m and the largest |m~ - m| over its bound."""
+    b, h, L, d = q.shape
+    ref = fwd_ref_max(torch, fa, q, k, v)
+    # about 2^28 float64 products a chunk of rows
+    rows = max(1, 2 ** 28 // (b * h * L * max(d, 16)))
+    m, bound = chain_max_and_tc_bound(torch, q, k, rows)
+    gap = (ref.double() - m.double()).abs()
+    moved = gap > 0
+    res = {"rows": b * h * L, "rows_m_tilde_differs": int(moved.sum()),
+           "max_gap": float(gap.max()),
+           "max_gap_over_bound": float((gap[moved] / bound[moved]).max())
+           if bool(moved.any()) else 0.0,
+           "rows_past_bound": int((gap > bound).sum())}
+    log(f"17a reference maximum m~ of the bf16 forward at {label}: "
+        f"{json.dumps(res)}")
+    check(res["rows_past_bound"] == 0,
+          f"the bf16 forward's m~ at {label} is past the tensor cores' "
+          f"error bound on {res['rows_past_bound']} rows: {res}")
+    del ref, m, bound, gap
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
     """17a: the bf16 flash kernels against the bf16 plain version and
     float64 at the prior's shape, at L = 4096, 1600 and 1025 and at every
@@ -3083,9 +3198,11 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
     from movae_tpu_torch.kernels.flash_ab import sdpa_ms
 
     for d in build.FLASH_HEAD_DIMS:
+        lib = f"flash_attention_d{d}"
+        regs = ptxas_summary(build.build_logs.get(lib, ""))
         for kern in ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                      "flash_bwd_dq_bf16_kernel"):
-            ops = sass.get(f"flash_attention_d{d}", {}).get(f"{kern}<{d}>")
+            ops = sass.get(lib, {}).get(f"{kern}<{d}>")
             check(not sass or (ops is not None and ops["HMMA"] > 0),
                   f"no HMMA in {kern}<{d}>: {ops}")
             if ops:
@@ -3093,7 +3210,21 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
                 log(f"17a SASS {kern}<{d}> (static): {json.dumps(ops)}; "
                     f"instructions other than MUFU per MUFU.EX2: {whole:.2f} "
                     f"in the binary, {hot:.2f} in the hot step "
-                    f"({ops['hot'][0]} instructions, {ops['hot'][1]} EX2)")
+                    f"({ops['hot'][0]} instructions, {ops['hot'][1]} EX2); "
+                    f"registers, spill stores, spill loads (bytes): "
+                    f"{regs.get(f'{kern}<{d}>', 'not rebuilt here')}")
+        # the operand path of each kernel's logit chain
+        # (flash_attention.cu:kDkvFloatK): shuffles out of the mma
+        # fragments (fma_logits) show as SHFL.IDX
+        if sass:
+            paths = {kern: "shuffled out of the mma fragments"
+                     if sass[lib][f"{kern}<{d}>"]["SHFL.IDX"] else
+                     "float rows (the side that stays converted once, the "
+                     "streamed side from a float copy of each stage)"
+                     for kern in ("flash_fwd_bf16_kernel",
+                                  "flash_bwd_dkv_bf16_kernel",
+                                  "flash_bwd_dq_bf16_kernel")}
+            log(f"17a logit operand path at D={d}: {json.dumps(paths)}")
     gen = torch.Generator(device=dev).manual_seed(17)
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
 
@@ -3102,18 +3233,24 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
             torch.bfloat16)
 
     for shape in FLASH_BF16_CASES:
-        check_flash_bf16(torch, fa, str(shape), *(randn(shape)
-                                                  for _ in range(4)), worst)
+        q, k, v, do = (randn(shape) for _ in range(4))
+        check_flash_bf16(torch, fa, str(shape), q, k, v, do, worst)
+        check_fwd_ref_max(torch, fa, str(shape), q, k, v)
     flash_bf16_controls(torch, fa, str(FLASH_BF16_CONTROL),
                         *(randn(FLASH_BF16_CONTROL) for _ in range(4)))
     q, k, v, do = (randn(FLASH_SLICE) for _ in range(4))
     check_flash_bf16(torch, fa, str(FLASH_SLICE), q, k, v, do, worst)
+    check_fwd_ref_max(torch, fa, str(FLASH_SLICE), q, k, v)
     torch.cuda.empty_cache()
     # a trained prior's sharp head on which the logits' tensor-core sums
     # put dk past the float64 half (Queue 3 item 1; kernels/fixtures/)
-    fix = torch.load(DKV_FIXTURE, weights_only=False)
-    check_flash_bf16(torch, fa, "fixture dkv_sharp_prior (1, 1, 4096, 16)",
-                     *(fix[n].to(dev) for n in ("q", "k", "v", "do")), worst)
+    fix = {n: t.to(dev) for n, t in torch.load(
+        DKV_FIXTURE, weights_only=False).items()
+        if n in ("q", "k", "v", "do")}
+    label = "fixture dkv_sharp_prior (1, 1, 4096, 16)"
+    check_flash_bf16(torch, fa, label,
+                     *(fix[n] for n in ("q", "k", "v", "do")), worst)
+    check_fwd_ref_max(torch, fa, label, fix["q"], fix["k"], fix["v"])
     del fix
 
     scale = FLASH_SLICE[-1] ** -0.5
@@ -5348,6 +5485,105 @@ def probe_cudnn(torch, dev) -> None:
     cudnn.deterministic = saved
 
 
+def tc_model_sums(torch, a, b, width: int, anchor_exponents: bool,
+                  rn_final: bool, group: int, acc_apart: bool):
+    """A model of the logits' sums on the tensor cores: the products of
+    bf16-valued ``a`` and ``b`` (broadcast, (..., D)), d ascending, summed
+    ``group`` at a time from acc = 0 into a float32 accumulator. Each fused
+    step cuts its terms (its exact products, and the accumulator unless
+    ``acc_apart``) toward zero to a multiple of 2^(e - width), e the
+    largest exponent among them: of each term's value, or
+    (``anchor_exponents``) of a product the sum of its operands' exponents
+    (its value is below 2^(e + 2)); sums them exactly; and rounds the sum
+    to float32 toward zero or to nearest (``rn_final``). ``acc_apart``: the
+    products' sum, so rounded, is then added to the accumulator in one
+    IEEE float32 add. Returns the sums, float64."""
+    def exponent(x):  # floor(log2 |x|), -inf where x is 0
+        return torch.floor(torch.log2(x.abs()))
+
+    def to_f32(x):
+        if rn_final:
+            return x.float().double()
+        unit = torch.exp2(exponent(x).nan_to_num(0.0, 0.0, 0.0) - 23)
+        return torch.trunc(x / unit) * unit
+
+    a, b = a.double(), b.double()
+    prods = a * b
+    pexp = (exponent(a) + exponent(b) if anchor_exponents
+            else exponent(prods))
+    pexp = torch.where(prods == 0, -math.inf, pexp)
+    acc = torch.zeros(prods.shape[:-1], dtype=torch.float64,
+                      device=prods.device)
+    for g0 in range(0, prods.shape[-1], group):
+        terms, texp = prods[..., g0:g0 + group], pexp[..., g0:g0 + group]
+        if not acc_apart:
+            terms = torch.cat([terms, acc[..., None]], -1)
+            texp = torch.cat([texp, exponent(acc)[..., None]], -1)
+        e = texp.amax(-1, keepdim=True).nan_to_num(0.0, 0.0, 0.0)
+        e = torch.where(torch.isinf(e), torch.zeros_like(e), e)
+        unit = torch.exp2(e - width)
+        total = to_f32((torch.trunc(terms / unit) * unit).sum(-1))
+        acc = (acc + total).float().double() if acc_apart else total
+    return acc
+
+
+def probe_tc(torch, fa, dev) -> dict:
+    """The logits' sums on the tensor cores as the bf16 forward's pass 1
+    takes them, read back (``fwd_ref_max`` on k rows that repeat one row a
+    head, so that each row's m~ is one sum q_i . k_0), against
+    ``tc_model_sums`` over a grid of models: for each input set, the share
+    of sums each model gives bit for bit, the largest distance of the best
+    models in units of the sum's float32 ulp, and a few sums the best model
+    misses."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shape = (4, 8, 4096)
+
+    def draw(d, spread):
+        def one(rows):
+            x = torch.randn((*shape[:2], rows, d), generator=gen, device=dev)
+            if spread:
+                x = x * torch.exp2(torch.randint(
+                    -spread, spread + 1, x.shape, generator=gen,
+                    device=dev).float())
+            return x.to(torch.bfloat16)
+        q = one(shape[2])
+        k = one(1).expand(*shape[:2], shape[2], d).contiguous()
+        return q, k
+
+    models = [dict(width=w, anchor_exponents=an, rn_final=rn, group=g,
+                   acc_apart=ap)
+              for w in range(22, 29) for an in (False, True)
+              for rn in (False, True) for g in (16, 8)
+              for ap in (False, True)]
+    out = {}
+    for d, spread in ((16, 0), (16, 10), (32, 0), (32, 10), (8, 10)):
+        q, k = draw(d, spread)
+        got = fwd_ref_max(torch, fa, q, k, q).double()
+        ulp = torch.exp2(torch.floor(torch.log2(got.abs())).nan_to_num(
+            0.0, 0.0, 0.0) - 23)
+        res = []
+        for mdl in models:
+            want = tc_model_sums(torch, q, k, **mdl)
+            hit = float((want == got).double().mean())
+            res.append((hit, float(((want - got).abs() / ulp).max()), mdl))
+        res.sort(key=lambda r: -r[0])
+        want = tc_model_sums(torch, q, k, **res[0][2])
+        miss = (want != got).nonzero()[:3].tolist()
+        label = f"D={d} spread=2^+-{spread}"
+        out[label] = {
+            "sums": got.numel(),
+            "best": [{"share_bit_equal": h, "max_ulps": u, **m}
+                     for h, u, m in res[:6]],
+            "misses_of_the_best": [{
+                "products": (q[i, j, r].double() * k[i, j, r].double())
+                .tolist(), "card": float(got[i, j, r]),
+                "model": float(want[i, j, r])} for i, j, r in miss]}
+        log(f"probe tc {label}: " + json.dumps(out[label]))
+        del q, k, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def probe_timings(torch, dev) -> dict:
     """The port's stage-1 step and cached samplers, timed on the card with
     this script's configurations and random weights from fixed seeds (for
@@ -5430,8 +5666,8 @@ def main() -> int:
                    choices=PROBES, metavar="NAME",
                    help="only the probes behind PERF.md's findings, each "
                    f"of {', '.join(PROBES)} named (all when none is): "
-                   "probe_dkv, probe_cudnn, probe_timings; not a smoke "
-                   "run")
+                   "probe_dkv, probe_cudnn, probe_timings, probe_tc; not "
+                   "a smoke run")
     p.add_argument("--seeds", type=int, nargs="*", default=[0],
                    metavar="SEED",
                    help="--probe dkv: the prior init seeds to train "
@@ -5505,6 +5741,8 @@ def main() -> int:
             if "timings" in probes:
                 log(f"probe timings ({smi[0] if smi else name}): "
                     + json.dumps(probe_timings(torch, dev)))
+            if "tc" in probes:
+                probe_tc(torch, fa, dev)
         except SmokeFailure as e:
             print(f"chip_smoke: probe FAILED: {e}", file=sys.stderr)
             return 1

@@ -9,8 +9,13 @@ inputs by CUDA-graph replay, the builds in turns (A B B A per round), beside
 ``scaled_dot_product_attention``'s bf16 forward and the flash backward its
 autograd calls (the yardstick; the port never calls either). Every build's
 outputs are checked against this checkout's first: the same function, so
-within a few bf16 roundings. Also samples the SM clock and power draw while
-each of this checkout's kernels replays back to back. ``--gate B H L D``
+within a few bf16 roundings (printed as 17a reads them: rms and best-fit
+scale in u = 2^-8, ``scale_rms``), and whether each equals it bit for bit
+(largest absolute difference 0), its backward kernels fed both its own
+forward's o and lse2 and this checkout's (so that a backward kernel is held
+alone where the forwards differ); so is every pair of builds. Also samples
+the SM clock and power draw while each of this checkout's kernels replays
+back to back. ``--gate B H L D``
 also holds each build's dk and dv against float64 on random inputs and on
 ``sink_inputs`` (long runs of same-signed products a key), beside the
 IEEE-summed plain version, and each against the plain version summed on
@@ -141,9 +146,12 @@ def clocks_during(fn, reps: int, seconds: float = 2.0) -> Dict[str, float]:
     return {"sm_mhz": mhz, "power_w": watts, "samples": len(samples)}
 
 
-def launchers(lib: ctypes.CDLL, q, k, v, do, scale: float) -> Dict:
+def launchers(lib: ctypes.CDLL, q, k, v, do, scale: float, fed=None
+              ) -> Dict:
     """The three kernels of ``lib`` on (q, k, v, do): closures that launch
-    into preallocated outputs, and the outputs."""
+    into preallocated outputs, and the outputs. The backward kernels read
+    ``fed`` = (o, lse2), another build's forward outputs, where given, and
+    else this build's forward's."""
     b, h, L, d = q.shape
     o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
     lse2 = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
@@ -161,16 +169,17 @@ def launchers(lib: ctypes.CDLL, q, k, v, do, scale: float) -> Dict:
             lse2.data_ptr(), b * h, L, d, scale)
 
     fwd()
-    di = (o.float() * do.float()).sum(-1)
+    bo, blse2 = fed if fed is not None else (o, lse2)
+    di = (bo.float() * do.float()).sum(-1)
 
     def dkv():
         run("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse2.data_ptr(), di.data_ptr(), dk.data_ptr(),
+            do.data_ptr(), blse2.data_ptr(), di.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b * h, L, d, scale)
 
     def dqk():
         run("bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse2.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), blse2.data_ptr(), di.data_ptr(), dq.data_ptr(),
             b * h, L, d, scale)
 
     dkv()
@@ -297,6 +306,8 @@ def main() -> int:
     shape = tuple(args.shape)
     d = shape[-1]
     libs = {"this": fa._library(d)}
+    PTXAS["this"] = build.build_logs.get(f"flash_attention_d{d}",
+                                         "(built before this process)")
     libs.update(compile_libs(dict((n, Path(path)) for n, path in (
         spec.split("=", 1) for spec in args.lib)), d))
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -304,10 +315,28 @@ def main() -> int:
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
     runs = {n: launchers(lib, q, k, v, do, scale) for n, lib in libs.items()}
-    ref = runs["this"]["out"]
-    diff = {n: {key: float((r["out"][key].float() - ref[key].float())
-                           .abs().max()) for key in ref}
-            for n, r in runs.items()}
+    outs = {n: {**r["out"], "lse2": r["lse2"]} for n, r in runs.items()}
+    ref = outs["this"]
+
+    def max_diff(out):
+        return {key: float((out[key].float() - ref[key].float()).abs().max())
+                for key in out}
+
+    diff = {n: max_diff(out) for n, out in outs.items()}
+    roundings = {n: {key: scale_rms(x, ref[key]) for key, x in out.items()}
+                 for n, out in outs.items()}
+    # each build's backward kernels on this checkout's o and lse2
+    fed = {}
+    for n, lib in libs.items():
+        out = launchers(lib, q, k, v, do, scale,
+                        fed=(ref["o"], ref["lse2"]))["out"]
+        fed[n] = max_diff({key: out[key] for key in ("dq", "dk", "dv")})
+    equal, equal_fed = ({n: {key: x == 0.0 for key, x in dd.items()}
+                         for n, dd in table.items()}
+                        for table in (diff, fed))
+    pairs = {f"{a}={b}": all(torch.equal(outs[a][key], outs[b][key])
+                             for key in outs[a])
+             for i, a in enumerate(outs) for b in list(outs)[i + 1:]}
     times: Dict[str, Dict[str, list]] = {
         n: {kern: [] for kern in KERNELS} for n in libs}
     names = list(libs)
@@ -340,6 +369,10 @@ def main() -> int:
     print(json.dumps({
         "card": smi, "shape": shape, "reps_per_graph": args.reps,
         "us": times, "max_abs_diff_from_this": diff,
+        "scale_rms_from_this": roundings,
+        "bit_equal_to_this": equal, "all_bit_equal_pairs": pairs,
+        "backward_fed_this_forward": {"max_abs_diff_from_this": fed,
+                                      "bit_equal_to_this": equal_fed},
         "sdpa_fwd_us": [f * 1e3 for f, _ in sdpa],
         "sdpa_bwd_us": [b * 1e3 for _, b in sdpa],
         "this_clocks_under_load": clocks, "dkv_gate": gate}))

@@ -868,41 +868,55 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //
 // flash_fwd_bf16_kernel, flash_bwd_dkv_bf16_kernel and
 // flash_bwd_dq_bf16_kernel, built for that:
-//   * a block is 4 consumer warps and 1 producer warp. The producer's first
-//     lane streams the other side in stages of 64 rows by TMA
-//     (cp.async.bulk.tensor; K, then K and V, in the forward; q, do, lse2
-//     and di in dK/dV; K and V in dQ) into a ring of 4 stages (3 at D =
-//     128), each with a "full" and an "empty" mbarrier: a consumer warp
-//     waits on full, runs only math and arrives on empty once it is done
-//     with the stage. No __syncthreads after the barriers are set up, no
-//     address arithmetic for the copies;
+//   * dQ: a block is 4 consumer warps and 1 producer warp. The producer's
+//     first lane streams K and V in stages of 64 rows by TMA
+//     (cp.async.bulk.tensor) into a ring of 4 stages (3 at D = 128), each
+//     with a "full" and an "empty" mbarrier: a consumer warp waits on full,
+//     runs only math and arrives on empty once it is done with the stage;
+//   * the forward and dK/dV: a block is 4 warps and no
+//     producer, so that 3 blocks of 168-register threads fit an SM (3 warps
+//     on each sub-partition, against the producer design's 2). Thread 0
+//     streams the other side (K, then K and V, in the forward; q, do, lse2
+//     and di in dK/dV) by TMA into the same ring with "full" mbarriers
+//     only; each stage ends its wait with a __syncthreads, past which every
+//     warp is done with the previous stage, whose slot thread 0 then
+//     refills. Before that barrier each warp converts 16 of the stage's 64
+//     streamed rows to floats (in dK/dV up to D = 64), into one of two
+//     float copies;
 //   * a staged tile is dense, laid out by the TMA box's swizzle (32-, 64- or
 //     128-byte rows; D = 128 in two boxes of 64 columns; D = 8 rows are 16
 //     bytes and need none), so that the 8 rows of every ldmatrix phase fall
 //     on distinct banks (BfTile). Rows past L arrive as zeros;
-//   * every B operand read from a staged tile is one ldmatrix: along the
-//     rows for the logits and dp (K; q and do; K and V), .trans down the
-//     rows for p v, p^T do and ds^T q, ds K. The A operands that stay (q in
-//     the forward, k and v in dK/dV, q and do in dQ) are loaded once from
-//     device memory;
+//   * every B operand of an mma read from a staged tile is one ldmatrix:
+//     along the rows for the logits and dp (K; q and do; K and V), .trans
+//     down the rows for p v, p^T do and ds^T q, ds K. The A operands that
+//     stay (q in the forward, k and v in dK/dV, q and do in dQ) are loaded
+//     once from device memory;
 //   * only the steps that touch the diagonal (or, in dK/dV, pass L) are
 //     masked, each a warp-uniform choice between two instances of the step;
-//   * forward: a warp owns 16 query rows (32 at D = 8, two groups that share
-//     every staged fragment: at D = 16 two groups spilled at 128 registers
-//     and one was as fast), in steps of 64 keys (32 at D = 128), in two
-//     passes over the keys. Pass 1 takes each row's maximum m of the raw
-//     logits s (logits and FMNMX only: the scale is positive, so m c rounds
-//     as max(s c) would); pass 2 computes p = 2^fma(s, c, -m c), c = scale *
-//     log2(e): one FFMA and one MUFU.EX2 a logit, then the sum and half a
-//     bf16 pack, and no rescale of the sums. So p is rounded to bf16 against
-//     the row's final maximum, as the plain version rounds it: a running
-//     maximum (one pass, 441 us against 537 at the prior shape) put the
-//     trained bf16 prior's dk 0.080 u from float64 in best-fit scale, past
-//     17a's gate (the plain version's 0.005 u + 0.0625), through o's bf16
-//     rounding in di on sharp rows. chip_smoke.py 17a prints the SASS
-//     counts;
+//   * forward: a warp owns 32 query rows at D = 16 (two groups of 16 that
+//     share every staged value), 16 at the other D, in steps of 32 keys at
+//     D = 16 and 128, 64 at the others, in two passes over the keys. Pass 1
+//     takes each row's reference maximum m~ of its logits summed on the
+//     tensor cores (one HMMA a 16 x 8 block and an FMNMX a logit; the scale
+//     is positive, so m~ c rounds as max(s c) would). m~ is one value a row
+//     and differs from the maximum m of the IEEE chain only by the tensor
+//     cores' truncation (cuts 2^-25 of the row's largest products and a
+//     float32 ulp), so p = 2^fma(s, c, -m~ c) in pass 2 is the plain version's
+//     p times 2^((m - m~) c), next to 1 on the whole row: its bf16 roundings
+//     are taken against one reference, as the plain version's are, with no
+//     rescale of the sums. (A running maximum, one pass at 441 us against
+//     537 at the prior shape in an earlier design, put the trained bf16
+//     prior's dk 0.080 u from float64 in best-fit scale, past 17a's gate,
+//     through o's bf16 rounding in di on sharp rows; the chain's own
+//     maximum in a first IEEE pass costs a second chain: 2,208 against
+//     1,419 us on an H100 SXM at 700 W.) Pass 2
+//     computes the logits' IEEE chain, then p: one FFMA and one MUFU.EX2 a
+//     logit, the sum and half a bf16 pack. movae_flash_bf16_fwd_ref_max
+//     runs pass 1 alone and returns m~, so that a check on the card holds
+//     |m~ - m| within the truncation's bound;
 //   * dK/dV: a warp owns 32 keys at D <= 16 (two groups of 16 that share
-//     every staged fragment), 16 above, in steps of 16 queries; a stage
+//     every staged value), 16 above, in steps of 16 queries; a stage
 //     whose every query sees every key of the warp runs its 4 steps
 //     unrolled, with no mask. lse2 and di * scale of a step's queries are
 //     read once into registers; p = 2^fma(s, c, -lse2), ds = p fma(dp,
@@ -930,14 +944,29 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //
 // Common to all three:
 //   * the logits are IEEE float32: each is one fmaf chain over d ascending
-//     from 0 of the exact bf16 x bf16 products (fma_logits), in the
-//     accumulator layout of an m16n8k16 product, its operands brought from
-//     the A and B fragments by shuffles. The tensor cores sum the 16
-//     products of an mma with truncation, not rounding: on a trained
-//     prior's sharp rows that bias of the logits moved p's bf16 roundings
-//     enough to put dk 0.244 u from float64 in best-fit scale against the
-//     IEEE sums' 0.162 (17a allows + 0.0625), and the logits alone on the
-//     tensor cores reproduced it (chip_smoke.py --probe dkv, PERF.md);
+//     from 0 of the exact bf16 x bf16 products, in the accumulator layout
+//     of an m16n8k16 product. The tensor cores sum the 16 products of an
+//     mma with truncation, not rounding (chip_smoke.py --probe tc: they
+//     cut each term toward zero 25 bits below the largest exponent, sum,
+//     and cut the sum to float32): on a trained prior's sharp rows
+//     that bias of the logits moved p's bf16 roundings enough to put dk
+//     0.244 u from float64 in best-fit scale against the IEEE sums' 0.162
+//     (17a allows + 0.0625), and the logits alone on the tensor cores
+//     reproduced it (chip_smoke.py --probe dkv, PERF.md);
+//   * the chain's operands. In the forward, and in dK/dV up to D = 64
+//     (kDkvFloatK), the side that stays (q rows in the forward, the warp's
+//     k rows in dK/dV) is held as floats in registers, converted once, and
+//     the streamed side is read as float4 from the stage's float copy (rows
+//     of D + 4 floats: a quad's LDS.128 reads of rows 2t, 2t + 1 and the 8
+//     rows g of a warp fall on distinct banks): per 4 d, 16 FFMA a 2 x 2
+//     block of logits from two LDS.128, or 32 from one at two row groups.
+//     dQ at every D, and dK/dV at D = 128 (where its float rows spill),
+//     shuffle the operands out of the mma fragments (fma_logits: 48 SHFL
+//     and 96 unpacks for 128 FFMA). What bounds the
+//     float path at D = 16 is the delivery of those broadcast LDS.128 to
+//     the registers and the FFMA issue, not occupancy: with the loads of
+//     the forward's keys hoisted out of its step (wrong values, a timing
+//     probe) it ran in 740 us against 1,678 (H100 SXM, 700 W);
 //   * every other product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.
 //     bf16.f32: bf16 operands exactly as given, f32 accumulation, one pass.
 //     The logits' accumulator layout is the A layout of the next product
@@ -947,7 +976,8 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     against exp2's 257;
 //   * D = 8 is below the mma's depth of 16: the logit and dp products pad
 //     the reduction to 16 with zeros in registers (the upper half of each
-//     A and B fragment is 0);
+//     A and B fragment is 0); a chain of 8 then adds exact zeros, which
+//     leave it bit for bit as it is (from acc = +0 no sum is -0);
 //   * accumulators run for the whole row (no per-step f32 add): the tensor
 //     cores' truncated sums drift by ~1e-5 relative over L = 4096, far under
 //     the bf16 rounding of the outputs (2^-9);
@@ -956,17 +986,22 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 // The recompute contract: each logit is one fmaf chain over d ascending of
 // the same bf16 values, so the raw logit s is bit for bit the same in all
 // three kernels (dK/dV swaps the operands of the same exact bf16 x bf16
-// products); the three scale it by c in f32.
+// products; float operands are those bf16 values exactly); the three scale
+// it by c in f32. Only the forward's reference maximum comes from another
+// sum.
 //
-// Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9;
-// spill store/load bytes in brackets): D=8 120, 128 [4/4], 128; D=16 90,
-// 127, 124; D=32 121, 168, 168; D=64 147, 167, 124; D=128 191, 255, 204
-// (before this design the forward and dK/dV took 80 and 67 at D=16, 125
-// and 165 at D=64, 168 and 254 at D=128, and dQ 51, 64, 72, 125 and 215 at
-// D=8 .. 128, none spilling).
+// Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9's
+// nvcc; spill store/load bytes in brackets): D=8 113, 168, 128 [60/60];
+// D=16 168, 168 [4/8], 128 [216/320]; D=32 168 [20/24], 168 [4/8], 168
+// [680/1408]; D=64 255, 234, 247; D=128 255, 255 [20/36], 248. The
+// fragment-path forward and dK/dV, both shuffling at every D, with the same
+// nvcc: D=8 128 [40/44], 128; D=16 128, 128 [220/464]; D=32 128 [68/96],
+// 168; D=64 255, 246; D=128 255 [3056/3132], 255 [12/16].
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -1104,6 +1139,9 @@ __device__ __forceinline__ void store_rows_bf16(u16* __restrict__ out,
 
 constexpr int kBfConsumers = 4;                      // math warps a block
 constexpr int kBfThreads = 32 * (kBfConsumers + 1);  // + 1 producer warp
+// the forward and dK/dV: no producer warp (their first thread issues the
+// copies), so that 3 blocks of 168-register threads fit an SM
+constexpr int kFThreads = 32 * kBfConsumers;
 constexpr int kStage = 64;                           // streamed rows a stage
 // dK/dV's lse2 and di boxes: a box must start on a 16-byte boundary of
 // device memory, so each starts at the 4-float boundary at or before the
@@ -1113,22 +1151,39 @@ constexpr int kVecBox = kStage + 4;
 constexpr int kVecPitch = 96;
 
 // 16-row groups a warp owns: two where they fit the registers without a
-// spill, so that every staged fragment feeds two chains (at D = 16 the
-// forward's two groups spilled at 128 registers, and one group was as fast)
+// spill, so that every staged value feeds two chains (the forward's float q
+// rows of two groups: 64 registers at D = 16; two groups took 1,442.8
+// us against one's 1,678.5 at the prior shape)
 template <int D>
-constexpr int kFwdGroups = D == 8 ? 2 : 1;
+constexpr int kFwdGroups = D == 16 ? 2 : 1;
 template <int D>
 constexpr int kDkvGroups = D <= 16 ? 2 : 1;
 template <int D>
 constexpr int kStages = D <= 64 ? 4 : 3;  // ring depth
 template <int D>
-constexpr int kFwdStep = D <= 64 ? 64 : 32;  // forward: keys a step
-// blocks an SM must hold at once: 3 blocks of 5 warps put 4 warps on one SM
-// sub-partition (16,384 registers each), which caps a thread at 128
+constexpr int kFwdStep = D == 16 || D == 128 ? 32 : 64;  // forward: keys a step
+// blocks an SM must hold at once: 3 blocks of 4 warps put 3 warps on one SM
+// sub-partition (16,384 registers each), which caps a thread at 168
 template <int D>
 constexpr int kFwdMinBlocks = D <= 32 ? 3 : 1;
 template <int D>
-constexpr int kDkvMinBlocks = D <= 16 ? 3 : D == 32 ? 2 : 1;
+constexpr int kDkvMinBlocks = D <= 32 ? 3 : 1;
+
+// The forward, and dK/dV up to D = 64, read the logit chain's operands as
+// floats: the side that stays (q rows in the forward, the warp's k rows in
+// dK/dV) converted once, the streamed side from a float copy of each stage
+// that the block's 4 warps make as the stage lands, a quarter each (rows of
+// kFPitch floats: the quad's LDS.128 reads of rows 2t fall on distinct
+// banks, as do 8 consecutive rows). dK/dV at D = 128 keeps the operands
+// shuffled out of the mma fragments (fma_logits), as dQ does at every D:
+// its float k rows spill there (856 / 1,044 bytes, 1.8x the time; ptxas of
+// CUDA 12.9 and an H100 SXM at 700 W, PERF.md)
+template <int D>
+constexpr bool kDkvFloatK = D <= 64;
+template <int D>
+constexpr int kFPitch = D + 4;
+template <int D>
+constexpr int kFTileBytes = kStage * kFPitch<D> * 4;
 
 // A staged (kStage, D) bf16 tile as TMA writes it: boxes of kBox bytes a
 // row (two boxes of 64 columns at D = 128), each box kStage dense rows, its
@@ -1159,6 +1214,16 @@ template <int D>
 constexpr int dkv_bf16_smem() {  // q, do, lse2 and di a stage
   return 1024 + kStages<D> * (2 * BfTile<D>::kBytes + 8 * kVecPitch) +
          16 * kStages<D>;
+}
+// the forward and dK/dV: their rings and two float copies of the streamed
+// side (a stage's and the next's)
+template <int D>
+constexpr int fwd_bf16_f_smem() {
+  return fwd_bf16_smem<D>() + 2 * kFTileBytes<D>;
+}
+template <int D>
+constexpr int dkv_bf16_f_smem() {
+  return dkv_bf16_smem<D>() + (kDkvFloatK<D> ? 2 * kFTileBytes<D> : 0);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1306,17 +1371,154 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// acc + a.x b.x + a.y b.y + a.z b.z + a.w b.w as four fmaf in that order:
+// four steps of the logit chain
+__device__ __forceinline__ float chain4(float acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 8 bf16 values (one 16-byte chunk) as two float4, into dst
+__device__ __forceinline__ void bf8_to_float(uint4 v, float* dst) {
+  reinterpret_cast<float4*>(dst)[0] =
+      make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+  reinterpret_cast<float4*>(dst)[1] =
+      make_float4(bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w));
+}
+
+// rows [r0, r0 + 16) of a staged (kStage, D) bf16 tile (BfTile's layout)
+// as float rows of kFPitch<D> at dst, by the 32 lanes of one warp: each of
+// the 4 warps converts its quarter of a stage
+template <int D>
+__device__ __forceinline__ void tile_to_float(const uint8_t* tile,
+                                              float* dst, int r0) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int x = lane; x < 16 * kChunks; x += 32) {
+    const int r = r0 + x / kChunks, c = x % kChunks;
+    bf8_to_float(*reinterpret_cast<const uint4*>(tile + BfTile<D>::at(r, c)),
+                 dst + r * kFPitch<D> + 8 * c);
+  }
+}
+
+// row r of an (L, D) bf16 matrix in device memory as D floats, zeros past L
+template <int D>
+__device__ __forceinline__ void row_to_float(const u16* __restrict__ m,
+                                             int r, int L, float (&x)[D]) {
+#pragma unroll
+  for (int c = 0; c < D; c += 8) {
+    const uint4 v = r < L ? __ldg(reinterpret_cast<const uint4*>(
+                                m + static_cast<int64_t>(r) * D + c))
+                          : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[c + 2 * i] = bf_lo(w[i]);
+      x[c + 2 * i + 1] = bf_hi(w[i]);
+    }
+  }
+}
+
+// the forward's q rows a thread holds: rows row0 + 16 rg + g (+8) as the
+// m16 x k16 A fragments over D (FwdQa: pass 1's tensor-core sums) and as
+// floats (FwdQ: pass 2's chain)
+template <int D>
+using FwdQa = uint32_t[kFwdGroups<D>][kBfSteps<D>][4];
+template <int D>
+using FwdQ = float[kFwdGroups<D>][2][D];
+
+template <int D>
+__device__ __forceinline__ void load_fwd_qa(const u16* __restrict__ q,
+                                            int row0, int L, FwdQa<D>& qa) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int rg = 0; rg < kFwdGroups<D>; ++rg)
+    load_a_bf16<D>(q, row0 + 16 * rg + g, row0 + 16 * rg + g + 8, L, qa[rg]);
+}
+
+template <int D>
+__device__ __forceinline__ void load_fwd_q(const u16* __restrict__ q,
+                                           int row0, int L, FwdQ<D>& qo) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int rg = 0; rg < kFwdGroups<D>; ++rg) {
+    row_to_float<D>(q, row0 + 16 * rg + g, L, qo[rg][0]);
+    row_to_float<D>(q, row0 + 16 * rg + g + 8, L, qo[rg][1]);
+  }
+}
+
+// keys past some row of the warp (the diagonal) read as -inf: s[rg][j] of a
+// step from key0 as fwd_bf16_logits lays them out
+template <int D>
+__device__ __forceinline__ void fwd_mask(
+    float (&s)[kFwdGroups<D>][kFwdStep<D> / 8][4], int key0, int row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int rg = 0; rg < kFwdGroups<D>; ++rg)
+#pragma unroll
+    for (int j = 0; j < kFwdStep<D> / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (key0 + 8 * j + 2 * t + (i & 1) > row0 + 16 * rg + g + 8 * (i >> 1))
+          s[rg][j][i] = -INFINITY;
+}
+
 // the raw logits s[rg][j] of kFwdStep<D> staged keys from tile row c (key
 // index key0) for the warp's kFwdGroups<D> groups of 16 rows from row0: rows
-// row0 + 16 rg + g (+8) by keys key0 + 8j + 2t (+1). kMasked: the step holds
-// keys past some row of the warp (the diagonal), which read as -inf
+// row0 + 16 rg + g (+8) by keys key0 + 8j + 2t (+1), each the logit chain.
+// Its operands: q from qo, the keys from the stage's float copy kf (two
+// LDS.128 a 4 x 4 block of the chain: 16 FFMA). kMasked: the step holds
+// keys past some row of the warp, which read as -inf
 template <int D, bool kMasked>
 __device__ __forceinline__ void fwd_bf16_logits(
-    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4], uint32_t ktile,
-    int c, int key0, int row0,
-    float (&s)[kFwdGroups<D>][kFwdStep<D> / 8][4]) {
+    const FwdQ<D>& qo, const float* __restrict__ kf, int c, int key0,
+    int row0, float (&s)[kFwdGroups<D>][kFwdStep<D> / 8][4]) {
   constexpr int G = kFwdGroups<D>, NJ = kFwdStep<D> / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float* k0 = kf + (c + 8 * j + 2 * t) * kFPitch<D>;
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[rg][j][i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      const float4 x0 = ld4(k0 + d), x1 = ld4(k0 + kFPitch<D> + d);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float* y = qo[rg][r] + d;
+          const float4 yr = make_float4(y[0], y[1], y[2], y[3]);
+          s[rg][j][2 * r] = chain4(s[rg][j][2 * r], yr, x0);
+          s[rg][j][2 * r + 1] = chain4(s[rg][j][2 * r + 1], yr, x1);
+        }
+    }
+  }
+  if (kMasked) fwd_mask<D>(s, key0, row0);
+}
+
+// pass 1 of the forward over one step: this thread's share of each row's
+// reference maximum m~, of the logits summed on the tensor cores from qa's
+// A fragments (one HMMA a 16 x 8 block against the chain's 16 FFMA a
+// logit): m~ differs from the chain's maximum by the tensor cores'
+// truncation, one fixed shift of the row. The scale is positive, so m~ c
+// rounds as max(s c) would
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_bf16_max(const FwdQa<D>& qa,
+                                             float (&m)[kFwdGroups<D>][2],
+                                             uint32_t ktile, int c, int key0,
+                                             int row0) {
+  constexpr int G = kFwdGroups<D>, NJ = kFwdStep<D> / 8;
+  float s[G][NJ][4];
 #pragma unroll
   for (int j2 = 0; j2 < NJ / 2; ++j2) {
 #pragma unroll
@@ -1329,53 +1531,34 @@ __device__ __forceinline__ void fwd_bf16_logits(
       uint32_t b[4];
       ldsm_along<D>(ktile, c + 16 * j2, st, b);
 #pragma unroll
-      for (int rg = 0; rg < G; ++rg)
-        fma_logits(s[rg][2 * j2], s[rg][2 * j2 + 1], qa[rg][st], b);
+      for (int rg = 0; rg < G; ++rg) {
+        mma_bf16(s[rg][2 * j2], qa[rg][st], b[0], b[1]);
+        mma_bf16(s[rg][2 * j2 + 1], qa[rg][st], b[2], b[3]);
+      }
     }
   }
-  if (kMasked) {
+  if (kMasked) fwd_mask<D>(s, key0, row0);
 #pragma unroll
-    for (int rg = 0; rg < G; ++rg)
+  for (int rg = 0; rg < G; ++rg)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (key0 + 8 * j + 2 * t + (i & 1) >
-              row0 + 16 * rg + g + 8 * (i >> 1))
-            s[rg][j][i] = -INFINITY;
-  }
-}
-
-// pass 1 of the forward over one step: this thread's share of each row's
-// maximum raw logit (the scale is positive, so m c rounds as max(s c) would)
-template <int D, bool kMasked>
-__device__ __forceinline__ void fwd_bf16_max(
-    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4],
-    float (&m)[kFwdGroups<D>][2], uint32_t ktile, int c, int key0,
-    int row0) {
-  float s[kFwdGroups<D>][kFwdStep<D> / 8][4];
-  fwd_bf16_logits<D, kMasked>(qa, ktile, c, key0, row0, s);
-#pragma unroll
-  for (int rg = 0; rg < kFwdGroups<D>; ++rg)
-#pragma unroll
-    for (int j = 0; j < kFwdStep<D> / 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       m[rg][0] = fmaxf(m[rg][0], fmaxf(s[rg][j][0], s[rg][j][1]));
       m[rg][1] = fmaxf(m[rg][1], fmaxf(s[rg][j][2], s[rg][j][3]));
     }
 }
 
 // pass 2 of the forward over one step: p = 2^fma(s, c, -m c) against the
-// row's final maximum (one FFMA and one MUFU.EX2 a logit), the sum of p, and
-// p v with p rounded to bf16 as the A operand
+// row's reference maximum (one FFMA and one MUFU.EX2 a logit), the sum of
+// p, and p v with p rounded to bf16 as the A operand
 template <int D, bool kMasked>
 __device__ __forceinline__ void fwd_bf16_step(
-    const uint32_t (&qa)[kFwdGroups<D>][kBfSteps<D>][4],
-    float (&acc)[kFwdGroups<D>][D / 8][4], const float (&mc)[kFwdGroups<D>][2],
-    float (&l)[kFwdGroups<D>][2], uint32_t ktile, uint32_t vtile, int c,
-    int key0, int row0, float cl2) {
+    const FwdQ<D>& qo, float (&acc)[kFwdGroups<D>][D / 8][4],
+    const float (&mc)[kFwdGroups<D>][2], float (&l)[kFwdGroups<D>][2],
+    const float* __restrict__ kf, uint32_t vtile, int c, int key0, int row0,
+    float cl2) {
   constexpr int G = kFwdGroups<D>, NJ = kFwdStep<D> / 8;
   float s[G][NJ][4];
-  fwd_bf16_logits<D, kMasked>(qa, ktile, c, key0, row0, s);
+  fwd_bf16_logits<D, kMasked>(qo, kf, c, key0, row0, s);
 #pragma unroll
   for (int rg = 0; rg < G; ++rg)
 #pragma unroll
@@ -1406,103 +1589,130 @@ __device__ __forceinline__ void fwd_bf16_step(
   }
 }
 
-// grid (B*H, ceil(L / R)), R = 64 kFwdGroups<D> query rows a block;
-// blockIdx.y = 0 is the LAST query block. Warp 4 streams the K tiles of
-// kStage keys (pass 1), then K and V again (pass 2), through a ring of
-// kStages<D> stages; warps 0-3 own 16 kFwdGroups<D> rows each
-template <int D>
-__global__ void __launch_bounds__(kBfThreads, kFwdMinBlocks<D>)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const u16* __restrict__ q, u16* __restrict__ o,
-                      float* __restrict__ lse2, int L, float scale_log2) {
+// the forward's blocks: grid (B*H, ceil(L / R)), R = 64 kFwdGroups<D> query
+// rows a block; blockIdx.y = 0 is the LAST query block. Its 4 warps own 16
+// kFwdGroups<D> rows each. Thread 0 streams the K tiles of kStage keys
+// (pass 1), then K and V again (pass 2), through a ring of kStages<D>
+// stages, refilling a stage's slot once every warp is past it; the warps
+// convert each pass-2 stage's K to floats, a quarter each, as it lands.
+// kRefMax: pass 1 only, each row's reference maximum m~ (unscaled)
+// written to lse2, so that a check can hold it against the chain's maximum
+template <int D, bool kRefMax>
+__device__ __forceinline__ void fwd_bf16_blocks(
+    const CUtensorMap& tk, const CUtensorMap& tv, const u16* __restrict__ q,
+    u16* __restrict__ o, float* __restrict__ lse2, int L, float scale_log2) {
   constexpr int G = kFwdGroups<D>, N8 = D / 8, S = kStages<D>;
-  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  constexpr int TB = BfTile<D>::kBytes, FT = kFTileBytes<D>;
+  constexpr int R = 16 * kBfConsumers * G;
   extern __shared__ uint8_t bf_smem[];
-  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
-  const uint32_t full = tiles + S * 2 * TB, empty = full + 8 * S;
+  const uint32_t smem0 = smem_u32(bf_smem);
+  const uint32_t tiles = (smem0 + 1023u) & ~1023u;
+  // the ring's "full" barriers, then the float copies of K
+  const uint32_t full = tiles + S * 2 * TB, ftiles = full + 16 * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb = gridDim.y - 1 - blockIdx.y, h = blockIdx.x;
   // key stages up to the one that holds the block's last row, twice
   const int n_tiles = (min(qb * R + R, L) - 1) / kStage + 1;
+  const int total = kRefMax ? n_tiles : 2 * n_tiles;
+  // stage i's copies into ring slot i % S, issued by thread 0
+  auto issue = [&](int i) {
+    const int s = i % S, kt = i < n_tiles ? i : i - n_tiles;
+    const uint32_t at = tiles + s * 2 * TB;
+    mbar_expect_tx(full + 8 * s, i < n_tiles ? TB : 2 * TB);
+    tma_rows<D>(at, &tk, full + 8 * s, kt * kStage, h);
+    if (i >= n_tiles)
+      tma_rows<D>(at + TB, &tv, full + 8 * s, kt * kStage, h);
+  };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kBfConsumers);
-    }
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(S - 1, total); ++i) issue(i);
   }
   __syncthreads();
-  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
-    if (lane == 0)
-      for (int i = 0; i < 2 * n_tiles; ++i) {
-        const int s = i % S, kt = i < n_tiles ? i : i - n_tiles;
-        const uint32_t at = tiles + s * 2 * TB;
-        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, i < n_tiles ? TB : 2 * TB);
-        tma_rows<D>(at, &tk, full + 8 * s, kt * kStage, h);
-        if (i >= n_tiles)
-          tma_rows<D>(at + TB, &tv, full + 8 * s, kt * kStage, h);
-      }
-    return;
-  }
+  // stage i: wait for its copies and convert this warp's quarter of its K
+  // into float copy i % 2 (pass 2); past the barrier every warp is done with
+  // stage i - 1, whose slot then takes stage i + S - 1
+  auto stage = [&](int i, const float*& kf) {
+    const int s = i % S;
+    const uint32_t at = tiles + s * 2 * TB;
+    float* fk =
+        reinterpret_cast<float*>(bf_smem + (ftiles + (i & 1) * FT - smem0));
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    if (i >= n_tiles) tile_to_float<D>(bf_smem + (at - smem0), fk, 16 * warp);
+    __syncthreads();
+    if (threadIdx.x == 0 && i + S - 1 < total) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(i + S - 1);
+    }
+    kf = fk;
+    return at;
+  };
   const int g = lane >> 2, t = lane & 3;
   const int64_t base = static_cast<int64_t>(h) * L * D;
   const int row0 = qb * R + 16 * G * warp, last = row0 + 16 * G - 1;
 
-  uint32_t qa[G][kBfSteps<D>][4];
+  float m[G][2];
+  {
+    FwdQa<D> qa;
+    load_fwd_qa<D>(q + base, row0, L, qa);
+#pragma unroll
+    for (int rg = 0; rg < G; ++rg) m[rg][0] = m[rg][1] = -INFINITY;
+    for (int i = 0; i < n_tiles; ++i) {
+      const float* kf;
+      const uint32_t at = stage(i, kf);
+#pragma unroll 1
+      for (int c = 0; c < kStage; c += kFwdStep<D>) {
+        const int key0 = i * kStage + c;
+        if (key0 > last) break;  // every key here is ahead of the warp
+        if (key0 + kFwdStep<D> - 1 <= row0)
+          fwd_bf16_max<D, false>(qa, m, at, c, key0, row0);
+        else
+          fwd_bf16_max<D, true>(qa, m, at, c, key0, row0);
+      }
+    }
+  }
+  // the rows' maxima across the 4 lanes of a row; key 0 is in every row, so
+  // each is finite. Pass 2 rounds p against them: one reference a row, as
+  // the plain version rounds against the row's maximum (a running maximum
+  // moved the trained prior's dK)
 #pragma unroll
   for (int rg = 0; rg < G; ++rg)
-    load_a_bf16<D>(q + base, row0 + 16 * rg + g, row0 + 16 * rg + g + 8, L,
-                   qa[rg]);
-  float acc[G][N8][4], m[G][2], l[G][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float& mr = m[rg][r];
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+      const int row = row0 + 16 * rg + g + 8 * r;
+      if (kRefMax && t == 0 && row < L)
+        lse2[static_cast<int64_t>(h) * L + row] = mr;
+      mr *= scale_log2;  // m c from here on
+    }
+  if constexpr (kRefMax) return;
+
+  FwdQ<D> qo;
+  load_fwd_q<D>(q + base, row0, L, qo);
+  float acc[G][N8][4], l[G][2];
 #pragma unroll
   for (int rg = 0; rg < G; ++rg) {
 #pragma unroll
     for (int n = 0; n < N8; ++n)
       acc[rg][n][0] = acc[rg][n][1] = acc[rg][n][2] = acc[rg][n][3] = 0.f;
-    m[rg][0] = m[rg][1] = -INFINITY;
     l[rg][0] = l[rg][1] = 0.f;
   }
-
-  for (int i = 0; i < 2 * n_tiles; ++i) {
-    const int s = i % S, kt = i < n_tiles ? i : i - n_tiles;
-    const uint32_t at = tiles + s * 2 * TB;
-    if (i == n_tiles) {
-      // the rows' maxima across the 4 lanes of a row; key 0 is in every
-      // row, so each is finite. Pass 2 rounds p against them, as the plain
-      // version does (a running maximum moved the trained prior's dK)
-#pragma unroll
-      for (int rg = 0; rg < G; ++rg)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& mr = m[rg][r];
-          mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
-          mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
-          mr *= scale_log2;  // m c from here on
-        }
-    }
-    mbar_wait(full + 8 * s, (i / S) & 1);
+  for (int i = n_tiles; i < total; ++i) {
+    const float* kf;
+    const uint32_t at = stage(i, kf);
 #pragma unroll 1
     for (int c = 0; c < kStage; c += kFwdStep<D>) {
-      const int key0 = kt * kStage + c;
-      if (key0 > last) break;  // every key here is ahead of the warp
-      const bool full_step = key0 + kFwdStep<D> - 1 <= row0;
-      if (i < n_tiles) {
-        if (full_step)
-          fwd_bf16_max<D, false>(qa, m, at, c, key0, row0);
-        else
-          fwd_bf16_max<D, true>(qa, m, at, c, key0, row0);
-      } else if (full_step) {
-        fwd_bf16_step<D, false>(qa, acc, m, l, at, at + TB, c, key0, row0,
+      const int key0 = (i - n_tiles) * kStage + c;
+      if (key0 > last) break;
+      if (key0 + kFwdStep<D> - 1 <= row0)
+        fwd_bf16_step<D, false>(qo, acc, m, l, kf, at + TB, c, key0, row0,
                                 scale_log2);
-      } else {
-        fwd_bf16_step<D, true>(qa, acc, m, l, at, at + TB, c, key0, row0,
+      else
+        fwd_bf16_step<D, true>(qo, acc, m, l, kf, at + TB, c, key0, row0,
                                scale_log2);
-      }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
 #pragma unroll
@@ -1522,13 +1732,41 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kFThreads, kFwdMinBlocks<D>)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const u16* __restrict__ q, u16* __restrict__ o,
+                      float* __restrict__ lse2, int L, float scale_log2) {
+  fwd_bf16_blocks<D, false>(tk, tv, q, o, lse2, L, scale_log2);
+}
+
+// the forward's pass 1 alone: m~ of each row into m (a check's, not the
+// port's path)
+template <int D>
+__global__ void __launch_bounds__(kFThreads, kFwdMinBlocks<D>)
+flash_fwd_ref_max_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const u16* __restrict__ q, float* __restrict__ m,
+                              int L) {
+  fwd_bf16_blocks<D, true>(tk, tv, q, nullptr, m, L, 1.f);
+}
+
+// the warp's k rows for the logits: keys key0 + 16 kg + g (+8) as floats,
+// or (D = 128) as A fragments
+template <int D>
+using DkvK = std::conditional_t<kDkvFloatK<D>, float[kDkvGroups<D>][2][D],
+                                uint32_t[kDkvGroups<D>][kBfSteps<D>][4]>;
+
 // one dK/dV step over the 16 staged queries from tile row c (query index
 // qi0) for the warp's kDkvGroups<D> groups of 16 keys from key0: logits and
-// dp transposed, p, ds, then dv and dk. kMasked: the step holds a query
-// before some key of the warp, or past L
+// dp transposed, p, ds, then dv and dk. The logits' operands: the warp's k
+// rows as floats (kr) against the stage's float copy of q (qf), or, at D =
+// 128, kr's A fragments against the q tile's fragments (fma_logits).
+// kMasked: the step holds a query before some key of the warp, or past L
 template <int D, bool kMasked>
 __device__ __forceinline__ void dkv_bf16_step(
-    const uint32_t (&ka)[kDkvGroups<D>][kBfSteps<D>][4],
+    const DkvK<D>& kr, const float* __restrict__ qf,
     const uint32_t (&va)[kDkvGroups<D>][kBfSteps<D>][4],
     float (&dka)[kDkvGroups<D>][D / 8][4],
     float (&dva)[kDkvGroups<D>][D / 8][4], uint32_t qtile, uint32_t dotile,
@@ -1555,16 +1793,52 @@ __device__ __forceinline__ void dkv_bf16_step(
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[kg][j][i] = dp[kg][j][i] = 0.f;
+  if constexpr (kDkvFloatK<D>) {
+    // per 4 d: 4 LDS.128 of q rows (c + 8j + 2t + e), 4 of k rows (16 kg +
+    // g + 8r), 64 FFMA
 #pragma unroll
-  for (int st = 0; st < kBfSteps<D>; ++st) {
-    uint32_t bq[4], bd[4];
-    ldsm_along<D>(qtile, c, st, bq);
-    ldsm_along<D>(dotile, c, st, bd);
+    for (int d = 0; d < D; d += 4) {
+      float4 y[2][2];
 #pragma unroll
-    for (int kg = 0; kg < G; ++kg) {
-      fma_logits(s[kg][0], s[kg][1], ka[kg][st], bq);
-      mma_bf16(dp[kg][0], va[kg][st], bd[0], bd[1]);
-      mma_bf16(dp[kg][1], va[kg][st], bd[2], bd[3]);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          y[j][e] = ld4(qf + (c + 8 * j + 2 * t + e) * kFPitch<D> + d);
+#pragma unroll
+      for (int kg = 0; kg < G; ++kg)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float* k4 = kr[kg][r] + d;
+          const float4 x = make_float4(k4[0], k4[1], k4[2], k4[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[kg][j][2 * r + e] = chain4(s[kg][j][2 * r + e], x, y[j][e]);
+        }
+    }
+#pragma unroll
+    for (int st = 0; st < kBfSteps<D>; ++st) {
+      uint32_t bd[4];
+      ldsm_along<D>(dotile, c, st, bd);
+#pragma unroll
+      for (int kg = 0; kg < G; ++kg) {
+        mma_bf16(dp[kg][0], va[kg][st], bd[0], bd[1]);
+        mma_bf16(dp[kg][1], va[kg][st], bd[2], bd[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int st = 0; st < kBfSteps<D>; ++st) {
+      uint32_t bq[4], bd[4];
+      ldsm_along<D>(qtile, c, st, bq);
+      ldsm_along<D>(dotile, c, st, bd);
+#pragma unroll
+      for (int kg = 0; kg < G; ++kg) {
+        fma_logits(s[kg][0], s[kg][1], kr[kg][st], bq);
+        mma_bf16(dp[kg][0], va[kg][st], bd[0], bd[1]);
+        mma_bf16(dp[kg][1], va[kg][st], bd[2], bd[3]);
+      }
     }
   }
   uint32_t pa[G][4], da[G][4];
@@ -1605,11 +1879,13 @@ __device__ __forceinline__ void dkv_bf16_step(
 }
 
 // grid (B*H, ceil(L / R)), R = 64 kDkvGroups<D> keys a block; blockIdx.y =
-// 0 is the FIRST key block, which sees every query. Warp 4 streams q, do,
-// lse2 and di stages of kStage queries from the block's first key on;
-// warps 0-3 own 16 kDkvGroups<D> keys each
+// 0 is the FIRST key block, which sees every query. Its 4 warps own 16
+// kDkvGroups<D> keys each. Thread 0 streams q, do, lse2 and di stages of
+// kStage queries from the block's first key on, refilling a stage's slot
+// once every warp is past it; up to D = 64 the warps convert each stage's
+// q to floats, a quarter each, as it lands
 template <int D>
-__global__ void __launch_bounds__(kBfThreads, kDkvMinBlocks<D>)
+__global__ void __launch_bounds__(kFThreads, kDkvMinBlocks<D>)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tlse,
@@ -1618,51 +1894,54 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           u16* __restrict__ dk, u16* __restrict__ dv, int L,
                           float scale_log2, float scale) {
   constexpr int G = kDkvGroups<D>, N8 = D / 8, S = kStages<D>;
-  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  constexpr int TB = BfTile<D>::kBytes, FT = kFTileBytes<D>;
+  constexpr int R = 16 * kBfConsumers * G;
   extern __shared__ uint8_t bf_smem[];
-  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
+  const uint32_t smem0 = smem_u32(bf_smem);
+  const uint32_t tiles = (smem0 + 1023u) & ~1023u;
   const uint32_t vecs = tiles + S * 2 * TB;  // lse2 then di, a stage each
-  const uint32_t full = vecs + S * 8 * kVecPitch, empty = full + 8 * S;
-  const float* vec_ptr = reinterpret_cast<const float*>(
-      bf_smem + (vecs - smem_u32(bf_smem)));
+  // the ring's "full" barriers, then the float copies of q
+  const uint32_t full = vecs + S * 8 * kVecPitch, ftiles = full + 16 * S;
+  const float* vec_ptr =
+      reinterpret_cast<const float*>(bf_smem + (vecs - smem0));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.x, q_first = blockIdx.y * R;
   const int n_tiles = (L - q_first + kStage - 1) / kStage;
   // the vector boxes start at element h L + q0 - off (q0 % 4 == 0)
   const int off = (h * L) & 3;
+  // stage i's copies into ring slot i % S, issued by thread 0
+  auto issue = [&](int i) {
+    const int s = i % S, q0 = q_first + i * kStage;
+    const uint32_t at = tiles + s * 2 * TB, vat = vecs + s * 8 * kVecPitch;
+    mbar_expect_tx(full + 8 * s, 2 * TB + 8 * kVecBox);
+    tma_rows<D>(at, &tq, full + 8 * s, q0, h);
+    tma_rows<D>(at + TB, &tdo, full + 8 * s, q0, h);
+    // (bh L,) vectors: past L come the next head's values, masked
+    tma_1d(vat, &tlse, full + 8 * s, h * L + q0 - off);
+    tma_1d(vat + 4 * kVecPitch, &tdi, full + 8 * s, h * L + q0 - off);
+  };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kBfConsumers);
-    }
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(S - 1, n_tiles); ++i) issue(i);
   }
   __syncthreads();
-  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
-    if (lane == 0)
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % S, q0 = q_first + i * kStage;
-        const uint32_t at = tiles + s * 2 * TB, vat = vecs + s * 8 * kVecPitch;
-        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, 2 * TB + 8 * kVecBox);
-        tma_rows<D>(at, &tq, full + 8 * s, q0, h);
-        tma_rows<D>(at + TB, &tdo, full + 8 * s, q0, h);
-        // (bh L,) vectors: past L come the next head's values, masked
-        tma_1d(vat, &tlse, full + 8 * s, h * L + q0 - off);
-        tma_1d(vat + 4 * kVecPitch, &tdi, full + 8 * s, h * L + q0 - off);
-      }
-    return;
-  }
   const int g = lane >> 2;
   const int64_t base = static_cast<int64_t>(h) * L * D;
   const int key0 = q_first + 16 * G * warp, key_last = key0 + 16 * G - 1;
 
-  // the warp's k (logits) and v (dp) rows as A fragments
-  uint32_t ka[G][kBfSteps<D>][4], va[G][kBfSteps<D>][4];
+  // the warp's k rows (the logits) and v rows (dp: A fragments)
+  DkvK<D> kr;
+  uint32_t va[G][kBfSteps<D>][4];
 #pragma unroll
   for (int kg = 0; kg < G; ++kg) {
     const int c0 = key0 + 16 * kg + g;
-    load_a_bf16<D>(k + base, c0, c0 + 8, L, ka[kg]);
+    if constexpr (kDkvFloatK<D>) {
+      row_to_float<D>(k + base, c0, L, kr[kg][0]);
+      row_to_float<D>(k + base, c0 + 8, L, kr[kg][1]);
+    } else {
+      load_a_bf16<D>(k + base, c0, c0 + 8, L, kr[kg]);
+    }
     load_a_bf16<D>(v + base, c0, c0 + 8, L, va[kg]);
   }
   float dka[G][N8][4], dva[G][N8][4];
@@ -1678,15 +1957,26 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t at = tiles + s * 2 * TB;
     const float* ls = vec_ptr + s * 2 * kVecPitch + off;
     const float* dis = ls + kVecPitch;
+    float* qf =
+        reinterpret_cast<float*>(bf_smem + (ftiles + (i & 1) * FT - smem0));
     mbar_wait(full + 8 * s, (i / S) & 1);
+    if constexpr (kDkvFloatK<D>)
+      tile_to_float<D>(bf_smem + (at - smem0), qf, 16 * warp);
+    // past the barrier every warp is done with stage i - 1, whose slot
+    // then takes stage i + S - 1, and q's float copy i % 2 is complete
+    __syncthreads();
+    if (threadIdx.x == 0 && i + S - 1 < n_tiles) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(i + S - 1);
+    }
     if (D <= 32 && q0 >= key_last && q0 + kStage <= L) {
       // every query of the stage sees every key of the warp: the four
       // steps unrolled, no mask (at D >= 64 the products dominate, and
       // the unrolled steps would spill)
 #pragma unroll
       for (int c = 0; c < kStage; c += 16)
-        dkv_bf16_step<D, false>(ka, va, dka, dva, at, at + TB, ls, dis, c,
-                                q0 + c, key0, L, scale_log2, scale);
+        dkv_bf16_step<D, false>(kr, qf, va, dka, dva, at, at + TB, ls, dis,
+                                c, q0 + c, key0, L, scale_log2, scale);
     } else {
 #pragma unroll 1
       for (int c = 0; c < kStage; c += 16) {
@@ -1694,15 +1984,13 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (qi0 >= L) break;
         if (qi0 + 15 < key0) continue;  // every query before every key
         if (qi0 >= key_last && qi0 + 16 <= L)
-          dkv_bf16_step<D, false>(ka, va, dka, dva, at, at + TB, ls, dis, c,
-                                  qi0, key0, L, scale_log2, scale);
+          dkv_bf16_step<D, false>(kr, qf, va, dka, dva, at, at + TB, ls,
+                                  dis, c, qi0, key0, L, scale_log2, scale);
         else
-          dkv_bf16_step<D, true>(ka, va, dka, dva, at, at + TB, ls, dis, c,
-                                 qi0, key0, L, scale_log2, scale);
+          dkv_bf16_step<D, true>(kr, qf, va, dka, dva, at, at + TB, ls, dis,
+                                 c, qi0, key0, L, scale_log2, scale);
       }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 #pragma unroll
   for (int kg = 0; kg < G; ++kg) {
@@ -1989,14 +2277,36 @@ extern "C" int movae_flash_bf16_fwd(const void* q, const void* k,
   CUtensorMap tk, tv;
   if ((err = rows_map<kD>(&tk, k, bh, L)) != 0) return err;
   if ((err = rows_map<kD>(&tv, v, bh, L)) != 0) return err;
-  constexpr int smem = fwd_bf16_smem<kD>();
+  constexpr int smem = fwd_bf16_f_smem<kD>();
   err = allow_smem(flash_fwd_bf16_kernel<kD>, smem);
   if (err != 0) return err;
   flash_fwd_bf16_kernel<kD>
-      <<<bf_grid(bh, L, 16 * kBfConsumers * kFwdGroups<kD>), kBfThreads, smem,
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kFwdGroups<kD>), kFThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           tk, tv, static_cast<const u16*>(q), static_cast<u16*>(o), lse2, L,
           scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 forward's reference maximum m~ of each row's raw logits (its
+// pass 1, run alone) into m, float32 (bh, L): for a check that holds it
+// against the maximum of the logit chain. Not on the port's path
+extern "C" int movae_flash_bf16_fwd_ref_max(const void* q, const void* k,
+                                            const void* v, float* m, int bh,
+                                            int L, int d, int device,
+                                            void* stream) {
+  int err = prologue(bh, L, d, device);
+  if (err != 0) return err;
+  CUtensorMap tk, tv;
+  if ((err = rows_map<kD>(&tk, k, bh, L)) != 0) return err;
+  if ((err = rows_map<kD>(&tv, v, bh, L)) != 0) return err;
+  constexpr int smem = fwd_bf16_f_smem<kD>();
+  err = allow_smem(flash_fwd_ref_max_bf16_kernel<kD>, smem);
+  if (err != 0) return err;
+  flash_fwd_ref_max_bf16_kernel<kD>
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kFwdGroups<kD>), kFThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          tk, tv, static_cast<const u16*>(q), m, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2015,11 +2325,11 @@ extern "C" int movae_flash_bf16_bwd_dkv(const void* q, const void* k,
   if ((err = rows_map<kD>(&tdo, dout, bh, L)) != 0) return err;
   if ((err = vec_map(&tlse, lse2, bh, L)) != 0) return err;
   if ((err = vec_map(&tdi, di, bh, L)) != 0) return err;
-  constexpr int smem = dkv_bf16_smem<kD>();
+  constexpr int smem = dkv_bf16_f_smem<kD>();
   err = allow_smem(flash_bwd_dkv_bf16_kernel<kD>, smem);
   if (err != 0) return err;
   flash_bwd_dkv_bf16_kernel<kD>
-      <<<bf_grid(bh, L, 16 * kBfConsumers * kDkvGroups<kD>), kBfThreads,
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kDkvGroups<kD>), kFThreads,
          smem, static_cast<cudaStream_t>(stream)>>>(
           tq, tdo, tlse, tdi, static_cast<const u16*>(k),
           static_cast<const u16*>(v), static_cast<u16*>(dk),

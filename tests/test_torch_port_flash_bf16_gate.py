@@ -4,11 +4,15 @@ faults that 17a plants on the card do not.
 
 ``movae_tpu_torch/kernels/flash_attention.cu``'s bf16 forward takes the
 raw logits s from bf16 products summed in float32 in two passes over the
-keys: the first takes each row's maximum m of the raw logits, the second,
-in steps of 64 keys (32 at D = 128), p = 2^fma(s, c, -m c) (c = scale *
-log2(e), m c one float32 product, results below 2^-126 flushed to 0),
-rounded to bf16 before p v; the sum takes the unrounded p, and o =
-bf16(acc / sum), lse2 = m c + log2(sum). The dK/dV and dQ kernels both
+keys: the first takes each row's reference maximum m~ of the logits summed
+on the tensor cores, which truncate (m~ differs from the row maximum m of
+the IEEE chain by at most ``tc_max_bound``, a bound that 17a holds the
+card's m~ to; the emulation puts m~ at m minus or plus that bound), the
+second, in steps of 64 keys (32 at D = 16 and 128), p = 2^fma(s, c, -m~
+c) from the IEEE chain s (c = scale * log2(e), m~ c one float32 product,
+results below 2^-126 flushed to 0), rounded to bf16 before p v; the sum
+takes the unrounded p, and o = bf16(acc / sum), lse2 = m~ c + log2(sum).
+The dK/dV and dQ kernels both
 recompute p = 2^fma(s, c, -lse2) and ds = p fma(dp, scale, -di scale), so
 one and the same bf16 ds feeds dq and dk; the two round p and ds to
 bf16 before their products and sum in another order than torch's GEMMs,
@@ -39,7 +43,7 @@ TINY = 2.0 ** -126  # ex2.approx.ftz flushes results below it to 0
 
 def tile(d):
     """The forward kernel's keys per step of its second pass (kFwdStep)."""
-    return 64 if d <= 64 else 32
+    return 32 if d in (16, 128) else 64
 
 
 def _chip_smoke():
@@ -68,16 +72,25 @@ def _ex2(x):
     return torch.where(p < TINY, torch.zeros_like(p), p)
 
 
-def _kernel_fwd(q, k, v, scale):
-    """The forward kernel's two passes: each row's final maximum of the raw
-    logits, then its steps against it: (o, lse2)."""
+def tc_max_bound(q, k):
+    """chip_smoke.py's bound on |m~ - m| a row (``chain_max_and_tc_bound``,
+    the bound 17a holds the card's m~ to), as (B, H, L, 1) float64."""
+    return cs.chain_max_and_tc_bound(torch, q, k)[1][..., None]
+
+
+def _kernel_fwd(q, k, v, scale, shift=-1.0):
+    """The forward kernel's two passes: each row's reference maximum m~,
+    here the IEEE chain's maximum m plus ``shift`` times ``tc_max_bound``
+    (the worst the tensor cores' sums allow), then its steps against it:
+    (o, lse2)."""
     B, H, L, D = q.shape
     T, c = tile(D), torch.tensor(scale * LOG2E, dtype=torch.float32)
     qf, kf, vf = q.float(), k.float(), v.float()
     rows = torch.arange(L)[:, None]
     s = (qf @ kf.transpose(-1, -2)).masked_fill(
         torch.arange(L)[None, :] > rows, -math.inf)
-    mc = s.amax(-1, keepdim=True) * c  # key 0 is in every row
+    m = s.amax(-1, keepdim=True)  # key 0 is in every row
+    mc = (m.double() + shift * tc_max_bound(q, k)).float() * c
     s_sum = torch.zeros((B, H, L, 1))
     acc = torch.zeros((B, H, L, D))
     for k0 in range(0, L, T):
@@ -157,6 +170,110 @@ def test_kernel_arithmetic_passes_the_bf16_gate(shape, sharp):
         kf = cs.bf16_agreement(torch, g, f64[key], terms[key])
         pf = cs.bf16_agreement(torch, e2e[key], f64[key], terms[key])
         assert cs.bf16_as_close(kf, pf), (key, kf, pf)
+
+
+@pytest.mark.parametrize("shape,sharp", CASES)
+def test_reference_maximum_above_the_row_maximum_passes_the_bf16_gate(
+        shape, sharp):
+    """The forward's reference maximum at the other end of its bound (m~
+    above the chain's row maximum: p below its plain value): the emulated
+    kernels still pass the gate against the plain version and float64."""
+    q, k, v, do = _inputs(shape, seed=shape[2] + 3, sharp=sharp)
+    scale = shape[-1] ** -0.5
+    o, lse2 = _kernel_fwd(q, k, v, scale, shift=1.0)
+    keys = ("o", "dq", "dk", "dv")
+    got = dict(zip(keys, (o, *_kernel_bwd(q, k, v, o, lse2, do, scale))))
+    plain = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o, lse2, scale)))
+    terms = cs.bf16_terms(torch, fa, q, k, v, do, o, lse2, scale)
+    o_p, lse2_p = fa.plain_fwd_bf16(q, k, v, scale)
+    e2e = dict(zip(keys, cs.plain_bf16(fa, q, k, v, do, o_p, lse2_p,
+                                       scale)))
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    out = fa.dense_causal_attention(*leaves, scale)
+    f64 = dict(zip(keys, (out.detach(), *torch.autograd.grad(
+        out, leaves, do.double()))))
+    for key, g in got.items():
+        a = cs.bf16_agreement(torch, g, plain[key], terms[key])
+        assert cs.bf16_agrees(a), (key, a)
+        kf = cs.bf16_agreement(torch, g, f64[key], terms[key])
+        pf = cs.bf16_agreement(torch, e2e[key], f64[key], terms[key])
+        assert cs.bf16_as_close(kf, pf), (key, kf, pf)
+
+
+def test_tc_max_bound_is_zero_on_exact_sums_and_covers_rounding():
+    """The bound is 0 where every product and sum is exact (integer
+    operands), positive on most rows of random ones (a row of a few keys
+    may sum exactly), and at least the IEEE chain's own distance from the
+    exact logits."""
+    q, k, _, _ = _sharp_integer_inputs((1, 1, 64, 16), seed=2)
+    assert float(tc_max_bound(q, k).abs().max()) == 0.0
+    q, k, _, _ = _inputs((1, 1, 64, 16), seed=2, sharp=5.0)
+    bound = tc_max_bound(q, k)
+    assert float((bound > 0).double().mean()) > 0.9
+    exact = q.double() @ k.double().transpose(-1, -2)
+    chain = fa.fma_chain_logits(q, k).double()
+    causal = torch.ones(64, 64, dtype=torch.bool).tril()
+    gap = (exact - chain).abs().masked_fill(~causal, 0.0).amax(-1, True)
+    assert bool((bound >= gap).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 77, 8), (2, 1, 70, 32)])
+def test_chain_max_is_the_chain_row_maximum_in_any_row_chunk(shape):
+    """chain_max_and_tc_bound's m is the causal row maximum of
+    fma_chain_logits bit for bit, and neither m nor the bound depends on
+    how many rows it takes at a time (17a takes as many as fit the card)."""
+    q, k, _, _ = _inputs(shape, seed=shape[2], sharp=5.0)
+    m, bound = cs.chain_max_and_tc_bound(torch, q, k)
+    L = shape[2]
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    want = fa.fma_chain_logits(q, k).masked_fill(~causal, -math.inf).amax(-1)
+    assert torch.equal(m.view(torch.int32), want.view(torch.int32))
+    m7, bound7 = cs.chain_max_and_tc_bound(torch, q, k, rows=7)
+    assert torch.equal(m7, m) and torch.equal(bound7, bound)
+
+
+def test_tc_model_of_one_product_a_step_uncut_is_the_fma_chain():
+    """chip_smoke.py's tc_model_sums (the models ``--probe tc`` fits to the
+    card's tensor-core sums) with one product a step, no cut and the sum
+    rounded to nearest is the logit chain: fma_chain_logits bit for bit;
+    with 16 products a step and 24 bits it is not."""
+    q, k, _, _ = _inputs((1, 2, 40, 32), seed=3, sharp=5.0)
+    a, b = q[..., :, None, :], k[..., None, :, :]
+    want = fa.fma_chain_logits(q, k).double()
+    chain = cs.tc_model_sums(torch, a, b, width=60, anchor_exponents=False,
+                             rn_final=True, group=1, acc_apart=False)
+    assert torch.equal(chain, want)
+    tc = cs.tc_model_sums(torch, a, b, width=23, anchor_exponents=False,
+                          rn_final=False, group=16, acc_apart=False)
+    assert not torch.equal(tc, want)
+
+
+def _chain_from_floats(q, k, descending=False):
+    """The forward's and dK/dV's logit chain from float operands: q's and
+    k's bf16 values as float32 (the rows held in registers and the stage's
+    float copy), then per 4 d (one LDS.128 of a float row) four fmaf, d
+    ascending from acc = 0; ``descending`` runs d the other way (a
+    control)."""
+    qf, kf = q.float(), k.float()
+    D = q.shape[-1]
+    acc = torch.zeros((*q.shape[:-1], k.shape[-2]), dtype=torch.float32)
+    order = list(range(D))[::-1] if descending else range(D)
+    for d in order:
+        acc = _fma(qf[..., :, None, d], kf[..., None, :, d], acc)
+    return acc
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_float_operand_chain_equals_fma_chain_logits(d):
+    """The float-operand chain equals fma_chain_logits (the chain dQ sums
+    from the mma fragments, and the plain version's tensor_cores=True)
+    bit for bit, and the same chain in descending d does not."""
+    q, k, _, _ = _inputs((1, 2, 96, d), seed=d, sharp=5.0)
+    want = fa.fma_chain_logits(q, k)
+    got = _chain_from_floats(q, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    down = _chain_from_floats(q, k, descending=True)
+    assert not torch.equal(down.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("shape,sharp", [(cs.FLASH_BF16_CONTROL, 1.0),
