@@ -674,6 +674,33 @@ def sass_counts(cuobjdump: str, lib: str, ops=SASS_OPS) -> dict:
     return out
 
 
+# the head dims at which each bf16 flash kernel reads its logit chain's
+# operands as float rows (flash_attention.cu: the forward at every D,
+# kDkvFloatK, kDqFloatQ); at the others it shuffles them out of the mma
+# fragments (fma_logits), the only SHFL.IDX these kernels hold
+FLOAT_ROWS = {
+    "flash_fwd_bf16_kernel": (8, 16, 32, 64, 128),
+    "flash_bwd_dkv_bf16_kernel": (8, 16, 32, 64),
+    "flash_bwd_dq_bf16_kernel": (8, 16, 32, 64),
+}
+
+
+def logit_operand_paths(lib_sass: dict, d: int) -> dict:
+    """{bf16 flash kernel: "float rows" or "shuffled"} at head dim ``d``,
+    read from one library's ``sass_counts`` (SHFL.IDX marks the shuffled
+    path); fails where a kernel's path is not the one FLOAT_ROWS gives."""
+    paths = {}
+    for kern, dims in FLOAT_ROWS.items():
+        ops = lib_sass.get(f"{kern}<{d}>")
+        check(ops is not None, f"no SASS of {kern}<{d}>")
+        paths[kern] = "shuffled" if ops["SHFL.IDX"] else "float rows"
+        want = "float rows" if d in dims else "shuffled"
+        check(paths[kern] == want,
+              f"{kern}<{d}>'s logit operands are {paths[kern]} "
+              f"({ops['SHFL.IDX']} SHFL.IDX), where FLOAT_ROWS says {want}")
+    return paths
+
+
 def per_ex2(ops: dict) -> tuple:
     """SASS instructions other than MUFU per MUFU.EX2 of a kernel: over the
     whole binary (prologue, epilogue and both step instances), and in its
@@ -3213,17 +3240,11 @@ def phase_flash_bf16(torch, fa, dev, peaks, sass: dict) -> list:
                     f"({ops['hot'][0]} instructions, {ops['hot'][1]} EX2); "
                     f"registers, spill stores, spill loads (bytes): "
                     f"{regs.get(f'{kern}<{d}>', 'not rebuilt here')}")
-        # the operand path of each kernel's logit chain
-        # (flash_attention.cu:kDkvFloatK): shuffles out of the mma
-        # fragments (fma_logits) show as SHFL.IDX
+        # the operand path of each kernel's logit chain: float rows (the
+        # side that stays converted once, the streamed side from a float
+        # copy of each stage) or shuffled out of the mma fragments
         if sass:
-            paths = {kern: "shuffled out of the mma fragments"
-                     if sass[lib][f"{kern}<{d}>"]["SHFL.IDX"] else
-                     "float rows (the side that stays converted once, the "
-                     "streamed side from a float copy of each stage)"
-                     for kern in ("flash_fwd_bf16_kernel",
-                                  "flash_bwd_dkv_bf16_kernel",
-                                  "flash_bwd_dq_bf16_kernel")}
+            paths = logit_operand_paths(sass[lib], d)
             log(f"17a logit operand path at D={d}: {json.dumps(paths)}")
     gen = torch.Generator(device=dev).manual_seed(17)
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)

@@ -868,20 +868,16 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //
 // flash_fwd_bf16_kernel, flash_bwd_dkv_bf16_kernel and
 // flash_bwd_dq_bf16_kernel, built for that:
-//   * dQ: a block is 4 consumer warps and 1 producer warp. The producer's
-//     first lane streams K and V in stages of 64 rows by TMA
-//     (cp.async.bulk.tensor) into a ring of 4 stages (3 at D = 128), each
-//     with a "full" and an "empty" mbarrier: a consumer warp waits on full,
-//     runs only math and arrives on empty once it is done with the stage;
-//   * the forward and dK/dV: a block is 4 warps and no
-//     producer, so that 3 blocks of 168-register threads fit an SM (3 warps
-//     on each sub-partition, against the producer design's 2). Thread 0
-//     streams the other side (K, then K and V, in the forward; q, do, lse2
-//     and di in dK/dV) by TMA into the same ring with "full" mbarriers
-//     only; each stage ends its wait with a __syncthreads, past which every
-//     warp is done with the previous stage, whose slot thread 0 then
-//     refills. Before that barrier each warp converts 16 of the stage's 64
-//     streamed rows to floats (in dK/dV up to D = 64), into one of two
+//   * a block is 4 warps and no producer warp, so that 3 blocks of
+//     168-register threads fit an SM (3 warps on each sub-partition, against
+//     a producer design's 2). Thread 0 streams the other side (K, then K
+//     and V, in the forward; q, do, lse2 and di in dK/dV; K and V in dQ) in
+//     stages of 64 rows by TMA (cp.async.bulk.tensor) into a ring of 4
+//     stages (3 at D = 128) with "full" mbarriers only; each stage ends its
+//     wait with a __syncthreads, past which every warp is done with the
+//     previous stage, whose slot thread 0 then refills. Before that barrier
+//     each warp converts 16 of the stage's 64 streamed rows to floats (the
+//     forward's K; q in dK/dV and K in dQ up to D = 64), into one of two
 //     float copies;
 //   * a staged tile is dense, laid out by the TMA box's swizzle (32-, 64- or
 //     128-byte rows; D = 128 in two boxes of 64 columns; D = 8 rows are 16
@@ -926,9 +922,10 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     their boxes starts at the 16-byte boundary at or before the stage's
 //     first query (a TMA box must start 16-byte aligned);
 //   * dQ: a warp owns 32 query rows at D <= 32 (two groups of 16 that share
-//     every staged fragment), 16 above, in steps of 16 keys: the logits
-//     and dp along the K and V tiles, then dq += ds K .trans down the same
-//     K tile. A stage whose every key precedes every row of the warp runs
+//     every staged value), 16 above, in steps of 16 keys: the logits from
+//     the warp's q rows as floats and the stage's float copy of K (up to D
+//     = 64), dp along the V tile, then dq += ds K .trans down the K tile.
+//     A stage whose every key precedes every row of the warp runs
 //     its 4 steps unrolled, with no mask (at D <= 32). Each row's lse2 and
 //     di * scale are read once into registers; p and ds are dK/dV's, so the
 //     two kernels round one and the same bf16 ds. Keys past L are past
@@ -953,16 +950,16 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 //     0.244 u from float64 in best-fit scale against the IEEE sums' 0.162
 //     (17a allows + 0.0625), and the logits alone on the tensor cores
 //     reproduced it (chip_smoke.py --probe dkv, PERF.md);
-//   * the chain's operands. In the forward, and in dK/dV up to D = 64
-//     (kDkvFloatK), the side that stays (q rows in the forward, the warp's
-//     k rows in dK/dV) is held as floats in registers, converted once, and
-//     the streamed side is read as float4 from the stage's float copy (rows
-//     of D + 4 floats: a quad's LDS.128 reads of rows 2t, 2t + 1 and the 8
-//     rows g of a warp fall on distinct banks): per 4 d, 16 FFMA a 2 x 2
-//     block of logits from two LDS.128, or 32 from one at two row groups.
-//     dQ at every D, and dK/dV at D = 128 (where its float rows spill),
-//     shuffle the operands out of the mma fragments (fma_logits: 48 SHFL
-//     and 96 unpacks for 128 FFMA). What bounds the
+//   * the chain's operands. In the forward, and in dK/dV and dQ up to D =
+//     64 (kDkvFloatK, kDqFloatQ), the side that stays (q rows in the
+//     forward and dQ, the warp's k rows in dK/dV) is held as floats in
+//     registers, converted once, and the streamed side is read as float4
+//     from the stage's float copy (rows of D + 4 floats: a quad's LDS.128
+//     reads of rows 2t, 2t + 1 and the 8 rows g of a warp fall on distinct
+//     banks): per 4 d, 16 FFMA a 2 x 2 block of logits from two LDS.128, or
+//     32 from one at two row groups. dK/dV and dQ at D = 128 (where their
+//     float rows spill) shuffle the operands out of the mma fragments
+//     (fma_logits: 48 SHFL and 96 unpacks for 128 FFMA). What bounds the
 //     float path at D = 16 is the delivery of those broadcast LDS.128 to
 //     the registers and the FFMA issue, not occupancy: with the loads of
 //     the forward's keys hoisted out of its step (wrong values, a timing
@@ -991,12 +988,14 @@ extern "C" int movae_flash_bwd_dq(const float* q, const float* k,
 // sum.
 //
 // Registers of the bf16 forward, dK/dV and dQ (ptxas, sm_90a, CUDA 12.9's
-// nvcc; spill store/load bytes in brackets): D=8 113, 168, 128 [60/60];
-// D=16 168, 168 [4/8], 128 [216/320]; D=32 168 [20/24], 168 [4/8], 168
-// [680/1408]; D=64 255, 234, 247; D=128 255, 255 [20/36], 248. The
-// fragment-path forward and dK/dV, both shuffling at every D, with the same
-// nvcc: D=8 128 [40/44], 128; D=16 128, 128 [220/464]; D=32 128 [68/96],
-// 168; D=64 255, 246; D=128 255 [3056/3132], 255 [12/16].
+// nvcc; spill store/load bytes in brackets): D=8 113, 168, 164; D=16 168,
+// 168 [4/8], 168; D=32 168 [20/24], 168, 255 [72/76]; D=64 255, 230, 197;
+// D=128 255, 255 [20/36], 247. dQ before its float rows (shuffled
+// operands, a producer warp): D=8 128 [60/60], D=16 128 [216/320], D=32
+// 168 [680/1408], D=64 247, D=128 248. The fragment-path forward and
+// dK/dV, both shuffling at every D, with the same nvcc: D=8 128 [40/44],
+// 128; D=16 128, 128 [220/464]; D=32 128 [68/96], 168; D=64 255, 246;
+// D=128 255 [3056/3132], 255 [12/16].
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
@@ -1134,13 +1133,12 @@ __device__ __forceinline__ void store_rows_bf16(u16* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 kernels: TMA ring, one producer warp, ldmatrix
+// The bf16 kernels: TMA ring issued by the first thread, ldmatrix
 // ---------------------------------------------------------------------------
 
-constexpr int kBfConsumers = 4;                      // math warps a block
-constexpr int kBfThreads = 32 * (kBfConsumers + 1);  // + 1 producer warp
-// the forward and dK/dV: no producer warp (their first thread issues the
-// copies), so that 3 blocks of 168-register threads fit an SM
+constexpr int kBfConsumers = 4;  // warps a block
+// no producer warp (the first thread issues the copies), so that 3 blocks
+// of 168-register threads fit an SM
 constexpr int kFThreads = 32 * kBfConsumers;
 constexpr int kStage = 64;                           // streamed rows a stage
 // dK/dV's lse2 and di boxes: a box must start on a 16-byte boundary of
@@ -1174,12 +1172,28 @@ constexpr int kDkvMinBlocks = D <= 32 ? 3 : 1;
 // dK/dV) converted once, the streamed side from a float copy of each stage
 // that the block's 4 warps make as the stage lands, a quarter each (rows of
 // kFPitch floats: the quad's LDS.128 reads of rows 2t fall on distinct
-// banks, as do 8 consecutive rows). dK/dV at D = 128 keeps the operands
-// shuffled out of the mma fragments (fma_logits), as dQ does at every D:
-// its float k rows spill there (856 / 1,044 bytes, 1.8x the time; ptxas of
-// CUDA 12.9 and an H100 SXM at 700 W, PERF.md)
+// banks, as do 8 consecutive rows). dK/dV and dQ at D = 128 keep the
+// operands shuffled out of the mma fragments (fma_logits): their float rows
+// spill there (dK/dV's k 856 / 1,044 bytes, 1.8x the time; dQ's q 64 / 116
+// bytes, 24.7-24.9 ms against 15.2; ptxas of CUDA 12.9 and an H100 SXM at
+// 700 W, PERF.md). Up to D = 64 dQ's float rows took 0.64, 0.80, 0.82 and
+// 0.71 of the shuffled path's time at D = 8, 16, 32, 64 (the same row
+// groups: one at D = 32)
 template <int D>
 constexpr bool kDkvFloatK = D <= 64;
+template <int D>
+constexpr bool kDqFloatQ = D <= 64;
+// dQ's 16-row groups a warp owns and the blocks an SM must hold at once:
+// two groups up to D = 32 (D = 16: 64 q floats and 168 registers, 1,204-1,212
+// us against one group's 1,448-1,454 at the prior shape; D = 8 804-811
+// against 866-873). At D = 32 two groups fit only 2 blocks an SM (255
+// registers, 72 / 76 bytes spilled) and still beat one group at 3 blocks
+// (168, no spill): 2,631-2,633 against 2,781-2,784 us at (16, 8, 4096, 32)
+template <int D>
+constexpr int kDqGroups = D <= 32 ? 2 : 1;
+template <int D>
+constexpr int kDqMinBlocks = D <= 16 ? 3 : D == 32 ? 2 : 1;
+
 template <int D>
 constexpr int kFPitch = D + 4;
 template <int D>
@@ -1225,6 +1239,10 @@ template <int D>
 constexpr int dkv_bf16_f_smem() {
   return dkv_bf16_smem<D>() + (kDkvFloatK<D> ? 2 * kFTileBytes<D> : 0);
 }
+template <int D>
+constexpr int dq_bf16_f_smem() {  // dQ: the forward's K and V ring
+  return fwd_bf16_smem<D>() + (kDqFloatQ<D> ? 2 * kFTileBytes<D> : 0);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1242,11 +1260,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
 }
 
 // until the phase of parity `parity` of the barrier has completed; a phase
@@ -2000,26 +2013,22 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dQ's 16-row groups a warp owns (see kDkvGroups) and the blocks an SM must
-// hold at once (see kFwdMinBlocks). Two groups up to D = 32 (ptxas: 128,
-// 124, 168 registers at D = 8, 16, 32, no spill; on an H100 SXM at 700 W
-// and B=16, H=8, L=4096 411-436 us against one group's 468-477 at D = 16,
-// 633-693 against 824-845 at D = 32). At D = 64 two groups spill at 2
-// blocks an SM (168 registers, 144/196 bytes) and at 1 block (206) ran no
-// faster than one group (124)
+// the warp's q rows for the logits: rows row0 + 16 rg + g (+8) as floats,
+// or (where kDqFloatQ is false) as A fragments
 template <int D>
-constexpr int kDqGroups = D <= 32 ? 2 : 1;
-template <int D>
-constexpr int kDqMinBlocks = D <= 16 ? 3 : D == 32 ? 2 : 1;
+using DqQ = std::conditional_t<kDqFloatQ<D>, float[kDqGroups<D>][2][D],
+                               uint32_t[kDqGroups<D>][kBfSteps<D>][4]>;
 
 // one dQ step over the 16 staged keys from tile row c (key index key0) for
 // the warp's kDqGroups<D> groups of 16 rows from row0: the logits and dp, p,
-// ds, then dq += ds K from the same K tile. kMasked: the step holds a key
-// past some row of the warp (the diagonal; every key past L is past every
-// row before L)
+// ds, then dq += ds K from the same K tile. The logits' operands: the q rows
+// as floats (qr) against the stage's float copy of K (kf), or qr's A
+// fragments against the K tile's fragments (fma_logits). kMasked: the step
+// holds a key past some row of the warp (the diagonal; every key past L is
+// past every row before L)
 template <int D, bool kMasked>
 __device__ __forceinline__ void dq_bf16_step(
-    const uint32_t (&qa)[kDqGroups<D>][kBfSteps<D>][4],
+    const DqQ<D>& qr, const float* __restrict__ kf,
     const uint32_t (&da)[kDqGroups<D>][kBfSteps<D>][4],
     const float (&lr)[kDqGroups<D>][2], const float (&dis)[kDqGroups<D>][2],
     float (&dqa)[kDqGroups<D>][D / 8][4], uint32_t ktile, uint32_t vtile,
@@ -2035,16 +2044,51 @@ __device__ __forceinline__ void dq_bf16_step(
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[rg][j][i] = dp[rg][j][i] = 0.f;
+  if constexpr (kDqFloatQ<D>) {
+    // per 4 d: 4 LDS.128 of key rows (c + 8j + 2t + e), 32 G FFMA
 #pragma unroll
-  for (int st = 0; st < kBfSteps<D>; ++st) {
-    uint32_t bk[4], bv[4];
-    ldsm_along<D>(ktile, c, st, bk);
-    ldsm_along<D>(vtile, c, st, bv);
+    for (int d = 0; d < D; d += 4) {
+      float4 x[2][2];
 #pragma unroll
-    for (int rg = 0; rg < G; ++rg) {
-      fma_logits(s[rg][0], s[rg][1], qa[rg][st], bk);
-      mma_bf16(dp[rg][0], da[rg][st], bv[0], bv[1]);
-      mma_bf16(dp[rg][1], da[rg][st], bv[2], bv[3]);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x[j][e] = ld4(kf + (c + 8 * j + 2 * t + e) * kFPitch<D> + d);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float* q4 = qr[rg][r] + d;
+          const float4 y = make_float4(q4[0], q4[1], q4[2], q4[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[rg][j][2 * r + e] = chain4(s[rg][j][2 * r + e], y, x[j][e]);
+        }
+    }
+#pragma unroll
+    for (int st = 0; st < kBfSteps<D>; ++st) {
+      uint32_t bv[4];
+      ldsm_along<D>(vtile, c, st, bv);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg) {
+        mma_bf16(dp[rg][0], da[rg][st], bv[0], bv[1]);
+        mma_bf16(dp[rg][1], da[rg][st], bv[2], bv[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int st = 0; st < kBfSteps<D>; ++st) {
+      uint32_t bk[4], bv[4];
+      ldsm_along<D>(ktile, c, st, bk);
+      ldsm_along<D>(vtile, c, st, bv);
+#pragma unroll
+      for (int rg = 0; rg < G; ++rg) {
+        fma_logits(s[rg][0], s[rg][1], qr[rg][st], bk);
+        mma_bf16(dp[rg][0], da[rg][st], bv[0], bv[1]);
+        mma_bf16(dp[rg][1], da[rg][st], bv[2], bv[3]);
+      }
     }
   }
   uint32_t dsa[G][4];
@@ -2078,11 +2122,13 @@ __device__ __forceinline__ void dq_bf16_step(
 }
 
 // grid (B*H, ceil(L / R)), R = 64 kDqGroups<D> query rows a block;
-// blockIdx.y = 0 is the LAST query block. Warp 4 streams K and V stages of
-// kStage keys up to the one that holds the block's last row; warps 0-3 own
-// 16 kDqGroups<D> rows each
+// blockIdx.y = 0 is the LAST query block. Its 4 warps own 16 kDqGroups<D>
+// rows each. Thread 0 streams K and V stages of kStage keys up to the one
+// that holds the block's last row through a ring of kStages<D> stages,
+// refilling a stage's slot once every warp is past it; where kDqFloatQ the
+// warps convert each stage's K to floats, a quarter each, as it lands
 template <int D>
-__global__ void __launch_bounds__(kBfThreads, kDqMinBlocks<D>)
+__global__ void __launch_bounds__(kFThreads, kDqMinBlocks<D>)
 flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const u16* __restrict__ q,
@@ -2091,33 +2137,30 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tk,
                          const float* __restrict__ di, u16* __restrict__ dq,
                          int L, float scale_log2, float scale) {
   constexpr int G = kDqGroups<D>, N8 = D / 8, S = kStages<D>;
-  constexpr int TB = BfTile<D>::kBytes, R = 16 * kBfConsumers * G;
+  constexpr int TB = BfTile<D>::kBytes, FT = kFTileBytes<D>;
+  constexpr int R = 16 * kBfConsumers * G;
   extern __shared__ uint8_t bf_smem[];
-  const uint32_t tiles = (smem_u32(bf_smem) + 1023u) & ~1023u;
-  const uint32_t full = tiles + S * 2 * TB, empty = full + 8 * S;
+  const uint32_t smem0 = smem_u32(bf_smem);
+  const uint32_t tiles = (smem0 + 1023u) & ~1023u;
+  // the ring's "full" barriers, then the float copies of K
+  const uint32_t full = tiles + S * 2 * TB, ftiles = full + 16 * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb = gridDim.y - 1 - blockIdx.y, h = blockIdx.x;
   const int n_tiles = (min(qb * R + R, L) - 1) / kStage + 1;
+  // stage i's copies into ring slot i % S, issued by thread 0
+  auto issue = [&](int i) {
+    const int s = i % S;
+    const uint32_t at = tiles + s * 2 * TB;
+    mbar_expect_tx(full + 8 * s, 2 * TB);
+    tma_rows<D>(at, &tk, full + 8 * s, i * kStage, h);
+    tma_rows<D>(at + TB, &tv, full + 8 * s, i * kStage, h);
+  };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kBfConsumers);
-    }
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(S - 1, n_tiles); ++i) issue(i);
   }
   __syncthreads();
-  if (warp == kBfConsumers) {  // the producer: one thread issues the copies
-    if (lane == 0)
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % S;
-        const uint32_t at = tiles + s * 2 * TB;
-        mbar_wait(empty + 8 * s, ((i / S) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, 2 * TB);
-        tma_rows<D>(at, &tk, full + 8 * s, i * kStage, h);
-        tma_rows<D>(at + TB, &tv, full + 8 * s, i * kStage, h);
-      }
-    return;
-  }
   const int g = lane >> 2;
   const int64_t base = static_cast<int64_t>(h) * L * D;
   const int64_t lbase = static_cast<int64_t>(h) * L;
@@ -2125,14 +2168,20 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   // the warp's last row before L; -1 when every row is past L (no work)
   const int last = row0 < L ? min(row0 + 16 * G, L) - 1 : -1;
 
-  // the warp's q (logits) and do (dp) rows as A fragments, and each row's
+  // the warp's q (logits) and do (dp: A fragments) rows, and each row's
   // lse2 and di * scale, once
-  uint32_t qa[G][kBfSteps<D>][4], da[G][kBfSteps<D>][4];
+  DqQ<D> qr;
+  uint32_t da[G][kBfSteps<D>][4];
   float lr[G][2], dis[G][2];
 #pragma unroll
   for (int rg = 0; rg < G; ++rg) {
     const int r0 = row0 + 16 * rg + g;
-    load_a_bf16<D>(q + base, r0, r0 + 8, L, qa[rg]);
+    if constexpr (kDqFloatQ<D>) {
+      row_to_float<D>(q + base, r0, L, qr[rg][0]);
+      row_to_float<D>(q + base, r0 + 8, L, qr[rg][1]);
+    } else {
+      load_a_bf16<D>(q + base, r0, r0 + 8, L, qr[rg]);
+    }
     load_a_bf16<D>(dout + base, r0, r0 + 8, L, da[rg]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -2152,29 +2201,38 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tk,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % S, k0 = i * kStage;
     const uint32_t at = tiles + s * 2 * TB;
+    float* kf =
+        reinterpret_cast<float*>(bf_smem + (ftiles + (i & 1) * FT - smem0));
     mbar_wait(full + 8 * s, (i / S) & 1);
+    if constexpr (kDqFloatQ<D>)
+      tile_to_float<D>(bf_smem + (at - smem0), kf, 16 * warp);
+    // past the barrier every warp is done with stage i - 1, whose slot
+    // then takes stage i + S - 1, and K's float copy i % 2 is complete
+    __syncthreads();
+    if (threadIdx.x == 0 && i + S - 1 < n_tiles) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(i + S - 1);
+    }
     if (D <= 32 && k0 + kStage - 1 <= row0 && row0 <= last) {
       // every key of the stage precedes every row of the warp: the four
       // steps unrolled, no mask
 #pragma unroll
       for (int c = 0; c < kStage; c += 16)
-        dq_bf16_step<D, false>(qa, da, lr, dis, dqa, at, at + TB, c, k0 + c,
-                               row0, scale_log2, scale);
+        dq_bf16_step<D, false>(qr, kf, da, lr, dis, dqa, at, at + TB, c,
+                               k0 + c, row0, scale_log2, scale);
     } else {
 #pragma unroll 1
       for (int c = 0; c < kStage; c += 16) {
         const int key0 = k0 + c;
         if (key0 > last) break;  // every key here is ahead of the warp
         if (key0 + 15 <= row0)
-          dq_bf16_step<D, false>(qa, da, lr, dis, dqa, at, at + TB, c, key0,
-                                 row0, scale_log2, scale);
+          dq_bf16_step<D, false>(qr, kf, da, lr, dis, dqa, at, at + TB, c,
+                                 key0, row0, scale_log2, scale);
         else
-          dq_bf16_step<D, true>(qa, da, lr, dis, dqa, at, at + TB, c, key0,
-                                row0, scale_log2, scale);
+          dq_bf16_step<D, true>(qr, kf, da, lr, dis, dqa, at, at + TB, c,
+                                key0, row0, scale_log2, scale);
       }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 #pragma unroll
   for (int rg = 0; rg < G; ++rg) {
@@ -2347,11 +2405,11 @@ extern "C" int movae_flash_bf16_bwd_dq(const void* q, const void* k,
   CUtensorMap tk, tv;
   if ((err = rows_map<kD>(&tk, k, bh, L)) != 0) return err;
   if ((err = rows_map<kD>(&tv, v, bh, L)) != 0) return err;
-  constexpr int smem = fwd_bf16_smem<kD>();  // the forward's K and V ring
+  constexpr int smem = dq_bf16_f_smem<kD>();
   err = allow_smem(flash_bwd_dq_bf16_kernel<kD>, smem);
   if (err != 0) return err;
   flash_bwd_dq_bf16_kernel<kD>
-      <<<bf_grid(bh, L, 16 * kBfConsumers * kDqGroups<kD>), kBfThreads, smem,
+      <<<bf_grid(bh, L, 16 * kBfConsumers * kDqGroups<kD>), kFThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           tk, tv, static_cast<const u16*>(q), static_cast<const u16*>(dout),
           lse2, di, static_cast<u16*>(dq), L, scale * kLog2e, scale);

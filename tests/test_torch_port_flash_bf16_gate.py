@@ -29,12 +29,14 @@ the checkout.
 
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from movae_tpu_torch.kernels import build  # noqa: E402
 from movae_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
 LOG2E = 1.4426950408889634
@@ -263,11 +265,12 @@ def _chain_from_floats(q, k, descending=False):
     return acc
 
 
-@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("d", build.FLASH_HEAD_DIMS)
 def test_float_operand_chain_equals_fma_chain_logits(d):
-    """The float-operand chain equals fma_chain_logits (the chain dQ sums
-    from the mma fragments, and the plain version's tensor_cores=True)
-    bit for bit, and the same chain in descending d does not."""
+    """The float-operand chain equals fma_chain_logits (the chain that the
+    kernels' shuffled path sums from the mma fragments, and the plain
+    version's tensor_cores=True) bit for bit at every head dim built, and
+    the same chain in descending d does not."""
     q, k, _, _ = _inputs((1, 2, 96, d), seed=d, sharp=5.0)
     want = fa.fma_chain_logits(q, k)
     got = _chain_from_floats(q, k)
@@ -438,6 +441,78 @@ def test_sass_counts_reads_the_hot_step(tmp_path):
     whole, hot = cs.per_ex2(ops)
     assert (whole, hot) == ((12 - 3) / 2, (8 - 2) / 2)
     assert bf16_registers(PTXAS) == {"flash_bwd_dq_bf16_kernel": [64, 0, 0]}
+
+
+def _float_row_dims(source: str, name: str) -> tuple:
+    """The head dims at which ``constexpr bool <name> = <expr>;`` of the
+    kernel source holds, its expression in D (comparisons, && and ||)
+    evaluated at each of build.FLASH_HEAD_DIMS."""
+    (expr,) = re.findall(rf"constexpr bool {name} = ([^;]+);", source)
+    assert re.fullmatch(r"[D\s<>=!&|()0-9]+|true|false", expr), expr
+    py = (expr.replace("&&", " and ").replace("||", " or ")
+          .replace("true", "True").replace("false", "False"))
+    return tuple(d for d in build.FLASH_HEAD_DIMS
+                 if eval(py, {"__builtins__": {}}, {"D": d}))
+
+
+def test_float_rows_table_mirrors_the_kernel_source():
+    """chip_smoke.py's FLOAT_ROWS is the kernels' own choice at every head
+    dim built: kDkvFloatK for dK/dV, kDqFloatQ for dQ, and every D for the
+    forward, whose pass 2 always holds its q rows as floats (FwdQ)."""
+    source = (Path(fa.__file__).with_name("flash_attention.cu")
+              .read_text())
+    assert re.search(r"using FwdQ = float\[", source)
+    assert cs.FLOAT_ROWS == {
+        "flash_fwd_bf16_kernel": build.FLASH_HEAD_DIMS,
+        "flash_bwd_dkv_bf16_kernel": _float_row_dims(source, "kDkvFloatK"),
+        "flash_bwd_dq_bf16_kernel": _float_row_dims(source, "kDqFloatQ"),
+    }
+
+
+def _sass_listing(shuffled: str, d: int = 16) -> str:
+    """A canned ``cuobjdump -sass`` listing of the three bf16 kernels at
+    head dim d, with one SHFL.IDX in the kernel named ``shuffled``."""
+    names = {"flash_fwd_bf16_kernel": "121flash_fwd_bf16_kernel",
+             "flash_bwd_dkv_bf16_kernel": "125flash_bwd_dkv_bf16_kernel",
+             "flash_bwd_dq_bf16_kernel": "124flash_bwd_dq_bf16_kernel"}
+    out = []
+    for kern, mangled in names.items():
+        out += [f"        Function : _ZN12_GLOBAL__N_{mangled}ILi{d}EEEvPKt",
+                "        /*0000*/                   HMMA.16816.F32.BF16 "
+                "R4, R8, R12, R4 ;",
+                "        /*0010*/                   FFMA R1, R2, R3, R1 ;",
+                "        /*0020*/                   SHFL.BFLY PT, R5, R1, "
+                "0x1, 0x1f ;"]
+        if kern == shuffled:
+            out.append("        /*0030*/                   SHFL.IDX PT, R6, "
+                       "R7, R0, 0x1f ;")
+        out.append("        /*0040*/                   EXIT ;")
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("shuffled", [None, "flash_bwd_dq_bf16_kernel"])
+def test_operand_path_check_refuses_shfl_idx_on_float_rows(tmp_path,
+                                                           shuffled):
+    """17a's operand-path check passes the three kernels at D = 16 with no
+    SHFL.IDX (SHFL.BFLY, the row sums' butterfly, is not the shuffled
+    path) and refuses dQ's float rows when its SASS holds a SHFL.IDX."""
+    listing = tmp_path / "lib.sass"
+    listing.write_text(_sass_listing(shuffled))
+    fake = tmp_path / "cuobjdump"
+    fake.write_text(f"#!/bin/sh\ncat {listing}\n")
+    fake.chmod(0o755)
+    lib_sass = cs.sass_counts(str(fake), "lib.so")
+    assert set(lib_sass) == {f"{k}<16>" for k in cs.FLOAT_ROWS}
+    if shuffled is None:
+        assert cs.logit_operand_paths(lib_sass, 16) == dict.fromkeys(
+            cs.FLOAT_ROWS, "float rows")
+    else:
+        with pytest.raises(cs.SmokeFailure, match="flash_bwd_dq_bf16_kernel"):
+            cs.logit_operand_paths(lib_sass, 16)
+    # at D = 128 dQ and dK/dV shuffle: no SHFL.IDX there is refused too
+    listing.write_text(_sass_listing(None, 128))
+    with pytest.raises(cs.SmokeFailure, match="says shuffled"):
+        cs.logit_operand_paths(cs.sass_counts(str(fake), "lib.so"), 128)
 
 
 def test_cpu_plain_backward_ignores_the_tensor_core_order():
