@@ -523,7 +523,10 @@ P20_BF16_SHARE, P20_BF16_LEAF_SHARE = 0.99, 0.9
 # its largest; (b) pipeline_parallel: phase 5's float32 PixelSNAIL at L =
 # 4096, its 8 blocks in P20_WORLD stages and P20_PP_M microbatches
 # (default_microbatches of the batch), each block recomputed in the
-# backward; (c) context_parallel: the same prior through the zigzag ring,
+# backward; (c) context_parallel: the same prior with its trunk
+# row-sharded over 'seq' (each rank its 64 / P20_WORLD rows of the grid,
+# the masked convolutions exchanging halos, the zigzag ring fed each
+# rank's own rows; the gradients each rank's part, summed over 'seq'),
 # and the ring alone on FLASH_SLICE against the plain ring (its diagonal
 # blocks through the plain version) within FLASH_O_TOL and FLASH_GRAD_TOL.
 # (b) and (c) run at dropout 0 (a pipeline stage draws its own masks, as
@@ -533,7 +536,12 @@ P20_BF16_SHARE, P20_BF16_LEAF_SHARE = 0.99, 0.9
 # parameters after the steps at test_parallel's bounds, which holds the
 # axis's clip and optimizer (the pipeline's per-stage moments, its norm
 # summed over 'pipe') to one device's. The gradients: on the whole batch,
-# held as 17a holds the flash kernels (p20_grad_close). At this prior's
+# held as 17a holds the flash kernels (p20_grad_close); (c)'s against the
+# float64 attention through its own row-sharded trunk (a half-grid trunk
+# rounds its convolutions otherwise, and ReLU kinks carry that into the
+# gradients: _p20_axis_grads), and (c)'s split in float64 against the
+# whole trunk (P20_F64_TOL); (c)'s memory a rank over one forward and
+# backward, by part (_p20_cp_memory), is logged. At this prior's
 # random init the attention logits reach ~4.6e3 in the last block, where
 # the one-rank float32 path is itself 6.4% of a leaf's largest gradient
 # from float64 (flash_vs_f64), so neither float32 path is the other's
@@ -542,8 +550,14 @@ P20_BF16_SHARE, P20_BF16_LEAF_SHARE = 0.99, 0.9
 # divides each gradient by its size). Planted faults each check refuses:
 # a TP layer that skips its input's backward all-reduce, a pipeline that
 # loses one microbatch's cross-entropy, pipeline stages that clip by their
-# own norms, a ring that drops its last rotation
+# own norms, a ring that drops its last rotation, a sharded trunk's halo
+# that drops its first row
 P20_PP_M, P20_STEPS = 4, 2
+# (c)'s split held in float64 (_p20_f64_trunk): the row-sharded trunk's
+# loss and gradients against the one-rank trunk's, both float64, each
+# leaf within this share of its block's largest gradient (float64 rounds
+# ~1e-16; a lost halo row moves them by ~1e-1)
+P20_F64_TOL = 1e-9
 # the depth of (b), (c) and the sample-parallel sampler's prior: phase 5's
 # 8 blocks cut to 4 (L, the widths and the kernels' shapes kept) to keep
 # the phase's time
@@ -4653,6 +4667,20 @@ class _LoseFirstCE:
         return ce * 0.0 if self.calls == 1 else ce
 
 
+class _DropFirstHaloRow:
+    """A stand-in for ``parallel/context.py:halo_rows`` whose halo loses
+    its first row (zeros): the planted fault of path (c)."""
+
+    def __init__(self, real):
+        self.real = real
+
+    def __call__(self, x, p):
+        import torch
+
+        h = self.real(x, p)
+        return torch.cat([torch.zeros_like(h[:, :, :1]), h[:, :, 1:]], 2)
+
+
 def _p20_prior_setup(torch, dev):
     """Phase 5's float32 PixelSNAIL at dropout 0 and PRIOR_BATCH random
     code grids: (codes, args, meta, fresh)."""
@@ -4732,11 +4760,14 @@ def _p20_train(torch, dev, prior, codes, args, meta, par, rec) -> tuple:
     return trace, _p20_state(out["model"])
 
 
-def _p20_axis_prior(torch, dev, axis: str, planted: bool = False) -> dict:
+def _p20_axis_prior(torch, dev, axis: str, planted: bool = False,
+                    timing: bool = False) -> dict:
     """(b) ``axis`` "pipe", (c) "seq": P20_STEPS train_prior steps of the
     prior of ``_p20_prior_setup`` with that axis over the ranks, the
-    launches counted, each step's gradients recorded (``_Recorded``) and
-    a warm step timed. Rank 0 then runs the one-rank trainer fed those
+    launches counted, conv_in's input rows on this rank (the whole grid's
+    64, or this rank's where the trunk is row-sharded), each step's
+    gradients recorded (``_Recorded``) and a warm step timed (``timing``:
+    only that, with the peak). Rank 0 then runs the one-rank trainer fed those
     gradients: its first CE is the one-rank step's on the whole batch,
     and the path's CE trace and parameters after the steps are held
     against it at test_parallel's bounds (``_p20_close``), so the clip and
@@ -4753,6 +4784,9 @@ def _p20_axis_prior(torch, dev, axis: str, planted: bool = False) -> dict:
     par = mesh.DataParallel(_p20_mesh(torch, dev, axis))
     prior = fresh()
     rec = _Recorded(torch, prior)
+    rows = []
+    hook = prior.conv_in.register_forward_hook(
+        lambda m, i, o: rows.append(int(i[0].shape[2])))
     real = mesh.clip_by_global_norm
     if planted:
         mesh.clip_by_global_norm = lambda grads, axes, max_norm: real(
@@ -4766,10 +4800,15 @@ def _p20_axis_prior(torch, dev, axis: str, planted: bool = False) -> dict:
         torch.cuda.synchronize()
     finally:
         mesh.clip_by_global_norm = real
+        hook.remove()
     res = {"ce": trace, "launches": dict(LAUNCH_COUNTS),
            "step_ms": (rec.stamps[1] - rec.stamps[0]) * 1e3,
-           "digest": _p20_digest(torch, got),
+           "digest": _p20_digest(torch, got), "rows": sorted(set(rows)),
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    if timing:
+        del prior, rec
+        torch.cuda.empty_cache()
+        return res
     # the stages' gradients, whole on rank 0 (the replicated leaves are
     # equal on every stage)
     parts = [None] * P20_WORLD
@@ -4795,8 +4834,8 @@ _P20_LOGITS: list = []
 
 def _f64_attention(q, k, v, sm_scale):
     """Causal attention in float64, one batch row at a time (recomputed in
-    the backward), cast back to float32: the gradient reference of
-    ``_p20_axis_grads``. Appends the largest |logit| of the call (over
+    the backward), cast back to the inputs' dtype: the gradient reference
+    of ``_p20_axis_grads``. Appends the largest |logit| of the call (over
     every row and head) to ``_P20_LOGITS``."""
     import torch
     from torch.utils.checkpoint import checkpoint
@@ -4811,11 +4850,33 @@ def _f64_attention(q, k, v, sm_scale):
 
     def one(qq, kk, vv):
         return dense_causal_attention(qq.double(), kk.double(), vv.double(),
-                                      sm_scale).float()
+                                      sm_scale).to(qq.dtype)
 
     return torch.cat([checkpoint(one, q[b:b + 1], k[b:b + 1], v[b:b + 1],
                                  use_reentrant=False)
                       for b in range(q.shape[0])])
+
+
+def _f64_any_attention(q, k, v, sm_scale):
+    """``_f64_attention`` of the whole sequence; inside a row-sharded trunk
+    on every ``seq`` rank's rows gathered, this rank's rows of the output
+    kept (their cotangent summed over ``seq``)."""
+    from movae_tpu_torch.parallel import context as cp_lib
+    from movae_tpu_torch.parallel import mesh
+
+    if not cp_lib.trunk_sharded():
+        return _f64_attention(q, k, v, sm_scale)
+    n = q.shape[2]
+    whole = [mesh.gather_from_axis(t, 2, "seq") for t in (q, k, v)]
+    out = mesh.copy_to_axis(_f64_attention(*whole, sm_scale), "seq")
+    return out.narrow(2, mesh.axis_index("seq") * n, n)
+
+
+def _seq_sum(grads: dict) -> dict:
+    """Each rank's gradient parts summed over ``seq``."""
+    from movae_tpu_torch.parallel import mesh
+
+    return dict(zip(grads, mesh.all_reduce_sum(list(grads.values()), "seq")))
 
 
 def _p20_prior_grads(torch, prior, codes) -> tuple:
@@ -4828,24 +4889,37 @@ def _p20_prior_grads(torch, prior, codes) -> tuple:
         for (n, _), g in zip(prior.named_parameters(), grads)}
 
 
-def p20_grad_close(got: dict, flash: dict, f64: dict) -> dict:
+def _p20_block(name: str) -> str:
+    """A leaf's block: ``blocks.<b>``, else its first name."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "blocks" else parts[0]
+
+
+def _p20_block_scales(grads: dict) -> dict:
+    """Each block's largest gradient element."""
+    scale: dict = {}
+    for n, g in grads.items():
+        b = _p20_block(n)
+        scale[b] = max(scale.get(b, 0.0), float(g.abs().max()))
+    return scale
+
+
+def p20_grad_close(got: dict, flash: dict, f64: dict,
+                   own: Optional[dict] = None) -> dict:
     """The gradients of a path held as 17a holds the flash kernels on a
     trained prior's q, k, v: each leaf's largest distance from the
     float64-attention gradient within FLASH_PLAIN_FACTOR times the
     one-rank float32 path's distance, or within FLASH_GRAD_TOL of its
     block's largest gradient, whichever is larger (a key bias's true
     gradient is 0: softmax ignores a constant logit). ``worst`` <= 1
-    passes."""
-    scale: dict = {}
-    for n, g in f64.items():
-        block = ".".join(n.split(".")[:2]) if n.startswith("blocks.") \
-            else n.split(".")[0]
-        scale[block] = max(scale.get(block, 0.0), float(g.abs().max()))
+    passes. ``own``: the path's own float64-attention gradient, its
+    trunk split as the path splits it, which ``got`` is held to in place
+    of ``f64`` (``_p20_axis_grads`` under "seq")."""
+    scale = _p20_block_scales(f64)
     worst, at, ratio = 0.0, None, 0.0
     for n, g in f64.items():
-        block = ".".join(n.split(".")[:2]) if n.startswith("blocks.") \
-            else n.split(".")[0]
-        d_path = float((got[n] - g).abs().max())
+        block = _p20_block(n)
+        d_path = float((got[n] - (g if own is None else own[n])).abs().max())
         d_flash = float((flash[n] - g).abs().max())
         bound = max(FLASH_PLAIN_FACTOR * d_flash,
                     FLASH_GRAD_TOL * scale[block])
@@ -4859,9 +4933,20 @@ def _p20_axis_grads(torch, dev, axis: str, planted: bool = False) -> dict:
     """(b) and (c)'s gradients: the prior's gradient on the whole batch
     with ``axis`` over the ranks (the pipeline's stages gathered), rank 0
     holding it by ``p20_grad_close`` against the one-rank float32 path and
-    the float64-attention reference (computed once). ``planted`` (pipe):
-    the pipeline loses one microbatch's CE."""
+    the float64-attention reference (computed once). Under "seq" each
+    rank's gradient is its part, summed over the axis as the trainer
+    sums it, and it is held to its own float64-attention counterpart,
+    the same row-sharded trunk with the attention in float64
+    (``_f64_any_attention``): a trunk on half the rows runs its
+    convolutions on other shapes, which cuDNN rounds otherwise, and
+    through the ReLUs' kinks that moves some leaves by more than the
+    attention's rounding does, so the one-rank float64 gradient holds
+    the attention only where the trunks round alike (the split itself is
+    held in float64, ``_p20_f64_trunk``). ``planted``: (pipe) the
+    pipeline loses one microbatch's CE; (seq) the path's halo drops its
+    first row."""
     from movae_tpu_torch.models import pixelcnn as pc
+    from movae_tpu_torch.parallel import context as cp_lib
     from movae_tpu_torch.parallel import mesh, pipeline
     from movae_tpu_torch.parallel.context import context_parallel
 
@@ -4890,8 +4975,22 @@ def _p20_axis_grads(torch, dev, axis: str, planted: bool = False) -> dict:
             got.update(part)
         loss = float(loss)
     else:
-        with par.activate(), context_parallel():
-            loss, got = _p20_prior_grads(torch, prior, codes)
+        real = cp_lib.halo_rows
+        if planted:
+            cp_lib.halo_rows = _DropFirstHaloRow(real)
+        try:
+            with par.activate(), context_parallel():
+                loss, got = _p20_prior_grads(torch, prior, codes)
+        finally:
+            cp_lib.halo_rows = real
+        real = pc.causal_attention
+        pc.causal_attention = _f64_any_attention
+        try:
+            with par.activate(), context_parallel():
+                own = _p20_prior_grads(torch, fresh(), codes)[1]
+                got, own = _seq_sum(got), _seq_sum(own)
+        finally:
+            pc.causal_attention = real
     res = {"loss": loss}
     if mesh.process_index() == 0:
         if "grads" not in _P20_REFS:
@@ -4906,11 +5005,139 @@ def _p20_axis_grads(torch, dev, axis: str, planted: bool = False) -> dict:
             _P20_REFS["grads"] = (flash, f64)
             res["logit_max"] = list(_P20_LOGITS)
         (res["ref_loss"], flash), (res["f64_loss"], f64) = _P20_REFS["grads"]
-        res["grads"] = p20_grad_close(got, flash, f64)
+        res["grads"] = p20_grad_close(got, flash, f64,
+                                      own if axis == "seq" else None)
+        if axis == "seq":
+            # logged, not gated: the same gate against the one-rank
+            # trunk's float64 attention, which the trunks' other rounding
+            # through the ReLUs' kinks fails; and the sharded float32
+            # trunk with the float64 attention (no flash kernel, no ring)
+            # against it, which reads that rounding alone
+            res["grads_vs_one_rank"] = p20_grad_close(got, flash, f64)
+            res["own_vs_one_rank"] = p20_grad_close(own, flash, f64)
         res["flash_vs_f64"] = max(
             float((flash[n] - g).abs().max() / g.abs().max().clamp_min(
                 1e-30)) for n, g in f64.items() if "k_proj.bias" not in n)
     del prior
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p20_f64_trunk(torch, dev, planted: bool = False) -> dict:
+    """(c)'s split held in float64: the prior of ``_p20_prior_setup`` in
+    float64 (weights, activations, the attention through
+    ``_f64_any_attention``) with its trunk row-sharded over the ranks,
+    each rank's gradient summed over ``seq``, against the one-rank whole
+    trunk in float64 on rank 0: the loss and each leaf's largest distance
+    over its block's largest gradient (``worst``; within P20_F64_TOL
+    passes). In float64 no ReLU kink flips on the trunks' rounding, so
+    this holds the rows, the halos both ways and the sums over ``seq``
+    themselves. ``planted``: the halo drops its first row."""
+    from movae_tpu_torch.models import pixelcnn as pc
+    from movae_tpu_torch.parallel import context as cp_lib
+    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.parallel.context import context_parallel
+
+    codes, _, _, fresh = _p20_prior_setup(torch, dev)
+    codes = torch.from_numpy(codes).to(dev)
+    par = mesh.DataParallel(_p20_mesh(torch, dev, "seq"))
+    real = (pc.causal_attention, cp_lib.halo_rows)
+    pc.causal_attention = _f64_any_attention
+    if planted:
+        cp_lib.halo_rows = _DropFirstHaloRow(real[1])
+    try:
+        with par.activate(), context_parallel():
+            loss, got = _p20_prior_grads(torch, fresh().double(), codes)
+            got = _seq_sum(got)
+        cp_lib.halo_rows = real[1]
+        res = {"loss": loss}
+        if mesh.process_index() == 0:
+            ref_loss, want = _p20_prior_grads(torch, fresh().double(), codes)
+            scale = _p20_block_scales(want)
+            worst, at = 0.0, None
+            for n, g in want.items():
+                d = float((got[n] - g).abs().max()) / scale[_p20_block(n)]
+                if d > worst:
+                    worst, at = d, n
+            res.update(ref_loss=ref_loss, worst=worst, at=at)
+    finally:
+        pc.causal_attention, cp_lib.halo_rows = real
+    torch.cuda.empty_cache()
+    return res
+
+
+def p20_f64_close(r: dict) -> bool:
+    """``_p20_f64_trunk``'s check: the loss and every leaf within
+    P20_F64_TOL."""
+    return (abs(r["loss"] - r["ref_loss"]) <= P20_F64_TOL * abs(r["ref_loss"])
+            and r["worst"] <= P20_F64_TOL)
+
+
+def _p20_cp_memory(torch, dev) -> dict:
+    """(c)'s memory on this rank over one forward and backward of the
+    prior's loss with its trunk row-sharded (no optimizer), in GiB: what
+    the weights and codes hold before it (``start``), what the forward
+    leaves for the backward (``after_forward``) and of that what the ring's
+    forwards allocated (``ring_saved``: their outputs and row log-sum-exps;
+    their inputs were allocated before), the step's peak and the part it
+    was reached in (``peak_in``: the ring's forward or backward, or the
+    trunk around them), each part's own peak, and the most any ring call
+    took above what it found (``ring_fwd_transient``,
+    ``ring_bwd_transient``). ``_Ring.forward`` and ``backward`` are wrapped
+    for the call: the allocator's peak is read and reset at each one's
+    entry and exit."""
+    from movae_tpu_torch.ops import ring_attention as ra
+    from movae_tpu_torch.parallel import mesh
+    from movae_tpu_torch.parallel.context import context_parallel
+
+    gib = 2.0 ** -30
+    codes, _, _, fresh = _p20_prior_setup(torch, dev)
+    codes = torch.from_numpy(codes).to(dev)
+    par = mesh.DataParallel(_p20_mesh(torch, dev, "seq"))
+    prior = fresh()
+    peaks = {"trunk": 0, "ring_fwd": 0, "ring_bwd": 0}
+    res = {"ring_saved": 0.0, "ring_fwd_transient": 0.0,
+           "ring_bwd_transient": 0.0}
+
+    def part(name, fn):
+        def run(*a):
+            peaks["trunk"] = max(peaks["trunk"],
+                                 torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+            entry = torch.cuda.memory_allocated(dev)
+            out = fn(*a)
+            top = torch.cuda.max_memory_allocated(dev)
+            peaks[name] = max(peaks[name], top)
+            key = f"{name}_transient"
+            res[key] = max(res[key], (top - entry) * gib)
+            if name == "ring_fwd":
+                res["ring_saved"] += (torch.cuda.memory_allocated(dev)
+                                      - entry) * gib
+            torch.cuda.reset_peak_memory_stats(dev)
+            return out
+        return staticmethod(run)
+
+    real = (ra._Ring.forward, ra._Ring.backward)
+    ra._Ring.forward = part("ring_fwd", real[0])
+    ra._Ring.backward = part("ring_bwd", real[1])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["start"] = torch.cuda.memory_allocated(dev) * gib
+        with par.activate(), context_parallel():
+            loss = prior.loss_function(codes, train=True)["total_loss"]
+            res["after_forward"] = torch.cuda.memory_allocated(dev) * gib
+            grads = torch.autograd.grad(loss, list(prior.parameters()))
+        torch.cuda.synchronize()
+        peaks["trunk"] = max(peaks["trunk"],
+                             torch.cuda.max_memory_allocated(dev))
+    finally:
+        ra._Ring.forward, ra._Ring.backward = (staticmethod(f)
+                                               for f in real)
+    res["peaks"] = {k: v * gib for k, v in peaks.items()}
+    res["peak"] = max(res["peaks"].values())
+    res["peak_in"] = max(res["peaks"], key=res["peaks"].get)
+    del prior, grads, loss
     torch.cuda.empty_cache()
     return res
 
@@ -5034,6 +5261,11 @@ def _phase20_worker(rank: int, world: int, store: str, root: str,
         "pp_planted": lambda: _p20_axis_grads(torch, dev, pp, planted=True),
         "cp_prior": lambda: _p20_axis_prior(torch, dev, cp),
         "cp_grads": lambda: _p20_axis_grads(torch, dev, cp),
+        "cp_halo_planted": lambda: _p20_axis_grads(torch, dev, cp,
+                                                   planted=True),
+        "cp_f64": lambda: _p20_f64_trunk(torch, dev),
+        "cp_f64_planted": lambda: _p20_f64_trunk(torch, dev, planted=True),
+        "cp_memory": lambda: _p20_cp_memory(torch, dev),
         "ring": lambda: _p20_ring(torch, dev)}
     for key, part in parts.items():
         run(key, part)
@@ -5090,6 +5322,32 @@ def phase_multirank(torch, card: str) -> dict:
             f"{r['seconds_data']:.1f} s, axes {r['seconds_axes']:.1f} s "
             f"(" + ", ".join(f"{k} {v:.1f}"
                              for k, v in r['part_s'].items()) + ")")
+    for r in ranks:
+        log(f"phase 20 (c) row-sharded trunk, rank {r['rank']} ({card}): "
+            f"conv_in rows {r['cp_prior']['rows']} of {PRIOR_SIZE // 4}, "
+            f"peak {r['cp_prior']['peak_gib']:.3f} GiB, warm step "
+            f"{r['cp_prior']['step_ms']:.1f} ms")
+        m = r["cp_memory"]
+        log(f"phase 20 (c) memory of one forward and backward, rank "
+            f"{r['rank']} ({card}): start {m['start']:.3f} GiB, after the "
+            f"forward {m['after_forward']:.3f} (the ring's forwards "
+            f"allocated {m['ring_saved']:.3f} of it), peak {m['peak']:.3f} "
+            f"in {m['peak_in']} (each part's peak: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in m["peaks"].items()) + "); the "
+            f"most a ring call took above what it found: forward "
+            f"{m['ring_fwd_transient']:.3f}, backward "
+            f"{m['ring_bwd_transient']:.3f}")
+    lead = ranks[0]
+    log(f"phase 20 (c) gradients: against its own trunk's float64 "
+        f"attention {json.dumps(lead['cp_grads']['grads'])} (against the "
+        f"one-rank trunk's, not gated: "
+        f"{json.dumps(lead['cp_grads']['grads_vs_one_rank'])}; its trunk "
+        f"with the float64 attention, no flash kernel and no ring, against "
+        f"it: {json.dumps(lead['cp_grads']['own_vs_one_rank'])}); the split in "
+        f"float64, worst leaf {lead['cp_f64']['worst']:.3g} at "
+        f"{lead['cp_f64']['at']} (limit {P20_F64_TOL}); planted halo: "
+        f"{lead['cp_halo_planted']['grads']['worst']:.3g} and "
+        f"{lead['cp_f64_planted']['worst']:.3g}")
     check_multirank(ranks)
     return res
 
@@ -5237,6 +5495,27 @@ def check_axes(ranks: list) -> None:
               f"20 {key} gradients: loss {g['loss']} vs {g['ref_loss']}, "
               f"against float64 attention {g['grads']} (the one-rank "
               f"float32 path {g['flash_vs_f64']:.3g} of a leaf's largest)")
+    rows = PRIOR_SIZE // 4 // P20_WORLD
+    for r in ranks:
+        check(r["cp_prior"]["rows"] == [rows],
+              f"20 cp prior rank {r['rank']}: conv_in took "
+              f"{r['cp_prior']['rows']} rows, want this rank's {rows} (the "
+              f"trunk row-sharded over 'seq')")
+    planted = lead["cp_halo_planted"]
+    check(not _p20_grads_close(planted),
+          f"20 cp: the check passes a sharded trunk whose halo drops its "
+          f"first row: loss {planted['loss']} vs {planted['ref_loss']}, "
+          f"{planted['grads']}")
+    r = lead["cp_f64"]
+    check(p20_f64_close(r),
+          f"20 cp in float64: the row-sharded trunk against the whole: loss "
+          f"{r['loss']} vs {r['ref_loss']}, worst leaf {r['worst']:.3g} at "
+          f"{r['at']} (limit {P20_F64_TOL} of its block's largest)")
+    planted = lead["cp_f64_planted"]
+    check(not p20_f64_close(planted),
+          f"20 cp in float64: the check passes a sharded trunk whose halo "
+          f"drops its first row: loss {planted['loss']} vs "
+          f"{planted['ref_loss']}, worst leaf {planted['worst']:.3g}")
     planted = lead["pp_clip_planted"]
     check(not _p20_step_ok(planted),
           f"20 pp: the check passes a pipeline whose stages clip by their "
@@ -5621,7 +5900,10 @@ def probe_timings(torch, dev) -> dict:
       * ``wavefront_b16_s`` / ``wavefront_b128_s``: ``sample_wavefront``
         on phase 14's HierarchicalPixelCNN bottom prior at 64x64,
         conditioned, batch 16 and 128; ``raster_top_s``: ``sample_fast``
-        on its top prior at 32x32, batch 16.
+        on its top prior at 32x32, batch 16;
+      * ``cp_prior``: phase 20 (c)'s train_prior steps with
+        ``context_parallel`` over P20_WORLD ranks spawned on the card
+        (gloo), each rank's warm step ms, peak GiB and conv_in's rows.
 
     Each sampler run is timed once after a warm-up run of a 4x4 grid, with
     a card synchronisation at each end."""
@@ -5676,7 +5958,49 @@ def probe_timings(torch, dev) -> dict:
     pc.sample_fast(hp.prior_top, gen.manual_seed(4), b, 4, 4)
     out["raster_top_s"] = timed(lambda: pc.sample_fast(
         hp.prior_top, gen.manual_seed(4), b, 32, 32))
+    del hp
+    torch.cuda.empty_cache()
+    out["cp_prior"] = _probe_cp(os.path.dirname(out["package"]))
     return out
+
+
+def _probe_cp_worker(rank: int, world: int, store: str, root: str,
+                     out: str) -> None:
+    """One rank of ``probe_timings``' ``cp_prior`` (spawned), the package
+    imported from ``root``; rank 0 writes every rank's result."""
+    sys.path.insert(0, root)
+    import torch
+
+    from movae_tpu_torch.device import resolve_device
+    from movae_tpu_torch.parallel import mesh
+
+    dev = resolve_device("cuda")
+    mesh.init_distributed("cuda", backend_name="gloo",
+                          init_method=f"file://{store}", rank=rank,
+                          world_size=world)
+    res = _p20_axis_prior(torch, dev, "seq", timing=True)
+    every = [None] * world
+    torch.distributed.all_gather_object(every, {
+        "rank": rank, "step_ms": res["step_ms"],
+        "peak_gib": res["peak_gib"], "rows": res["rows"]})
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(every, f)
+    torch.distributed.destroy_process_group()
+
+
+def _probe_cp(root: str) -> list:
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="movae_cp_")
+    out = os.path.join(tmp, "ranks.json")
+    try:
+        mp.spawn(_probe_cp_worker, args=(P20_WORLD, os.path.join(
+            tmp, "store"), root, out), nprocs=P20_WORLD, join=True)
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:

@@ -10,9 +10,9 @@ summary as ``final/*``. ``torchrun --nproc_per_node N -m
 movae_tpu_torch.main ...`` runs every stage over N ranks
 (``--batch_size`` the global batch; rank 0 writes the run tree): data
 parallel by default, with ``--model_partitions`` (tensor parallelism of
-stage 1), ``--context_parallel`` (ring attention in the prior) and
-``--pipeline_parallel`` (the prior's blocks as a GPipe pipeline) taking
-their axes of the ranks (``parallel/``).
+stage 1), ``--context_parallel`` (the prior's trunk row-sharded, its
+attention on the ring) and ``--pipeline_parallel`` (the prior's blocks as
+a GPipe pipeline) taking their axes of the ranks (``parallel/``).
 """
 
 from __future__ import annotations
@@ -169,9 +169,9 @@ def build_parser() -> ArgumentParser:
                              "'model' axis of the torchrun ranks (the rest "
                              "data parallel)")
     parser.add_argument("--context_parallel", type=int, default=1,
-                        help="sequence-parallel partitions of the prior's "
-                             "attention: ring attention over a 'seq' axis "
-                             "of the torchrun ranks")
+                        help="sequence-parallel partitions of the prior: "
+                             "its trunk's rows and ring attention over a "
+                             "'seq' axis of the torchrun ranks")
     parser.add_argument("--pipeline_parallel", type=int, default=1,
                         help="pipeline-parallel prior stages: GPipe over a "
                              "'pipe' axis of the torchrun ranks (data "

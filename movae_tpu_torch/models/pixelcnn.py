@@ -46,6 +46,8 @@ from movae_tpu_torch.device import replay_steps
 from movae_tpu_torch.models.base import (compute_region, draw,
                                          resolve_compute_dtype)
 from movae_tpu_torch.ops.vq import gather_rows
+from movae_tpu_torch.parallel import context as cp_lib
+from movae_tpu_torch.parallel import mesh as mesh_lib
 from movae_tpu_torch.parallel.context import (gather_sample_batch,
                                               shard_sample_batch)
 
@@ -68,16 +70,26 @@ def make_conv_mask(kh: int, kw: int, cin: int, cout: int,
     return mask
 
 
-def _dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]
-             ) -> Tensor:
+def _dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
+             seq_dim: Optional[int] = None) -> Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
     values by 1 / (1 - rate). The uniform draw goes through
     ``models/base.py:draw`` (a data-parallel step draws it for the global
-    batch)."""
+    batch); inside a row-sharded trunk it is drawn for the whole sequence
+    along ``seq_dim`` and this rank keeps its part, so one generator draws
+    the same masks whatever the ``seq`` ranks."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = draw("dropout", "rand", x.shape, generator, None, x.device) < keep
+    shape = list(x.shape)
+    part = None
+    if seq_dim is not None and cp_lib.trunk_sharded():
+        part = cp_lib.seq_part(shape[seq_dim])
+        shape[seq_dim] = part[1]
+    mask = draw("dropout", "rand", shape, generator, None, x.device)
+    if part is not None:
+        mask = mask.narrow(seq_dim, part[0], x.shape[seq_dim])
+    mask = mask < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -104,7 +116,11 @@ class GatherEmbed(nn.Module):
 
 class MaskedConv(nn.Conv2d):
     """Masked conv with SAME padding: the kernel is multiplied by the causal
-    mask at apply time and never mutated."""
+    mask at apply time and never mutated. Inside a row-sharded trunk
+    (``parallel/context.py``) the rows above this rank's come from the
+    ranks that hold them (``halo_rows``) in place of the top padding; the
+    bottom and the sides stay zeros (the mask zeroes every kernel row
+    below the centre)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  mask_type: str = "B"):
@@ -115,7 +131,17 @@ class MaskedConv(nn.Conv2d):
             persistent=False)
 
     def forward(self, x: Tensor) -> Tensor:
-        return self._conv_forward(x, self.weight * self.mask, self.bias)
+        w = self.weight * self.mask
+        if not cp_lib.trunk_sharded():
+            return self._conv_forward(x, w, self.bias)
+        kh, kw = self.kernel_size
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError(f"a row-sharded trunk needs odd masked "
+                             f"kernels, got {kh}x{kw}")
+        top = kh // 2
+        x = torch.cat([cp_lib.halo_rows(x, top), x], 2)
+        x = F.pad(x, (0, 0, 0, top))
+        return F.conv2d(x, w, self.bias, padding=(0, kw // 2))
 
 
 class GatedResBlock(nn.Module):
@@ -199,7 +225,7 @@ class CausalAttention(nn.Module):
                     lambda w: _dropout(w, drop, generator))
             else:
                 out = _dropout(causal_attention(q, k, v, sm_scale), drop,
-                               generator)
+                               generator, seq_dim=2)
         # flatten DIM-MAJOR, channel = d * nh + head, as the reference's
         # out.permute(0, 2, 3, 1).reshape(B, L, proj_dim) does; out_proj's
         # weights are bound to this layout (a heads-major flatten was the
@@ -241,7 +267,16 @@ class _Prior(nn.Module):
     """Shared embedding, output head, loss and initializers.
     ``compute_dtype`` (float32 or bfloat16) is the dtype of the conv and
     dense layers (``models/base.py:compute_region``); the embedding, the
-    logits and the cross-entropy are float32, as in the JAX package."""
+    logits and the cross-entropy are float32, as in the JAX package.
+
+    Under an active context-parallel config whose ``seq`` ranks divide the
+    grid's rows, the trunk runs row-sharded (``parallel/context.py``, the
+    JAX package's ``seq_shard_spatial``): each rank embeds and runs its
+    own rows of the codes, the condition plane and the coordinate
+    channels; :meth:`loss_function` sums its rows' cross-entropy over the
+    global pixel count and then over ``seq`` (the logits are never
+    gathered), and :meth:`logits_nchw` / :meth:`forward` gather the rows
+    into the whole grid."""
 
     num_embeddings: int
     compute_dtype: torch.dtype = torch.float32
@@ -281,18 +316,36 @@ class _Prior(nn.Module):
                 generator: Optional[torch.Generator]) -> Tensor:
         raise NotImplementedError
 
+    def _trunk_logits(self, codes: Tensor, train: bool,
+                      generator: Optional[torch.Generator],
+                      condition: Optional[Tensor]):
+        """(logits, rows): this rank's rows ``rows`` of the (B, K, H, W)
+        logits where the active context shards the trunk, else the whole
+        grid's and None."""
+        rows = cp_lib.trunk_rows(codes.shape[1])
+        extra = self._extra(codes, rows)
+        if rows is not None:
+            codes = codes[:, rows[0]:rows[1]]
+            if condition is not None:
+                condition = condition[:, rows[0]:rows[1]]
+        h = self._input(codes, extra, condition)
+        with cp_lib.sharded_trunk(rows), compute_region(self.compute_dtype,
+                                                        codes.device):
+            out = self._logits(h, train, generator)
+        # bf16 logits to float32; a float64 module keeps float64
+        return out.to(torch.promote_types(out.dtype, torch.float32)), rows
+
     def logits_nchw(self, codes: Tensor, train: bool = False,
                     generator: Optional[torch.Generator] = None,
                     condition: Optional[Tensor] = None) -> Tensor:
         """(B, H, W) codes -> (B, K, H, W) float32 logits, the layers in
-        ``compute_dtype``."""
-        h = self._input(codes, self._extra(codes), condition)
-        with compute_region(self.compute_dtype, codes.device):
-            out = self._logits(h, train, generator)
-        # bf16 logits to float32; a float64 module keeps float64
-        return out.to(torch.promote_types(out.dtype, torch.float32))
+        ``compute_dtype`` (a row-sharded trunk's rows gathered)."""
+        out, rows = self._trunk_logits(codes, train, generator, condition)
+        return out if rows is None else mesh_lib.gather_from_axis(out, 2,
+                                                                  "seq")
 
-    def _extra(self, codes: Tensor) -> Optional[Tensor]:
+    def _extra(self, codes: Tensor, rows: Optional[Tuple[int, int]] = None
+               ) -> Optional[Tensor]:
         return None
 
     def forward(self, codes: Tensor, train: bool = False,
@@ -307,9 +360,18 @@ class _Prior(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       condition: Optional[Tensor] = None
                       ) -> Dict[str, Tensor]:
-        """Mean cross-entropy of the codes under their own logits."""
-        logits = self.logits_nchw(codes, train, generator, condition)
-        return {"total_loss": F.cross_entropy(logits, codes.long())}
+        """Mean cross-entropy of the codes under their own logits. Under
+        an active context-parallel config every ``seq`` rank's gradient is
+        its part of the whole (the trainer sums them): a sharded trunk's
+        rows', a whole trunk's 1/S (``parallel/context.py``)."""
+        logits, rows = self._trunk_logits(codes, train, generator,
+                                          condition)
+        if rows is None:
+            return {"total_loss": cp_lib.part_of_whole(
+                F.cross_entropy(logits, codes.long()))}
+        ce = F.cross_entropy(logits, codes[:, rows[0]:rows[1]].long(),
+                             reduction="sum") / codes.numel()
+        return {"total_loss": cp_lib.sum_over_seq(ce)}
 
 
 class PixelCNN(_Prior):
@@ -369,9 +431,14 @@ class PixelSNAIL(_Prior):
             for _ in range(num_blocks))
         self.conv_out = self._head()
 
-    def _extra(self, codes: Tensor) -> Tensor:
+    def _extra(self, codes: Tensor, rows: Optional[Tuple[int, int]] = None
+               ) -> Tensor:
+        """The whole grid's coordinate channels, NCHW, or its ``rows``."""
         b, hh, ww = codes.shape
-        pos = torch.from_numpy(_pos_encoding(hh, ww).transpose(0, 3, 1, 2))
+        pos = _pos_encoding(hh, ww).transpose(0, 3, 1, 2)
+        if rows is not None:
+            pos = pos[:, :, rows[0]:rows[1]]
+        pos = torch.from_numpy(np.ascontiguousarray(pos))
         return pos.to(codes.device).expand(b, -1, -1, -1)
 
     def _logits(self, h: Tensor, train: bool,

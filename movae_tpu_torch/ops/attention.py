@@ -14,7 +14,11 @@ All paths use the inclusive-diagonal causal mask (position i attends to
 
 Under an active context-parallel config (``parallel/context.py``,
 ``--context_parallel N``) every call takes the ring over the ``seq`` axis
-(``ops/ring_attention.py``), at any L, as the JAX package's dispatch does.
+(``ops/ring_attention.py``), at any L, as the JAX package's dispatch does:
+inside a row-sharded trunk the inputs are this rank's part of the
+sequence (the context says so, ``ContextParallel.sharded``, not the
+shapes) and take ``ring_attention_rows``; else they are the whole
+sequence and take ``ring_causal_attention``.
 A data-parallel prior step (``parallel/mesh.py``) runs these paths on each
 rank's rows: attention is per row. Not ported: the JAX package's
 ``blockwise_causal_attention`` scan, a CPU fallback and test oracle whose
@@ -49,8 +53,10 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor, sm_scale: float
 
     ctx = get_context_parallel()
     if ctx is not None and ctx.size > 1:
-        from movae_tpu_torch.ops.ring_attention import ring_causal_attention
-        return ring_causal_attention(q, k, v, sm_scale)
+        from movae_tpu_torch.ops import ring_attention as ra
+        if ctx.sharded:
+            return ra.ring_attention_rows(q, k, v, sm_scale)
+        return ra.ring_causal_attention(q, k, v, sm_scale)
     if q.shape[2] <= DENSE_ATTENTION_MAX_L:
         return dense_causal_attention(q, k, v, sm_scale)
     return flash_causal_attention(q, k, v, sm_scale)

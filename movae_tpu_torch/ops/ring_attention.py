@@ -32,12 +32,24 @@ rowsum(do * o)`` of the merged output, so each block's partial dQ/dK/dV
 is exact; the K/V stripes and their dK/dV accumulators travel the ring in
 the opposite direction, and dK/dV take one more hop home.
 
-The trunk before the attention runs whole on every ``seq`` rank, so
-:func:`ring_causal_attention` takes each rank's whole (B, H, L, D) q, k,
-v, keeps its stripes (identity forward, gradient summed over ``seq``) and
-gathers the output (all-gather forward, own stripes backward): the pair
-of ``parallel/tensor.py``'s layers (``mesh.copy_to_axis``,
-``mesh.gather_from_axis``).
+Two entries, by what each rank holds:
+
+* :func:`ring_attention_rows`, the row-sharded trunk's
+  (``parallel/context.py:sharded_trunk``, the port of the JAX package's
+  ``seq_shard_spatial``), takes each rank's contiguous (B, H, L/S, D) q,
+  k, v (its part of the raster sequence) and returns its output rows.
+  Zigzag moves each rank's two contiguous stripes (2r, 2r+1) to the pair
+  (d, 2S-1-d) with one batched ``mesh.exchange`` (in the inputs' dtype,
+  one message a pair of ranks), runs :class:`_Ring` and moves the output
+  back; each move's backward is the inverse move. Where L/S is odd the
+  zigzag stripes do not align with the rows: the rows are gathered and
+  take the whole-sequence entry.
+* :func:`ring_causal_attention`, the whole trunk's (a grid the ranks do
+  not divide), takes each rank's whole (B, H, L, D) q, k, v, equal on
+  every ``seq`` rank, keeps its stripes (identity forward, gradient
+  summed over ``seq``) and gathers the output (all-gather forward, own
+  stripes backward): the pair of ``parallel/tensor.py``'s layers
+  (``mesh.copy_to_axis``, ``mesh.gather_from_axis``).
 """
 
 from __future__ import annotations
@@ -313,3 +325,88 @@ def ring_causal_attention(q: Tensor, k: Tensor, v: Tensor, sm_scale: float,
     out = mesh_lib.gather_from_axis(out, 2, "seq")
     out = out.index_select(2, torch.argsort(order).to(out.device))
     return out[:, :, :L].to(dtype)
+
+
+def _owner(c: int, S: int, layout: str) -> Tuple[int, int]:
+    """(rank, half) that holds stripe ``c`` of 2S: ``rows`` (rank r the
+    contiguous stripes 2r, 2r+1) or ``zigzag`` (rank d stripes d and
+    2S-1-d)."""
+    if layout == "rows":
+        return divmod(c, 2)
+    return (c, 0) if c < S else (2 * S - 1 - c, 1)
+
+
+def _move(t: Tensor, src: str, dst: str) -> Tensor:
+    """This rank's two stripes (the halves of ``t``'s dim -2) in layout
+    ``src`` -> its two in layout ``dst``, in one batched exchange over
+    ``seq`` (the stripes one rank sends another go as one message)."""
+    S, me = mesh_lib.axis_size("seq"), mesh_lib.axis_index("seq")
+    dim = t.dim() - 2
+    halves = t.chunk(2, dim)
+    n = halves[0].shape[dim]
+    out: list = [None, None]
+    sends: dict = {}
+    recvs: dict = {}
+    for c in range(2 * S):
+        (rs, hs), (rd, hd) = _owner(c, S, src), _owner(c, S, dst)
+        if rs == me and rd == me:
+            out[hd] = halves[hs]
+        elif rs == me:
+            sends.setdefault(rd, []).append(halves[hs])
+        elif rd == me:
+            recvs.setdefault(rs, []).append(hd)
+    shape = list(halves[0].shape)
+    bufs = {}
+    for peer, slots in recvs.items():
+        shape[dim] = n * len(slots)
+        bufs[peer] = t.new_empty(shape)
+    mesh_lib.exchange([(torch.cat(parts, dim), peer)
+                       for peer, parts in sends.items()],
+                      [(buf, peer) for peer, buf in bufs.items()],
+                      axis="seq")
+    for peer, slots in recvs.items():
+        for i, h in enumerate(slots):
+            out[h] = bufs[peer].narrow(dim, i * n, n)
+    return torch.cat(out, dim)
+
+
+class _Move(torch.autograd.Function):
+    """:func:`_move` from ``src`` to ``dst``; the backward moves the
+    cotangent back, over the forward's mesh."""
+
+    @staticmethod
+    def forward(ctx, t: Tensor, src: str, dst: str) -> Tensor:
+        ctx.src, ctx.dst, ctx.mesh = src, dst, mesh_lib.current_mesh()
+        return _move(t.contiguous(), src, dst)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        with mesh_lib.using(ctx.mesh):
+            return _move(g.contiguous(), ctx.dst, ctx.src), None, None
+
+
+def ring_attention_rows(q: Tensor, k: Tensor, v: Tensor, sm_scale: float
+                        ) -> Tensor:
+    """Causal attention of this rank's contiguous part (B, H, L/S, D) of
+    the raster sequence (positions ``[r L/S, (r+1) L/S)`` of ``seq`` rank
+    r, as a row-sharded trunk holds it) over the S ranks of the current
+    mesh's ``seq`` axis. Returns this rank's output rows in the inputs'
+    dtype; the gradients are this rank's q, k, v's."""
+    S = mesh_lib.axis_size("seq")
+    if S == 1:
+        return fa.flash_causal_attention(q, k, v, sm_scale)
+    if not math.isfinite(sm_scale):
+        raise ValueError(f"sm_scale must be finite, got {sm_scale}")
+    dtype, n = q.dtype, q.shape[2]
+    if n % 2:
+        # the zigzag stripes cut L into 2S: rows of odd length straddle
+        # them, so the rows are gathered and take the whole entry; its
+        # output's cotangent is summed over seq (each rank's rows differ)
+        whole = [mesh_lib.gather_from_axis(t, 2, "seq") for t in (q, k, v)]
+        out = ring_causal_attention(*whole, sm_scale)
+        out = mesh_lib.copy_to_axis(out, "seq")
+        return out.narrow(2, mesh_lib.axis_index("seq") * n, n)
+    qkv = _Move.apply(torch.stack([q, k, v]), "rows", "zigzag").float()
+    out = _Ring.apply(qkv[0].contiguous(), qkv[1].contiguous(),
+                      qkv[2].contiguous(), float(sm_scale), True)
+    return _Move.apply(out.to(dtype), "zigzag", "rows")

@@ -289,20 +289,36 @@ def all_reduce_(t: Tensor, op: str = "sum",
     return t
 
 
-def all_reduce_mean(tensors: Sequence[Tensor], axis: Optional[str] = "data"
-                    ) -> List[Tensor]:
-    """Each tensor's mean over ``axis``, in one all-reduce of one flat
-    buffer (identities where the axis is 1)."""
+def _all_reduce_flat(tensors: Sequence[Tensor], op: str,
+                     axis: Optional[str]) -> List[Tensor]:
+    """One all-reduce of one flat buffer, float32 (float64 where a tensor
+    is)."""
     tensors = list(tensors)
     if axis_size(axis) == 1 or not tensors:
         return tensors
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    all_reduce_(flat, "mean", axis=axis)
+    dtype = (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+             else torch.float32)
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+    all_reduce_(flat, op, axis=axis)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
         i += t.numel()
     return out
+
+
+def all_reduce_mean(tensors: Sequence[Tensor], axis: Optional[str] = "data"
+                    ) -> List[Tensor]:
+    """Each tensor's mean over ``axis``, in one all-reduce of one flat
+    buffer (identities where the axis is 1)."""
+    return _all_reduce_flat(tensors, "mean", axis)
+
+
+def all_reduce_sum(tensors: Sequence[Tensor], axis: Optional[str] = "data"
+                   ) -> List[Tensor]:
+    """Each tensor's sum over ``axis``, in one all-reduce of one flat
+    buffer (identities where the axis is 1)."""
+    return _all_reduce_flat(tensors, "sum", axis)
 
 
 def all_gather(t: Tensor, axis: Optional[str] = "data") -> List[Tensor]:

@@ -23,8 +23,11 @@ data index and size) with the gradients all-reduced over ``data``, the
 dropout masks drawn for the global batch, and under ``--fsdp`` 1/N of the
 large leaves and moments held at rest: the numbers of one device on the
 whole batch. Rank 0 alone writes. With ``--context_parallel N`` the
-mesh's ``seq`` axis carries the prior's attention as ring attention
-(``ops/ring_attention.py``, installed by ``parallel/context.py``); with
+mesh's ``seq`` axis carries the prior's trunk row-sharded where its N
+ranks divide the grid's rows (each rank its rows, masked convolutions
+exchanging halos; else the trunk whole on every rank) and its attention
+as ring attention (``parallel/context.py``, ``ops/ring_attention.py``);
+each rank's gradient is its part, summed over ``seq``; with
 ``--pipeline_parallel S`` the block stack(s) run as a GPipe pipeline over
 ``pipe`` (``parallel/pipeline.py``; ``--pipeline_microbatches M``, else
 the largest divisor of the per-shard batch up to 2S), each stage holding
@@ -460,10 +463,11 @@ def _train_on_levels(levels, model_meta, args, dev, step_trace, prior,
         stages)."""
         if parallel is not None:
             grads = engine.all_reduce_mean(grads)
-            # the seq ranks each compute the same whole gradient, with
-            # their own rounding where the card sums in no fixed order:
-            # the mean keeps their replicas equal
-            grads = engine.all_reduce_mean(grads, "seq")
+            # each seq rank's gradient is its part of the whole (a
+            # row-sharded trunk's rows'; a whole trunk's 1/S, so the sum
+            # is the replicas' mean): the sum is the whole, the same on
+            # every rank
+            grads = mesh_lib.all_reduce_sum(grads, "seq")
         grads = holder.slice_grads(grads)
         if clip_axes is not None:
             grads = mesh_lib.clip_by_global_norm(grads, clip_axes,

@@ -122,9 +122,9 @@ def build_prior_parser(checkpoint_alias: str = "vqvae_checkpoint"
                    "flash path; weights = the reference's, on the dense "
                    "path only (L <= 1024)")
     p.add_argument("--context_parallel", type=int, default=1,
-                   help="sequence-parallel partitions of the prior's "
-                        "attention: ring attention over a 'seq' axis of "
-                        "the torchrun ranks")
+                   help="sequence-parallel partitions of the prior: "
+                        "its trunk's rows and ring attention over a 'seq' "
+                        "axis of the torchrun ranks")
     p.add_argument("--pipeline_parallel", type=int, default=1,
                    help="pipeline-parallel prior stages: GPipe over a "
                         "'pipe' axis of the torchrun ranks (data "
